@@ -1,0 +1,274 @@
+"""Driver: config → geometry → mesh → solve → norms.
+
+Port of the linear Poisson path of `disco4est_tpu/driver.py`
+(`geometry_from_options`, `run_poisson`) for `pc_type = none` on bricks,
+without AMR steps.  Solve paths, as in the JAX driver:
+
+- mixed precision on (the default): f64 outer refinement whose inner f32
+  CG runs the structured apply (`laplacian/structured.py`, the CUDA kernel
+  on a card) when `use_structured` is on and the mesh is a uniform brick,
+  else the generic f32 fast apply;
+- if that solve stagnates above the refinement floor, the plain f64
+  solver (the "f64 fallback");
+- mixed precision off: plain f64 CG or FCG (`ksp_type`).
+
+`use_structured = auto` means "on when the device is CUDA" (the JAX
+driver: "on when the backend is a TPU").  Everything runs on the device
+the caller names; a missing CUDA device raises, it never drops to the CPU.
+Options this slice does not port raise `NotImplementedError` naming the
+ROADMAP item that brings them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import torch
+
+from disco4est_tpu_torch.geometry.brick import BrickGeometry
+from disco4est_tpu_torch.io.norms import NormLog, norm_L2, norm_Linfty
+from disco4est_tpu_torch.laplacian import structured
+from disco4est_tpu_torch.laplacian.sipg import (
+    apply_sipg,
+    build_rhs_with_strong_bc,
+)
+from disco4est_tpu_torch.mesh.builder import MeshData, build_mesh
+from disco4est_tpu_torch.mesh.tree import Forest
+from disco4est_tpu_torch.quadrature.quadrature import Quadrature
+from disco4est_tpu_torch.solvers.cg import cg_solve
+from disco4est_tpu_torch.solvers.fcg import fcg_solve
+from disco4est_tpu_torch.solvers.mixed import mixed_refine_solve
+from disco4est_tpu_torch.util.config import Options
+
+_ON = ("1", "true", "yes", "on")
+
+
+def resolve_device(name) -> torch.device:
+    """The device a run asks for; CUDA without a card raises."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "device 'cuda' requested but torch.cuda.is_available() is "
+            "False; pass --device=cpu to run on the CPU"
+        )
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {name!r}")
+    return device
+
+
+def geometry_from_options(opts: Options):
+    """[geometry] section → Geometry (reference `d4est_geometry_new`,
+    `Geometry/d4est_geometry.c:127`).  Brick only in this port."""
+    name = opts.get("geometry", "name", required=True)
+    if name == "brick":
+        g = lambda k, d: opts.get_float("geometry", k, d)
+        return BrickGeometry(
+            x0=(g("x0", 0.0), g("y0", 0.0), g("z0", 0.0)),
+            x1=(g("x1", 1.0), g("y1", 1.0), g("z1", 1.0)),
+            dim=3,
+        )
+    if name in ("cubed_sphere", "cubed_sphere_7tree", "disk", "5treedisk",
+                "trap", "trapezoid", "pizza_half", "hole_in_a_box"):
+        raise NotImplementedError(
+            f"geometry {name!r}: curved geometries are not ported yet "
+            "(ROADMAP A11)"
+        )
+    raise ValueError(f"unknown geometry {name}")
+
+
+_FACE_H_MAP = {
+    "FACE_H_EQ_TREE_H": "tree_h",
+    "FACE_H_EQ_VOLUME_DIV_AREA": "volume_div_area",
+    "FACE_H_EQ_J_DIV_SJ_QUAD": "j_div_sj_quad",
+    "FACE_H_EQ_J_DIV_SJ_MIN_LOBATTO": "j_div_sj_min_lobatto",
+}
+
+
+def face_h_from_options(opts: Options) -> str:
+    """[mesh_parameters] face_h_type with the reference's enum vocabulary
+    (`Mesh/d4est_mesh.c:173-200`)."""
+    name = opts.get(
+        "mesh_parameters", "face_h_type", "FACE_H_EQ_VOLUME_DIV_AREA"
+    )
+    if name not in _FACE_H_MAP:
+        raise ValueError(f"unknown face_h_type {name!r}")
+    return _FACE_H_MAP[name]
+
+
+@dataclasses.dataclass
+class SolveInfo:
+    """What one level's linear solve did."""
+
+    path: str  # "mixed-structured" | "mixed" | "cg" | "fcg"
+    outer_iterations: int  # refinement steps (0 for a plain Krylov solve)
+    iterations: int  # inner f32 iterations, or the plain solve's
+    residual_norm: float
+    fallback: bool  # True when the f64 fallback solve ran
+    seconds: float
+
+    def line(self, level: int) -> str:
+        return (
+            f"solve level {level}: path={self.path} "
+            f"outer={self.outer_iterations} iterations={self.iterations} "
+            f"residual={self.residual_norm:.3e} "
+            f"fallback={'yes' if self.fallback else 'no'} "
+            f"seconds={self.seconds:.3f}"
+        )
+
+
+@dataclasses.dataclass
+class DriverResult:
+    mesh: MeshData
+    u: torch.Tensor
+    norms: NormLog
+    solves: list  # [SolveInfo] per level
+
+
+def _refuse_unported(opts: Options):
+    """Options of the JAX driver that this slice does not port."""
+    if opts.get_int("amr", "num_of_amr_steps", 0) > 0:
+        raise NotImplementedError(
+            "num_of_amr_steps > 0: the AMR loop (uniform_h / uniform_p) is "
+            "not ported yet (ROADMAP A7)"
+        )
+    pc_type = opts.get("d4est_solver_krylov_petsc", "pc_type", "none")
+    if pc_type not in ("none", "schwarz", "multigrid", "cheby"):
+        raise ValueError(f"unknown pc_type: {pc_type!r}")
+    if pc_type != "none":
+        raise NotImplementedError(
+            f"pc_type = {pc_type}: preconditioners are not ported yet "
+            "(ROADMAP A13)"
+        )
+    enable = str(opts.get("parallelism", "enable", "auto")).lower()
+    if enable in _ON or opts.get_int("parallelism", "n_devices", 1) > 1:
+        raise NotImplementedError(
+            "[parallelism]: the distributed driver is not ported yet "
+            "(ROADMAP A15)"
+        )
+    for section, key, what in (
+        ("checkpoint", "prefix", "checkpoints"),
+        ("initial_mesh", "load_from_checkpoint", "checkpoint restart"),
+        ("d4est_vtk", "filename", "VTK output"),
+        ("driver", "print_timings", "per-phase timings"),
+    ):
+        value = str(opts.get(section, key, "")).lower()
+        if value not in ("", "0", "false", "no", "off"):
+            raise NotImplementedError(
+                f"[{section}] {key}: {what} are not ported yet "
+                "(ROADMAP A14)"
+            )
+
+
+def run_poisson(opts: Options, problem, *, device) -> DriverResult:
+    """Linear Poisson solve on the configured brick, on `device`."""
+    device = resolve_device(device)
+    # IEEE f32 products everywhere: reduced-precision (TF32) products make
+    # the inner f32 CG diverge, as the JAX package found on the TPU
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _refuse_unported(opts)
+
+    geom = geometry_from_options(opts)
+    level = opts.get_int("initial_mesh", "min_level", required=True)
+    deg = opts.get_int("initial_mesh", "region0_deg", 1)
+    dq_inc = opts.get_int("initial_mesh", "region0_deg_quad_inc", 0)
+    quad_name = opts.get("quadrature", "name", "legendre")
+    quad = Quadrature("legendre" if quad_name == "legendre" else "lobatto")
+    penalty_fcn = opts.get("flux", "sipg_penalty_fcn", "maxp_sqr_over_minh")
+    prefactor = opts.get_float("flux", "sipg_penalty_prefactor", 2.0)
+    scheme = opts.get("amr", "scheme", "uniform_p")
+    if scheme not in ("uniform_h", "uniform_p", "smooth_pred"):
+        raise ValueError(f"unknown [amr] scheme: {scheme!r}")
+    ksp = opts.get("d4est_solver_krylov_petsc", "ksp_type", "cg")
+    use_mixed = opts.get(
+        "d4est_solver_krylov_petsc", "use_mixed_precision", True, cast=bool
+    )
+    mixed_opts = dict(
+        inner_rtol=opts.get_float(
+            "d4est_solver_krylov_petsc", "mixed_inner_rtol", 1e-6
+        ),
+        inner_max_iter=opts.get_int(
+            "d4est_solver_krylov_petsc", "mixed_inner_max_iter", 20000
+        ),
+        max_outer=opts.get_int(
+            "d4est_solver_krylov_petsc", "mixed_max_outer", 60
+        ),
+    )
+    use_structured = str(
+        opts.get("d4est_solver_krylov_petsc", "use_structured", "auto")
+    ).lower()
+    structured_on = use_structured in _ON or (
+        use_structured == "auto" and device.type == "cuda"
+    )
+
+    forest = Forest.uniform(geom.conn, level)
+    mesh = build_mesh(
+        geom, forest, deg=deg, quad=quad, deg_quad=deg + dq_inc,
+        penalty_prefactor=prefactor, penalty_fcn=penalty_fcn,
+        face_h_type=face_h_from_options(opts), device=device,
+    )
+    g = mesh.boundary_values(problem.boundary)
+    f = mesh.init_field(problem.rhs)
+    rhs = build_rhs_with_strong_bc(mesh, f, g)
+    x0 = torch.zeros_like(f)
+
+    def plain_solve():
+        solver, cap = (fcg_solve, 10000) if ksp == "fcg" else (
+            cg_solve, 100000
+        )
+        return solver(lambda v: apply_sipg(mesh, v), rhs, x0=x0,
+                      atol=5e-15, rtol=1e-20, max_iter=cap)
+
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    fallback = False
+    if use_mixed:
+        sb = structured.build_structured(mesh) if structured_on else None
+        if sb is not None:
+            # inner settings as the JAX driver has them on this path
+            # (`driver.py:330-331`): the mixed_inner_* options are not
+            # passed (ROADMAP C3)
+            path = "mixed-structured"
+            res = mixed_refine_solve(
+                lambda v: apply_sipg(mesh, v), rhs, x0=x0,
+                inner_solve=structured.make_inner_solve(
+                    sb, rtol=1e-3, max_iter=400
+                ),
+                atol=5e-15, rtol=1e-20, max_outer=mixed_opts["max_outer"],
+            )
+        else:
+            path = "mixed"
+            mesh32 = mesh.astype(torch.float32)
+            res = mixed_refine_solve(
+                lambda v: apply_sipg(mesh, v), rhs, x0=x0,
+                A32=lambda v: apply_sipg(mesh32, v), atol=5e-15, rtol=1e-20,
+                **mixed_opts,
+            )
+        outer, iters = res.outer_iterations, res.inner_iterations
+        bnorm = float(torch.linalg.norm(rhs.reshape(-1)))
+        if res.residual_norm > 1e-10 * (1.0 + bnorm):
+            # the f32 inner solve stagnated/diverged well above the
+            # refinement floor — fall back to the plain f64 solver
+            fallback = True
+            res = plain_solve()
+            iters = res.iterations
+    else:
+        path = ksp if ksp == "fcg" else "cg"
+        res = plain_solve()
+        outer, iters = 0, res.iterations
+    u = res.x
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    info = SolveInfo(
+        path=path, outer_iterations=outer, iterations=iters,
+        residual_norm=float(res.residual_norm), fallback=fallback,
+        seconds=time.perf_counter() - t0,
+    )
+
+    norms = NormLog()
+    u_a = mesh.init_field(problem.analytic)
+    norms.add(mesh, L_2=norm_L2(mesh, u - u_a),
+              L_infty=norm_Linfty(u - u_a))
+    return DriverResult(mesh=mesh, u=u, norms=norms, solves=[info])

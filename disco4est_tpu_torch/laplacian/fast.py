@@ -1,0 +1,210 @@
+"""Speed-of-light SIPG apply for affine conforming meshes (GEMM form).
+
+Port of the orthogonal, conforming part of `disco4est_tpu/laplacian/fast.py`
+(reference semantics: `dGMath/d4est_laplacian.c:318-399` +
+`d4est_laplacian_flux_sipg.c`).  For affine elements every geometric factor
+is constant, so the exact quadrature folds into fixed Lobatto-space
+matrices: the volume term is Σ_b c_b ⊙ (u @ Q_b) with shared dense
+[nv, nv] blocks, the face traces come out of the same GEMM, neighbors are
+one packed row gather, and mass + lift is one more GEMM.  The GEMMs stay
+`torch.matmul`, as they were plain XLA GEMMs in the JAX package.
+
+This is the f64 outer operator of the mixed-precision solve.  The
+general-affine path (`_apply_general`) and the hanging-face mortars are not
+ported yet (ROADMAP A8, A9).
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from disco4est_tpu_torch.mesh.builder import MeshData
+from disco4est_tpu_torch.ops import tensor
+from disco4est_tpu_torch.ops.operators import DB
+
+
+def _base_mats(deg: int, deg_quad: int, quad_key, dim: int):
+    from disco4est_tpu_torch.quadrature.quadrature import Quadrature
+
+    quad = Quadrature(quad_key)
+    nl = deg + 1
+    V = quad.interp(deg, deg_quad)  # [nq, nl]
+    _, w = quad.nodes_weights(deg_quad)
+    D = DB.ops(deg).diff
+    Mt = V.T @ np.diag(w) @ V  # 1D quadrature mass at Lobatto
+    Kt = D.T @ Mt @ D
+    Bt = Mt @ D
+
+    def kron_dirs(fs):
+        # fs[d] = 1D factor for DIRECTION d (0 = x = fastest ⇒ last operand)
+        out = fs[dim - 1]
+        for d in range(dim - 2, -1, -1):
+            out = np.kron(out, fs[d])
+        return out
+
+    nfaces = 2 * dim
+    nv = nl**dim
+    nfl = nl ** (dim - 1)
+    sel_rows = [
+        tensor.np_face_slice_indices(f, dim, nl) for f in range(nfaces)
+    ]
+    sels = []
+    for f in range(nfaces):
+        S = np.zeros((nfl, nv))
+        S[np.arange(nfl), sel_rows[f]] = 1.0
+        sels.append(S)
+    dvol = []
+    for l in range(dim):
+        fs = [np.eye(nl)] * dim
+        fs[l] = D
+        dvol.append(kron_dirs(fs))
+    Mf = Mt
+    for _ in range(dim - 2):
+        Mf = np.kron(Mf, Mt)
+    if dim == 2:
+        Mf = Mt.copy()
+    return dict(
+        Mt=Mt, Kt=Kt, Bt=Bt, D=D, kron_dirs=kron_dirs, sels=sels,
+        sel_rows=sel_rows, dvol=dvol, Mf=Mf, nv=nv, nfl=nfl, nfaces=nfaces,
+    )
+
+
+@functools.lru_cache(maxsize=None)
+def _host_mats_orth(deg: int, deg_quad: int, quad_key, dim: int, iso: bool):
+    """Fixed f64 numpy matrices for the orthogonal fast path (wjgg
+    diagonal, unit normals along axes ⇒ only the normal drstn component
+    survives)."""
+    bm = _base_mats(deg, deg_quad, quad_key, dim)
+    Mt, Kt = bm["Mt"], bm["Kt"]
+    kron_dirs = bm["kron_dirs"]
+    nfaces, nv, nfl = bm["nfaces"], bm["nv"], bm["nfl"]
+
+    diag_blocks = [
+        kron_dirs([Kt if a == l else Mt for a in range(dim)])
+        for l in range(dim)
+    ]
+    if iso:
+        W_vol = sum(diag_blocks)
+        nblk = 1
+    else:
+        W_vol = np.concatenate(diag_blocks, axis=1)
+        nblk = dim
+
+    # trace blocks, 2*nfl per face: [u_f | raw normal derivative]
+    tr_cols = []
+    for f in range(nfaces):
+        tr_cols.append(bm["sels"][f].T)
+        tr_cols.append(bm["dvol"][f // 2][bm["sel_rows"][f]].T)
+    W_tr = np.concatenate(tr_cols, axis=1)  # [nv, nfaces*2*nfl]
+
+    # fused mass+lift GEMM, input [t13_raw (nfaces*nfl) | s2n (nfaces*nfl)]
+    Mf = bm["Mf"]
+    rows = [Mf @ bm["sels"][f] for f in range(nfaces)]
+    rows += [bm["sels"][f] @ bm["dvol"][f // 2] for f in range(nfaces)]
+    W_lift = np.concatenate(rows, axis=0)  # [2*nfaces*nfl, nv]
+
+    return dict(W_vol=W_vol, nblk=nblk, W_tr=W_tr, W_lift=W_lift, Mf=Mf,
+                nv=nv, nfl=nfl)
+
+
+@functools.lru_cache(maxsize=64)
+def _device_mats_orth(deg, deg_quad, quad_key, dim, iso, dtype, device):
+    """`_host_mats_orth` as tensors of `dtype` on `device`, uploaded once
+    per (operator, dtype, device) instead of once per apply."""
+    hm = _host_mats_orth(deg, deg_quad, quad_key, dim, iso)
+    kw = dict(dtype=dtype, device=device)
+    return dict(
+        W_A=torch.as_tensor(
+            np.concatenate([hm["W_vol"], hm["W_tr"]], axis=1), **kw
+        ),
+        W_lift=torch.as_tensor(hm["W_lift"], **kw),
+        Mf=torch.as_tensor(hm["Mf"], **kw),
+        nv=hm["nv"], nblk=hm["nblk"],
+    )
+
+
+def fast_path_available(mesh: MeshData) -> bool:
+    return mesh.affine and mesh.wjgg_c is not None
+
+
+def apply_sipg_fast(mesh: MeshData, u, g=None):
+    """GEMM-form SIPG apply; requires `fast_path_available`."""
+    if mesh.orth and not mesh.orient_codes:
+        return _apply_orth(mesh, u, g)
+    raise NotImplementedError(
+        "the general-affine apply (sheared cells, cross-tree orientations) "
+        "is not ported yet (ROADMAP A8)"
+    )
+
+
+def drstn_normal(mesh: MeshData, dtype):
+    """Normal component of (drdx·n) per directed face: [E, 2d]."""
+    nfaces = 2 * mesh.dim
+    drstn = torch.einsum(
+        "eld,efd->efl", mesh.drdx_c.to(dtype), mesh.face_n_c.to(dtype)
+    )  # [E, 2d, dim]
+    f_idx = torch.arange(nfaces, device=drstn.device)
+    return drstn[:, f_idx, f_idx // 2]
+
+
+def _apply_orth(mesh: MeshData, u, g=None):
+    """Orthogonal (axis-aligned) fast path: 1-3 volume blocks, traces
+    gathered straight from the trace GEMM output, one fused lift GEMM."""
+    dim, deg = mesh.dim, mesh.deg
+    nfl = (deg + 1) ** (dim - 1)
+    nfaces = 2 * dim
+    E = u.shape[0]
+    dtype = u.dtype
+
+    dm = _device_mats_orth(deg, mesh.deg_quad, mesh.quad.kind, dim,
+                           mesh.iso, dtype, u.device)
+    nv, nblk = dm["nv"], dm["nblk"]
+
+    Y = u.reshape(E, nv) @ dm["W_A"]
+    cw = mesh.wjgg_c.to(dtype)
+    Au = cw[:, 0, 0][:, None] * Y[:, :nv]
+    for b in range(1, nblk):
+        Au = Au + cw[:, b, b][:, None] * Y[:, b * nv:(b + 1) * nv]
+
+    drstn_n = drstn_normal(mesh, dtype)  # [E, 2d]
+
+    # traces: scale the dn lanes, then one packed row gather (scaling
+    # BEFORE the gather means the gathered rows already hold the
+    # neighbor's own-normal derivative)
+    lane = torch.arange(2 * nfl, device=u.device) < nfl
+    tr = Y[:, nblk * nv:].reshape(E, nfaces, 2 * nfl)
+    tr = tr * torch.where(
+        lane, torch.ones((), dtype=dtype, device=u.device),
+        drstn_n[..., None],
+    )
+    rows = (mesh.nbr_elem.long() * nfaces + mesh.nbr_face.long()).reshape(-1)
+    gath = tr.reshape(E * nfaces, 2 * nfl)[rows].reshape(E, nfaces, 2 * nfl)
+    u_f, dn_m = tr[..., :nfl], tr[..., nfl:]
+    u_p, dn_p = gath[..., :nfl], gath[..., nfl:]
+
+    # boundary overrides
+    bnd = mesh.bnd_mask[..., None]
+    if g is None:
+        u_p = torch.where(bnd, torch.zeros((), dtype=dtype,
+                                           device=u.device), u_p)
+    else:
+        u_p = torch.where(bnd, g.to(dtype).reshape(E, nfaces, nfl), u_p)
+    dn_p = torch.where(bnd, -dn_m, dn_p)
+    c2 = torch.where(bnd, 2.0, 1.0).to(dtype)
+
+    sj = mesh.face_sj_c.to(dtype)[..., None]
+    sig = mesh.sigma.to(dtype)[..., None]
+
+    jump = u_f - u_p
+    t13 = -0.5 * sj * (dn_m - dn_p) + sj * sig * jump
+    mj = (jump.reshape(-1, nfl) @ dm["Mf"]).reshape(E, nfaces, nfl)
+    s2n = (-0.5) * c2 * sj * mj * drstn_n[..., None]
+
+    Z = torch.cat(
+        [t13.reshape(E, nfaces * nfl), s2n.reshape(E, nfaces * nfl)], dim=1
+    )
+    Au = Au + Z @ dm["W_lift"]
+    return Au.reshape(u.shape)

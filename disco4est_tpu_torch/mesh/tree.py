@@ -1,0 +1,233 @@
+"""Forest of octrees as flat arrays — the p4est role, array-programmed.
+
+The reference builds on p4est (`p4est_t`, refine/coarsen/balance/partition,
+`src/pXest/pXest.h`); here a `Forest` is a struct-of-arrays of leaves
+(tree id, level, integer anchor coordinates), always kept in space-filling
+curve order (per-tree Morton order, trees ascending — identical traversal
+order to p4est).  Construction, refinement and the sorted keys used for
+leaf lookup are vectorized numpy host programs; they run once per mesh
+epoch, not in the solver hot loop, exactly as p4est does for the reference.
+
+Coordinates: each tree is a unit cube of side `ROOT = 2**MAXL` integer
+units; a leaf at level l has side `ROOT >> l` and anchor on that lattice.
+Child ordering within a refined cell is x-fastest (p4est's Morton child
+order).
+
+Port of `disco4est_tpu/mesh/tree.py` (host numpy, copied unchanged) for
+the uniform meshes of this slice: `Forest.uniform`, `refine` and the key
+helpers that `mesh/faces.py` uses.  Coarsening, 2:1 balance, `find_leaf`
+and `checksum` come with the AMR loop and checkpoints (ROADMAP A7, A14).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+from disco4est_tpu_torch.geometry.base import Connectivity
+
+MAXL = 19
+ROOT = 1 << MAXL
+
+
+def _part1by2(x: np.ndarray) -> np.ndarray:
+    """Spread 19 bits of x so there are two zero bits between each."""
+    x = x.astype(np.uint64)
+    x &= np.uint64(0x7FFFF)
+    x = (x | (x << np.uint64(32))) & np.uint64(0x1F00000000FFFF)
+    x = (x | (x << np.uint64(16))) & np.uint64(0x1F0000FF0000FF)
+    x = (x | (x << np.uint64(8))) & np.uint64(0x100F00F00F00F00F)
+    x = (x | (x << np.uint64(4))) & np.uint64(0x10C30C30C30C30C3)
+    x = (x | (x << np.uint64(2))) & np.uint64(0x1249249249249249)
+    return x
+
+
+def _part1by1(x: np.ndarray) -> np.ndarray:
+    x = x.astype(np.uint64)
+    x &= np.uint64(0xFFFFFFFF)
+    x = (x | (x << np.uint64(16))) & np.uint64(0x0000FFFF0000FFFF)
+    x = (x | (x << np.uint64(8))) & np.uint64(0x00FF00FF00FF00FF)
+    x = (x | (x << np.uint64(4))) & np.uint64(0x0F0F0F0F0F0F0F0F)
+    x = (x | (x << np.uint64(2))) & np.uint64(0x3333333333333333)
+    x = (x | (x << np.uint64(1))) & np.uint64(0x5555555555555555)
+    return x
+
+
+def morton_key(anchor: np.ndarray, dim: int) -> np.ndarray:
+    """Morton (z-order) key of anchor coords [..., dim]; x is the fastest
+    (least significant) axis, matching p4est quadrant order."""
+    if dim == 2:
+        return _part1by1(anchor[..., 0]) | (_part1by1(anchor[..., 1]) << np.uint64(1))
+    return (
+        _part1by2(anchor[..., 0])
+        | (_part1by2(anchor[..., 1]) << np.uint64(1))
+        | (_part1by2(anchor[..., 2]) << np.uint64(2))
+    )
+
+
+@dataclasses.dataclass
+class Forest:
+    conn: Connectivity
+    tree: np.ndarray  # [E] int32
+    level: np.ndarray  # [E] int8
+    anchor: np.ndarray  # [E, dim] int32
+
+    @property
+    def dim(self) -> int:
+        return self.conn.dim
+
+    @property
+    def n_elements(self) -> int:
+        return len(self.tree)
+
+    def sorted(self) -> "Forest":
+        key = morton_key(self.anchor, self.dim)
+        order = np.lexsort((key, self.tree))
+        return Forest(
+            self.conn, self.tree[order], self.level[order], self.anchor[order]
+        )
+
+    # ------------------------------------------------------------------
+    # Construction / refinement
+    # ------------------------------------------------------------------
+
+    @staticmethod
+    def uniform(conn: Connectivity, level: int) -> "Forest":
+        dim = conn.dim
+        n_per_tree = (1 << level) ** dim
+        h = ROOT >> level
+        coords = np.stack(
+            np.meshgrid(*([np.arange(1 << level)] * dim), indexing="ij"),
+            axis=-1,
+        ).reshape(-1, dim)
+        # meshgrid 'ij' makes the first axis slowest; we want x fastest in
+        # morton order anyway since we sort below.
+        anchor_1tree = (coords * h).astype(np.int32)
+        T = conn.n_trees
+        tree = np.repeat(np.arange(T, dtype=np.int32), n_per_tree)
+        anchor = np.tile(anchor_1tree, (T, 1))
+        level_arr = np.full(T * n_per_tree, level, np.int8)
+        return Forest(conn, tree, level_arr, anchor).sorted()
+
+    def refine(self, flags: np.ndarray) -> "Forest":
+        """Replace each flagged leaf with its 2^dim children (in Morton
+        child order). Returns a new SFC-sorted forest.
+        Role of `p4est_refine_ext` in `hpAMR/d4est_amr.c:286`."""
+        flags = np.asarray(flags, bool)
+        dim = self.dim
+        keep = ~flags
+        child_off = _child_offsets(dim)  # [2^dim, dim] in {0,1}
+        parents = np.where(flags)[0]
+        h_half = (ROOT >> self.level[parents].astype(np.int32)) >> 1
+        child_anchor = (
+            self.anchor[parents][:, None, :]
+            + child_off[None, :, :] * h_half[:, None, None]
+        ).reshape(-1, dim)
+        child_tree = np.repeat(self.tree[parents], 1 << dim)
+        child_level = np.repeat(self.level[parents] + 1, 1 << dim)
+        return Forest(
+            self.conn,
+            np.concatenate([self.tree[keep], child_tree]).astype(np.int32),
+            np.concatenate([self.level[keep], child_level]).astype(np.int8),
+            np.concatenate([self.anchor[keep], child_anchor]).astype(np.int32),
+        ).sorted()
+
+    # ------------------------------------------------------------------
+    # Leaf lookup
+    # ------------------------------------------------------------------
+
+    def _lookup_arrays(self):
+        """Per-forest sorted global keys (tree major, morton minor)."""
+        return _global_key(self)
+
+
+def _child_offsets(dim: int) -> np.ndarray:
+    c = np.arange(1 << dim)
+    return np.stack([(c >> d) & 1 for d in range(dim)], axis=-1).astype(
+        np.int64
+    )
+
+
+def _global_key(forest: Forest) -> np.ndarray:
+    return _key_of(forest.tree, forest.anchor, forest.dim)
+
+
+def _key_of(tree: np.ndarray, point: np.ndarray, dim: int) -> np.ndarray:
+    m = morton_key(np.asarray(point), dim)
+    return (np.asarray(tree).astype(np.uint64) << np.uint64(60)) | m
+
+
+def _canonicalize_points(
+    conn: Connectivity,
+    tree: np.ndarray,
+    pt: np.ndarray,
+    valid: np.ndarray,
+):
+    """Map points that stepped outside their tree into the owning tree's
+    coordinates via face connectivity transforms.
+
+    The transform convention: for my face f the connectivity provides
+    `axis_map` (my axis a ↦ neighbor axis axis_map[a]) and `axis_flip`
+    (1 ⇒ my axis a runs opposite to its image), where the *normal* axis
+    flip encodes whether the shared face is seen from the same side by
+    both trees (flip = 1 iff my side == neighbor side).  With the normal
+    coordinate first wrapped by ±ROOT, one uniform per-axis formula
+    `val' = flip ? ROOT-1-val : val`, scattered through `axis_map`,
+    handles normal and tangent axes alike.
+
+    Points exiting through several faces (edge/corner cross-tree paths)
+    are resolved by composing face transforms one exit-axis at a time;
+    a path that hits a physical boundary marks the point invalid.  This
+    covers brick/shell topologies exactly; exotic multi-valent corners
+    (where the corner neighbor is not reachable by any face chain) are
+    dropped conservatively.
+    """
+    pt = pt.copy()
+    tree = tree.copy()
+    valid = valid.copy()
+    dim = conn.dim
+    for _ in range(dim):
+        out_low = pt < 0
+        out_high = pt >= ROOT
+        pending = valid & (out_low.any(axis=1) | out_high.any(axis=1))
+        if not pending.any():
+            break
+        # first out-of-range axis per pending point
+        outside = out_low | out_high
+        first_axis = np.argmax(outside, axis=1)
+        for axis in range(dim):
+            for side in (0, 1):
+                sel = (
+                    pending
+                    & (first_axis == axis)
+                    & (out_high[:, axis] if side else out_low[:, axis])
+                )
+                if not sel.any():
+                    continue
+                idx = np.where(sel)[0]
+                f = 2 * axis + side
+                t = tree[idx]
+                nbr_t = conn.nbr_tree[t, f]
+                dead = nbr_t < 0
+                valid[idx[dead]] = False
+                live = idx[~dead]
+                if len(live) == 0:
+                    continue
+                t = tree[live]
+                amap = conn.axis_map[t, f].astype(np.int64)  # [k, dim]
+                aflip = conn.axis_flip[t, f]
+                p = pt[live].copy()
+                p[:, axis] += -ROOT if side else ROOT
+                newp = np.empty_like(p)
+                for a in range(dim):
+                    vals = p[:, a]
+                    flipped = np.where(aflip[:, a] == 1, ROOT - 1 - vals, vals)
+                    np.put_along_axis(
+                        newp, amap[:, a][:, None], flipped[:, None], axis=1
+                    )
+                pt[live] = newp
+                tree[live] = conn.nbr_tree[t, f]
+    still_out = ((pt < 0) | (pt >= ROOT)).any(axis=1)
+    valid &= ~still_out
+    return pt, tree, valid

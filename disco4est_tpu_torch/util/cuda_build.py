@@ -1,0 +1,75 @@
+"""Build and load the port's CUDA C++ kernels.
+
+Each kernel source under `disco4est_tpu_torch/csrc/` exposes a plain C
+interface.  At first use it is compiled with `nvcc` for Hopper
+(`sm_90a`) into a shared library under `build/kernels/` at the root of
+the checkout, named by a hash of the source and the flags, and loaded
+with `ctypes`.  A later call with the same source reuses the library.
+The compiler's report (registers, shared memory, spills from
+`-Xptxas -v`) is kept beside it as a `.log` file.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+
+CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = CSRC.parents[1] / "build" / "kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    fallback = pathlib.Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"))
+    fallback = fallback / "bin" / "nvcc"
+    if fallback.exists():
+        return str(fallback)
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def library_path(source: str) -> pathlib.Path:
+    """Where the library built from `csrc/<source>` lives."""
+    src = CSRC / source
+    digest = hashlib.sha256(
+        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
+    return BUILD_DIR / f"{src.stem}_{digest}.so"
+
+
+def build(source: str) -> pathlib.Path:
+    """Compile `csrc/<source>` unless its library already exists."""
+    out = library_path(source)
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    out.with_suffix(".log").write_text(
+        " ".join(cmd) + "\n" + proc.stdout + proc.stderr
+    )
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed on {source} (exit {proc.returncode}):\n"
+            + proc.stderr[-4000:]
+        )
+    os.replace(tmp, out)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def load_library(source: str) -> ctypes.CDLL:
+    """Build (if needed) and load the library of `csrc/<source>`."""
+    return ctypes.CDLL(str(build(source)))

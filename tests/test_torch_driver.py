@@ -1,0 +1,181 @@
+"""Port driver and CLI == the JAX driver on the reference's sinx options.
+
+The L2 error of the solved field is compared with the JAX driver's to
+1e-12 absolute, the bound `tests/test_driver.py:59` uses: both solves run
+to the f64 residual floor (atol 5e-15), far below that bound.
+"""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from disco4est_tpu_torch import __main__ as cli
+from disco4est_tpu_torch.driver import run_poisson
+from disco4est_tpu_torch.problems.poisson import LorentzianProblem, SinxProblem
+from disco4est_tpu_torch.util.config import Options
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+SINX_LINE = "64 512 512 0.02441355792354"
+SINX_L2 = 0.024413557923538  # JAX driver, `tests/test_driver.py:59`
+DEG7_L2 = 4.952468593343e-09  # JAX CLI on the CPU, deg 7, level 1
+
+SINX_OPTIONS = """
+[initial_mesh]
+min_level = 2
+region0_deg = 1
+region0_deg_quad_inc = 0
+
+[mesh_parameters]
+face_h_type = FACE_H_EQ_VOLUME_DIV_AREA
+volume_h_type = VOL_H_EQ_CUBE_APPROX
+max_degree = 7
+
+[flux]
+name = sipg
+sipg_penalty_prefactor = 2.0
+sipg_flux_h = H_EQ_VOLUME_DIV_AREA
+sipg_penalty_fcn = maxp_sqr_over_minh
+
+[amr]
+scheme = uniform_p
+num_of_amr_steps = 0
+
+[geometry]
+name = brick
+X0 = 0.0
+X1 = 1.0
+Y0 = 0.0
+Y1 = 1.0
+Z0 = 0.0
+Z1 = 1.0
+
+[d4est_solver_krylov_petsc]
+ksp_type = fcg
+ksp_atol = 5e-15
+
+[quadrature]
+name = legendre
+"""
+
+
+def _with(extra_solver="", text=SINX_OPTIONS):
+    return text.replace("ksp_atol = 5e-15",
+                        "ksp_atol = 5e-15\n" + extra_solver)
+
+
+@pytest.fixture(scope="module")
+def jax_sinx_l2():
+    from disco4est_tpu.driver import run_poisson as jrun
+    from disco4est_tpu.problems.poisson import SinxProblem as JSinx
+    from disco4est_tpu.util.config import Options as JOptions
+
+    return jrun(JOptions.load(SINX_OPTIONS), JSinx).norms.rows[0]["L_2"]
+
+
+@pytest.mark.parametrize("use_structured,path", [
+    ("auto", "mixed"), ("1", "mixed-structured"),
+])
+def test_sinx_matches_jax_driver(jax_sinx_l2, use_structured, path):
+    opts = Options.load(_with(f"use_structured = {use_structured}"))
+    result = run_poisson(opts, SinxProblem, device="cpu")
+    assert result.norms.lines("L_2") == [SINX_LINE]
+    err = result.norms.rows[0]["L_2"]
+    assert abs(err - jax_sinx_l2) < 1e-12, (err, jax_sinx_l2)
+    assert abs(err - SINX_L2) < 1e-12
+    info = result.solves[0]
+    assert info.path == path and not info.fallback
+    assert info.residual_norm < 5e-15
+    assert result.u.dtype == torch.float64
+
+
+@pytest.mark.parametrize("ksp", ["cg", "fcg"])
+def test_sinx_plain_f64_solvers(ksp):
+    text = _with("use_mixed_precision = 0").replace(
+        "ksp_type = fcg", f"ksp_type = {ksp}")
+    result = run_poisson(Options.load(text), SinxProblem, device="cpu")
+    assert result.solves[0].path == ksp
+    assert abs(result.norms.rows[0]["L_2"] - SINX_L2) < 1e-12
+
+
+def test_sinx_deg7_level1_matches_jax():
+    text = SINX_OPTIONS.replace("min_level = 2", "min_level = 1").replace(
+        "region0_deg = 1", "region0_deg = 7")
+    result = run_poisson(Options.load(text), SinxProblem, device="cpu")
+    assert result.norms.lines("L_2")[0].startswith("8 4096 4096 ")
+    assert abs(result.norms.rows[0]["L_2"] - DEG7_L2) < 1e-12
+
+
+def test_lorentzian_on_brick_matches_jax():
+    from disco4est_tpu.driver import run_poisson as jrun
+    from disco4est_tpu.problems.poisson import LorentzianProblem as JLor
+    from disco4est_tpu.util.config import Options as JOptions
+
+    text = SINX_OPTIONS.replace("min_level = 2", "min_level = 1").replace(
+        "region0_deg = 1", "region0_deg = 2").replace("X0 = 0.0", "X0 = 0.5")
+    ref = jrun(JOptions.load(text), JLor).norms.rows[0]["L_2"]
+    got = run_poisson(Options.load(text), LorentzianProblem, device="cpu")
+    assert abs(got.norms.rows[0]["L_2"] - ref) < 1e-12
+
+
+def test_cli_module_subprocess(tmp_path):
+    path = tmp_path / "options.input"
+    path.write_text(SINX_OPTIONS)
+    proc = subprocess.run(
+        [sys.executable, "-m", "disco4est_tpu_torch", str(path),
+         "--problem=sinx", "--device=cpu"],
+        cwd=ROOT, capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.splitlines()
+    assert lines[0] == SINX_LINE
+    assert lines[1].startswith("solve level 0: path=mixed ")
+    assert "fallback=no" in lines[1]
+
+
+def test_cli_cuda_without_card_raises(capsys):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="cuda"):
+        cli.main([SINX_OPTIONS, "--device=cuda"])
+    assert capsys.readouterr().out == ""
+
+
+@pytest.mark.parametrize("edit,item", [
+    (("num_of_amr_steps = 0", "num_of_amr_steps = 1"), "A7"),
+    (("ksp_atol = 5e-15", "ksp_atol = 5e-15\npc_type = multigrid"), "A13"),
+    (("name = brick", "name = cubed_sphere"), "A11"),
+    (("[quadrature]", "[parallelism]\nenable = 1\n[quadrature]"), "A15"),
+    (("[quadrature]", "[checkpoint]\nprefix = ck\n[quadrature]"), "A14"),
+])
+def test_unported_options_raise(edit, item):
+    opts = Options.load(SINX_OPTIONS.replace(*edit))
+    with pytest.raises(NotImplementedError, match=item):
+        run_poisson(opts, SinxProblem, device="cpu")
+
+
+def test_cli_unported_problem_raises():
+    with pytest.raises(NotImplementedError, match="A12"):
+        cli.main([SINX_OPTIONS, "--problem=stamm", "--device=cpu"])
+
+
+def _imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+def test_port_never_imports_jax():
+    files = sorted((ROOT / "disco4est_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 20
+    for path in files:
+        for mod in _imported_modules(path):
+            top = mod.split(".")[0]
+            assert top not in ("jax", "jaxlib", "disco4est_tpu"), (path, mod)
