@@ -7,11 +7,13 @@ Run from the root of a checkout, on a machine with an NVIDIA Hopper card
 and `nvcc`.  Phases, one or more lines each; any failure exits non-zero:
 
 1. the device, and `nvidia-smi --query-gpu=name,power.limit`;
-2. the build of the CUDA kernel from `disco4est_tpu_torch/csrc/`;
-3. the kernel against its plain PyTorch version and against the f64
-   GEMM-form apply, on bricks of several degrees and levels, the shapes
-   of phases 4 and 5 among them (rel ≤ 5e-6), with the median time per
-   apply of kernel and plain version at deg 7 / level 4;
+2. the build of the three CUDA kernels from `disco4est_tpu_torch/csrc/`
+   (one `nvcc` each, all started together), with their register,
+   shared-memory and spill lines;
+3. B1, the structured kernel, against its plain PyTorch version and
+   against the f64 GEMM-form apply, on bricks of several degrees and
+   levels, the shapes of phases 4 and 5 among them (rel ≤ 5e-6), with the
+   median time per apply of kernel and plain version at deg 7 / level 4;
 4. the reference sinx regression through the port's CLI entry on the
    card: the printed line, the L2 error, a solve that went through the
    kernel and no f64 fallback;
@@ -26,16 +28,31 @@ and `nvcc`.  Phases, one or more lines each; any failure exits non-zero:
    That value was computed with numpy 2.0.2, whose Gauss-Legendre
    weights differ by up to 2 ulp from those of numpy 2.3; the error here
    is only 4.5e-10, and those last bits alone move it by 1.1e-6
-   relative.  An operator fault moves it by orders more.
+   relative.  An operator fault moves it by orders more;
+6. B2, the gathered fused kernel, against its plain version and the f64
+   apply (rel ≤ 5e-6) on the meshes of `tests/test_pallas_sipg.py`, deg 7
+   / level 4, deg 3 / level 5, a multi-tree brick (not in lex order) and a
+   ragged one, then timed at deg 7 / level 4: fused pass (kernel, plain),
+   the whole `apply_sipg_fused` and the f32 GEMM-form apply;
+7. B3, the three-axis kernel, against its plain version (rel ≤ 1e-5),
+   timed with the plain version and one `torch.einsum` call at E 4096
+   (the probe's size, L2-resident) and E 32768 (above the 50 MB L2);
+8. the two kernel-timing tools end to end on the card
+   (`tools.time_fused` in its three modes, `tools.exp_kernel_design`),
+   their lines echoed; B1, B2 and B3 must each have launched there, the
+   tools' own error lines must be within the tolerances above, and TF32
+   must be off again afterwards.
 
-Then one JSON line per kernel (`{"kernels": [...]}`) and, last, the
-result line `{"ok": true, "device": {...}}`.  Without a CUDA device the
-script fails before printing any result.
+Then one JSON line per kernel (`{"kernels": [...]}`; `launches` counts
+phase 5 for B1 and phase 8 for B2 and B3) and, last, the result line
+`{"ok": true, "device": {...}}`.  Without a CUDA device the script fails
+before printing any result.
 """
 
 import contextlib
 import io
 import json
+import re
 import subprocess
 import sys
 import time
@@ -55,6 +72,21 @@ CASES = [  # (deg, level, x1): nblk 1 on cubes, 3 on the non-cubic brick;
     (2, 1, (1.0, 2.0, 4.0)),
 ]
 TIMED_CASE = (7, 4)
+# B2 (deg, level, x1, trees per axis): the cases of
+# `tests/test_pallas_sipg.py:23,41`, the timed size, the size of phase 5,
+# a multi-tree brick (tree-major element order, not lex) and a ragged
+# brick (E = 24, below one 64-element tile)
+FUSED_CASES = [
+    (2, 1, (1.0, 1.0, 1.0), (1, 1, 1)), (3, 1, (1.0, 1.0, 1.0), (1, 1, 1)),
+    (7, 1, (1.0, 1.0, 1.0), (1, 1, 1)), (3, 1, (2.0, 1.0, 0.5), (1, 1, 1)),
+    (7, 4, (1.0, 1.0, 1.0), (1, 1, 1)), (3, 5, (1.0, 1.0, 1.0), (1, 1, 1)),
+    (3, 3, (2.0, 2.0, 2.0), (2, 2, 2)), (7, 1, (3.0, 1.0, 1.0), (3, 1, 1)),
+]
+AXIS_TOL = 1e-5  # B3 vs plain: three 8-term f32 sums in another order
+AXIS_SIZES = (4096, 32768)
+# H100 SXM data sheet at 700 W: f32 FFMA peak and HBM3 rate
+PEAK_F32 = 67e12
+PEAK_BYTES = 3.35e12
 
 SINX_OPTIONS = """
 [initial_mesh]
@@ -123,34 +155,79 @@ def phase_device(torch):
 
 
 def phase_build():
+    from disco4est_tpu_torch.laplacian import fused
     from disco4est_tpu_torch.laplacian import structured as S
+    from disco4est_tpu_torch.tools import exp_kernel_design as X
     from disco4est_tpu_torch.util import cuda_build
 
-    t0 = time.perf_counter()
-    S._load()
-    secs = time.perf_counter() - t0
-    lib = cuda_build.library_path(S.SOURCE)
-    print(f"[2] built {lib.name} in {secs:.1f} s")
-    log = lib.with_suffix(".log")
-    if log.exists():
-        for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print("    ptxas:", line.strip())
+    mods = (S, fused, X)
+    secs = cuda_build.build_all([m.SOURCE for m in mods])
+    for m in mods:
+        m._load()
+        lib = cuda_build.library_path(m.SOURCE)
+        print(f"[2] built {lib.name} in {secs[m.SOURCE]:.1f} s")
+        log = lib.with_suffix(".log").read_text().splitlines()
+        seen = []
+        for line in log:
+            line = line.split(":", 1)[-1].strip()
+            if ("registers" in line or "spill" in line) and line not in seen:
+                seen.append(line)
+        for line in seen:
+            print("    ptxas:", line)
 
 
-def _time_ms(torch, fn, reps):
-    """Median milliseconds of `fn()` over `reps` runs, CUDA events."""
+def bound_ms(flop, nbytes):
+    """The least time of the work on the card (data-sheet peaks): the
+    larger of flop over the f32 FFMA peak and bytes over the memory rate;
+    returns (ms, what sets it)."""
+    t_ops, t_bytes = flop / PEAK_F32, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def sipg_pass_cost(E, nv, nblk, tw, extra_bytes=0):
+    """Flop and bytes of the fused SIPG pass: the two GEMMs as one of depth
+    nblk·nv + tw; u, traces, cw, scal and the weights read once, Au written
+    once (f32), plus `extra_bytes` of tables."""
+    flop = 2.0 * E * nv * (nblk * nv + tw)
+    nbytes = 4 * (2 * E * nv + E * tw + E * nblk + E * 24
+                  + nv * nblk * nv + tw * nv) + extra_bytes
+    return flop, nbytes
+
+
+def _median(v):
+    return sorted(v)[len(v) // 2]
+
+
+_SPIN = [1 << 20]  # cycles of the spin kernel ahead of each timed batch
+
+
+def _time_ms(torch, fn, n=10, reps=3):
+    """Median over `reps` of the mean device milliseconds of `n`
+    back-to-back `fn()` calls, CUDA events.  A spin kernel
+    (`torch.cuda._sleep`) holds the card while the host enqueues the n
+    calls, so the events bracket device time only, not the host's launch
+    path (0.03-0.25 ms per call on an H100 machine, more than a small
+    kernel takes).  The spin doubles until it outlasts the enqueue."""
     times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    times.sort()
-    return times[len(times) // 2]
+    while len(times) < reps:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        t0 = time.perf_counter()
+        ev[0].record()
+        torch.cuda._sleep(_SPIN[0])
+        ev[1].record()
+        for _ in range(n):
+            fn()
+        ev[2].record()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        ev[2].synchronize()
+        if ev[0].elapsed_time(ev[1]) < host_ms:  # the card waited on us
+            check(_SPIN[0] < 1 << 34, "the host cannot keep ahead of the "
+                  "card even behind a long spin")
+            _SPIN[0] *= 2
+            continue
+        times.append(ev[1].elapsed_time(ev[2]) / n)
+    return _median(times)
 
 
 def phase_kernel(torch, np, card):
@@ -201,19 +278,25 @@ def phase_kernel(torch, np, card):
             torch.cuda.synchronize()
             kern, plain, kern_full, plain_full = [], [], [], []
             for _ in range(4):  # alternate plain and kernel
-                plain.append(_time_ms(torch, lambda: S.lex_apply_plain(sb, u, tr), 10))
-                kern.append(_time_ms(torch, lambda: S.lex_apply_cuda(sb, u, tr), 10))
-                kern_full.append(_time_ms(torch, lambda: S.apply_structured(sb, u), 10))
-                plain_full.append(_time_ms(torch, lambda: S.apply_structured_plain(sb, u), 10))
-            med = lambda v: sorted(v)[len(v) // 2]
-            flop = 2.0 * E * sb.nv * (sb.nblk * sb.nv + 12 * nl * nl)
-            timing = dict(ms=med(kern), plain_ms=med(plain))
+                plain.append(_time_ms(
+                    torch, lambda: S.lex_apply_plain(sb, u, tr)))
+                kern.append(_time_ms(
+                    torch, lambda: S.lex_apply_cuda(sb, u, tr)))
+                kern_full.append(_time_ms(
+                    torch, lambda: S.apply_structured(sb, u)))
+                plain_full.append(_time_ms(
+                    torch, lambda: S.apply_structured_plain(sb, u)))
+            flop, nbytes = sipg_pass_cost(E, sb.nv, sb.nblk, 12 * nl * nl)
+            bms, by = bound_ms(flop, nbytes)
+            timing = dict(ms=_median(kern), plain_ms=_median(plain), bound_ms=bms,
+                          bound_by=by)
             print(f"[3] timing deg {deg} level {level} (E {E}) on {card}: "
                   f"fused pass kernel {timing['ms']:.4f} ms "
-                  f"({flop / timing['ms'] / 1e9:.2f} TFLOP/s) vs plain "
-                  f"{timing['plain_ms']:.4f} ms; whole apply (with the "
-                  f"trace GEMM) kernel {med(kern_full):.4f} ms vs plain "
-                  f"{med(plain_full):.4f} ms")
+                  f"({flop / timing['ms'] / 1e9:.2f} TFLOP/s; bound "
+                  f"{bms:.4f} ms by {by}, {bms / timing['ms']:.1%} of it) "
+                  f"vs plain {timing['plain_ms']:.4f} ms; whole apply (with "
+                  f"the trace GEMM) kernel {_median(kern_full):.4f} ms vs plain "
+                  f"{_median(plain_full):.4f} ms")
     check(timing is not None, "timed case missing")
     return max_abs, timing
 
@@ -288,6 +371,179 @@ def phase_real_size(torch):
     return launches
 
 
+def phase_fused(torch, np, card):
+    from disco4est_tpu_torch.geometry.brick import BrickGeometry
+    from disco4est_tpu_torch.laplacian import fused
+    from disco4est_tpu_torch.laplacian.fast import _apply_orth
+    from disco4est_tpu_torch.mesh.builder import build_mesh
+    from disco4est_tpu_torch.mesh.tree import Forest
+
+    dev = torch.device("cuda")
+    max_abs = 0.0
+    timing = None
+    for deg, level, x1, trees in FUSED_CASES:
+        geom = BrickGeometry(x1=x1, n_trees_per_dim=trees, dim=3)
+        mesh = build_mesh(geom, Forest.uniform(geom.conn, level), deg=deg,
+                          device=dev)
+        check(fused.fused_path_available(mesh, None),
+              f"no fused path at deg {deg} level {level} trees {trees}")
+        fm = fused.build_fused(mesh)
+        E, nl = mesh.n_elements, deg + 1
+        rng = np.random.default_rng(1000 * deg + level)
+        u = torch.as_tensor(rng.standard_normal((E,) + (nl,) * 3),
+                            dtype=torch.float32, device=dev)
+        u2 = u.reshape(E, -1)
+        tr = fused.scaled_traces(u2, fm.W_tr, fm.drstn).contiguous()
+        out = fused.fused_apply_cuda(fm, u2, tr)
+        ref = fused.fused_apply_plain(fm, u2, tr)
+        whole = fused.apply_sipg_fused(mesh, u).reshape(E, -1)
+        ref64 = _apply_orth(mesh, u.double()).reshape(E, -1)
+        torch.cuda.synchronize()
+        abs_err = float((out - ref).abs().max())
+        rel = abs_err / float(ref.abs().max())
+        rel64 = float((whole.double() - ref64).abs().max()
+                      / ref64.abs().max())
+        max_abs = max(max_abs, abs_err)
+        print(f"[6] deg {deg} level {level} x1 {x1} trees {trees} E {E} "
+              f"nblk {fm.nblk}: kernel vs plain rel {rel:.3e} (abs "
+              f"{abs_err:.3e}), apply_sipg_fused vs f64 rel {rel64:.3e}")
+        check(np.isfinite(rel) and rel <= REL_TOL,
+              f"fused kernel disagrees with plain: rel {rel}")
+        check(np.isfinite(rel64) and rel64 <= REL_TOL,
+              f"fused kernel disagrees with f64 apply: rel {rel64}")
+        if (deg, level) != TIMED_CASE:
+            continue
+        mesh32 = mesh.astype(torch.float32)
+        fns = {
+            "plain": lambda: fused.fused_apply_plain(fm, u2, tr),
+            "kernel": lambda: fused.fused_apply_cuda(fm, u2, tr),
+            "whole": lambda: fused.apply_fused(fm, u),
+            "fast_f32": lambda: _apply_orth(mesh32, u),
+        }
+        for fn in fns.values():  # warm-up
+            fn()
+        torch.cuda.synchronize()
+        t = {k: [] for k in fns}
+        for order in (list(fns), list(fns)[::-1]) * 2:  # alternate rounds
+            for k in order:
+                t[k].append(_time_ms(torch, fns[k]))
+        t = {k: _median(v) for k, v in t.items()}
+        tw = 12 * nl * nl
+        flop, nbytes = sipg_pass_cost(E, fm.nv, fm.nblk, tw,
+                                      extra_bytes=4 * E * 6)
+        bms, by = bound_ms(flop, nbytes)
+        whole_flop = flop + 2.0 * E * fm.nv * tw
+        whole_bms, _ = bound_ms(whole_flop, nbytes)
+        timing = dict(ms=t["kernel"], plain_ms=t["plain"], bound_ms=bms,
+                      bound_by=by)
+        print(f"[6] timing deg {deg} level {level} (E {E}) on {card}: "
+              f"fused pass kernel {t['kernel']:.4f} ms "
+              f"({flop / t['kernel'] / 1e9:.2f} TFLOP/s; bound {bms:.4f} ms "
+              f"by {by}, {bms / t['kernel']:.1%} of it) vs plain "
+              f"{t['plain']:.4f} ms; whole apply_sipg_fused "
+              f"{t['whole']:.4f} ms (bound {whole_bms:.4f} ms, "
+              f"{whole_bms / t['whole']:.1%}); f32 _apply_orth "
+              f"{t['fast_f32']:.4f} ms")
+    check(timing is not None, "timed case missing")
+    return max_abs, timing
+
+
+def phase_axis(torch, np, card):
+    from disco4est_tpu_torch.tools import exp_kernel_design as X
+
+    dev = torch.device("cuda")
+    result = None
+    max_abs = 0.0
+    for E in AXIS_SIZES:
+        rng = np.random.default_rng(E)
+        u = torch.as_tensor(rng.standard_normal((E, 8, 8, 8)),
+                            dtype=torch.float32, device=dev)
+        m = torch.as_tensor(rng.standard_normal((8, 8)),
+                            dtype=torch.float32, device=dev)
+        out = X.axis_apply_cuda(u, m)
+        ref = X.axis_apply_plain(u, m)
+        torch.cuda.synchronize()
+        abs_err = float((out - ref).abs().max())
+        rel = abs_err / float(ref.abs().max())
+        max_abs = max(max_abs, abs_err)
+        check(np.isfinite(rel) and rel <= AXIS_TOL,
+              f"axis kernel disagrees with plain at E {E}: rel {rel}")
+        fns = {
+            "plain": lambda: X.axis_apply_plain(u, m),
+            "kernel": lambda: X.axis_apply_cuda(u, m),
+            "einsum": lambda: torch.einsum("eijk,ia,jb,kc->eabc",
+                                           u, m, m, m),
+        }
+        lib_rel = float((fns["einsum"]() - ref).abs().max()
+                        / ref.abs().max())
+        check(lib_rel <= AXIS_TOL, f"einsum disagrees: rel {lib_rel}")
+        for fn in fns.values():
+            fn()
+        torch.cuda.synchronize()
+        t = {k: [] for k in fns}
+        for order in (list(fns), list(fns)[::-1]) * 2:
+            for k in order:
+                t[k].append(_time_ms(torch, fns[k], 20, 5))
+        t = {k: _median(v) for k, v in t.items()}
+        bms, by = bound_ms(3 * 2.0 * E * 8**4, 4 * (2 * E * 512 + 64))
+        print(f"[7] E {E}: kernel vs plain rel {rel:.3e} (abs "
+              f"{abs_err:.3e}); on {card}: kernel {t['kernel']:.4f} ms "
+              f"(bound {bms:.4f} ms by {by}, {bms / t['kernel']:.1%} of "
+              f"it), plain {t['plain']:.4f} ms, einsum {t['einsum']:.4f} ms")
+        if result is None:  # the probe's size goes into the kernels line
+            result = dict(ms=t["kernel"], plain_ms=t["plain"],
+                          library_ms=t["einsum"], bound_ms=bms, bound_by=by)
+    return max_abs, result
+
+
+def _tool_lines(fn, argv):
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        code = fn(argv)
+    check(code == 0, f"tool {argv} exit code {code}")
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        print(f"[8] {line}")
+    return lines
+
+
+def _rel_from(lines, pattern):
+    for line in lines:
+        found = re.search(pattern + r"\s*([0-9.eE+-]+)", line)
+        if found:
+            return float(found.group(1))
+    fail(f"no line matching {pattern!r}")
+
+
+def phase_tools(torch):
+    from disco4est_tpu_torch.laplacian import fused
+    from disco4est_tpu_torch.laplacian import structured as S
+    from disco4est_tpu_torch.tools import exp_kernel_design as X
+    from disco4est_tpu_torch.tools import time_fused
+
+    S.KERNEL_LAUNCHES = fused.KERNEL_LAUNCHES = X.KERNEL_LAUNCHES = 0
+    rels = {}
+    for mode in ("fused", "phases", "structured"):
+        lines = _tool_lines(time_fused.main,
+                            ["--mode", mode, "--device", "cuda"])
+        if mode != "phases":
+            rels[mode] = _rel_from(lines, "rel err [^:]*:")
+    lines = _tool_lines(X.main, ["--device", "cuda"])
+    rels["axis"] = _rel_from(lines, r"rel err vs plain \(one apply\)")
+    torch.cuda.synchronize()
+    launches = dict(structured=S.KERNEL_LAUNCHES,
+                    fused=fused.KERNEL_LAUNCHES, axis=X.KERNEL_LAUNCHES)
+    print(f"[8] launches in the tools: {launches}; errors {rels}")
+    for name, n in launches.items():
+        check(n > 0, f"the tools never launched the {name} kernel")
+    check(rels["fused"] <= REL_TOL and rels["structured"] <= REL_TOL,
+          f"tool errors above {REL_TOL}: {rels}")
+    check(rels["axis"] <= AXIS_TOL, f"E4 error above {AXIS_TOL}: {rels}")
+    check(torch.backends.cuda.matmul.allow_tf32 is False,
+          "TF32 was left on after the probe")
+    return launches
+
+
 def main():
     import numpy as np
     import torch
@@ -301,20 +557,31 @@ def main():
 
     name, card = phase_device(torch)
     phase_build()
-    max_abs, timing = phase_kernel(torch, np, card)
+    b1_abs, b1 = phase_kernel(torch, np, card)
     phase_regression(torch)
-    launches = phase_real_size(torch)
+    b1_launches = phase_real_size(torch)
+    b2_abs, b2 = phase_fused(torch, np, card)
+    b3_abs, b3 = phase_axis(torch, np, card)
+    tool_launches = phase_tools(torch)
 
-    print(json.dumps({"kernels": [{
-        "name": "structured_apply",
-        "route": "cuda",
-        "source": "disco4est_tpu_torch/csrc/structured_apply.cu",
-        "replaces": "disco4est_tpu/laplacian/structured.py:190",
-        "launches": launches,
-        "max_abs_err": max_abs,
-        "ms": timing["ms"],
-        "plain_ms": timing["plain_ms"],
-    }]}))
+    csrc = "disco4est_tpu_torch/csrc/"
+    kernels = [
+        dict(name="structured_apply", route="cuda",
+             source=csrc + "structured_apply.cu",
+             replaces="disco4est_tpu/laplacian/structured.py:190",
+             launches=b1_launches, max_abs_err=b1_abs, library_ms=None,
+             **b1),
+        dict(name="fused_apply", route="cuda",
+             source=csrc + "fused_apply.cu",
+             replaces="disco4est_tpu/laplacian/pallas_sipg.py:131",
+             launches=tool_launches["fused"], max_abs_err=b2_abs,
+             library_ms=None, **b2),
+        dict(name="axis_apply", route="cuda",
+             source=csrc + "axis_apply.cu",
+             replaces="tools/exp_kernel_design.py:176",
+             launches=tool_launches["axis"], max_abs_err=b3_abs, **b3),
+    ]
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),
     }}))

@@ -33,9 +33,9 @@ import numpy as np
 import torch
 
 from disco4est_tpu_torch.laplacian import fused
-from disco4est_tpu_torch.laplacian.fast import drstn_normal
 from disco4est_tpu_torch.mesh.builder import MeshData
 from disco4est_tpu_torch.mesh.tree import ROOT
+from disco4est_tpu_torch.util.cuda_build import check_operand, load_library
 
 F32 = torch.float32
 SOURCE = "structured_apply.cu"
@@ -137,27 +137,15 @@ def build_structured(mesh: MeshData):
 
     dev = mesh.device
     permt = torch.as_tensor(perm, device=dev)
-    cw = mesh.wjgg_c.to(F32)
-    nblk = 1 if mesh.iso else dim
-    cw_in = torch.stack([cw[:, b, b] for b in range(nblk)], dim=1)[permt]
-    drstn = drstn_normal(mesh, F32)[permt]
-    scal = torch.stack(
-        [
-            drstn,
-            mesh.face_sj_c.to(F32)[permt],
-            mesh.sigma.to(F32)[permt],
-            mesh.bnd_mask.to(F32)[permt],
-        ],
-        dim=-1,
-    ).reshape(E, nfaces * 4)
+    cw_in, scal, drstn = fused.face_scalars(mesh)
     hm = fused._mats(mesh.deg, mesh.deg_quad, mesh.quad.kind, dim, mesh.iso)
     kw = dict(dtype=F32, device=dev)
     return StructuredBrick(
-        dim=dim, deg=mesh.deg, nblk=nblk,
+        dim=dim, deg=mesh.deg, nblk=hm["nblk"],
         deltas=tuple(deltas), opp=tuple(opps),
         perm=permt, inv_perm=torch.as_tensor(inv, device=dev),
-        cw_in=cw_in.contiguous(), scal=scal.contiguous(),
-        drstn=drstn.contiguous(),
+        cw_in=cw_in[permt].contiguous(), scal=scal[permt].contiguous(),
+        drstn=drstn[permt].contiguous(),
         W_vol=torch.as_tensor(hm["W_vol"], **kw),
         W_tr=torch.as_tensor(hm["W_tr"], **kw),
         W_lift=torch.as_tensor(hm["W_lift"], **kw),
@@ -176,70 +164,28 @@ def compute_traces_lex(sb: StructuredBrick, u2):
     """Own face traces in lex order: tr[e] = [u_f | drstn·∂_n u] per face,
     [E, 2d·2·nfl].  Every face reads this one array, so both sides of a
     face see identical values and the operator stays symmetric."""
-    nfl = (sb.deg + 1) ** (sb.dim - 1)
-    nfaces = 2 * sb.dim
-    E = u2.shape[0]
-    tr = (u2 @ sb.W_tr).reshape(E, nfaces, 2 * nfl)
-    lane = torch.arange(2 * nfl, device=u2.device) < nfl
-    tr = tr * torch.where(
-        lane, torch.ones((), dtype=u2.dtype, device=u2.device),
-        sb.drstn[..., None],
-    )
-    return tr.reshape(E, nfaces * 2 * nfl)
+    return fused.scaled_traces(u2, sb.W_tr, sb.drstn)
 
 
 def lex_apply_plain(sb: StructuredBrick, u2, tr):
     """Plain torch version of the fused pass: Au [E, nv] from u2 [E, nv]
-    and the traces tr [E, 2d·2·nfl] (one GEMM for the volume, row shifts
-    for the neighbor traces, `torch.where` for the boundary overrides,
-    one GEMM for the lift)."""
-    nv, nblk = sb.nv, sb.nblk
-    nfl = (sb.deg + 1) ** (sb.dim - 1)
-    nfaces = 2 * sb.dim
+    and the traces tr [E, 2d·2·nfl] (row shifts for the neighbor traces,
+    then `fused.fused_pass_plain`)."""
     E = u2.shape[0]
-    acc = u2 @ sb.W_vol
-    au = sb.cw_in[:, 0][:, None] * acc[:, :nv]
-    for b in range(1, nblk):
-        au = au + sb.cw_in[:, b][:, None] * acc[:, b * nv:(b + 1) * nv]
-
-    tr3 = tr.reshape(E, nfaces, 2 * nfl)
-    zero = torch.zeros((), dtype=tr.dtype, device=tr.device)
-    zs = []
-    for f in range(nfaces):
-        drstn = sb.scal[:, f * 4 + 0][:, None]
-        sj = sb.scal[:, f * 4 + 1][:, None]
-        sig = sb.scal[:, f * 4 + 2][:, None]
-        bnd = sb.scal[:, f * 4 + 3][:, None]
-        u_f = tr3[:, f, :nfl]
-        dn_m = tr3[:, f, nfl:]
-        # neighbor row e + delta; rows that wrap around the ends are
-        # boundary faces and are overridden below
-        nb = torch.roll(tr3[:, sb.opp[f]], -sb.deltas[f], dims=0)
-        u_p = torch.where(bnd > 0, zero, nb[:, :nfl])
-        dn_p = torch.where(bnd > 0, -dn_m, nb[:, nfl:])
-        c2 = 1.0 + bnd
-        jump = u_f - u_p
-        zs.append(-0.5 * sj * (dn_m - dn_p) + sj * sig * jump)
-        zs.append(-0.5 * c2 * sj * drstn * jump)
-    Z = torch.cat(zs, dim=1)
-    return au + Z @ sb.W_lift
-
-
-def _check(name, t, shape, device):
-    if t.device != device or t.dtype != F32 or not t.is_contiguous():
-        raise ValueError(
-            f"{name}: expected a contiguous float32 tensor on {device}, got "
-            f"{t.dtype} on {t.device} (contiguous={t.is_contiguous()})"
-        )
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
-                         f"{tuple(t.shape)}")
+    tr3 = tr.reshape(E, 2 * sb.dim, -1)
+    # neighbor row e + delta; rows that wrap around the ends are boundary
+    # faces, which the fused pass does not read
+    nb = torch.stack(
+        [torch.roll(tr3[:, sb.opp[f]], -sb.deltas[f], dims=0)
+         for f in range(2 * sb.dim)],
+        dim=1,
+    ).reshape(E, -1)
+    return fused.fused_pass_plain(u2, tr, nb, sb.cw_in, sb.scal, sb.W_vol,
+                                  sb.W_lift)
 
 
 @functools.lru_cache(maxsize=None)
 def _load():
-    from disco4est_tpu_torch.util.cuda_build import load_library
-
     lib = load_library(SOURCE)
     fn = lib.d4est_structured_apply
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [
@@ -255,23 +201,14 @@ def lex_apply_cuda(sb: StructuredBrick, u2, tr):
     does not take and on a failed launch."""
     global KERNEL_LAUNCHES
     dev = u2.device
-    if dev.type != "cuda":
-        raise ValueError(f"lex_apply_cuda needs CUDA tensors, got {dev}")
-    if sb.dim != 3 or not 1 <= sb.deg <= 7 or sb.nblk not in (1, 3):
-        raise ValueError(
-            f"structured kernel supports dim 3, degrees 1-7 and nblk 1 or "
-            f"3; got dim {sb.dim}, degree {sb.deg}, nblk {sb.nblk}"
-        )
     E, nv, nblk = sb.n_elements, sb.nv, sb.nblk
-    tw = 6 * 2 * (sb.deg + 1) ** 2
-    if E == 0 or E * max(tw, nblk * nv) >= 2**31:
-        raise ValueError(f"structured kernel: unsupported element count {E}")
-    _check("u", u2, (E, nv), dev)
-    _check("tr", tr, (E, tw), dev)
-    _check("cw_in", sb.cw_in, (E, nblk), dev)
-    _check("scal", sb.scal, (E, 24), dev)
-    _check("W_vol", sb.W_vol, (nv, nblk * nv), dev)
-    _check("W_lift", sb.W_lift, (tw, nv), dev)
+    tw = fused.check_sipg_operands(sb.dim, sb.deg, nblk, E, dev)
+    for name, t, shape in (
+        ("u", u2, (E, nv)), ("tr", tr, (E, tw)),
+        ("cw_in", sb.cw_in, (E, nblk)), ("scal", sb.scal, (E, 24)),
+        ("W_vol", sb.W_vol, (nv, nblk * nv)), ("W_lift", sb.W_lift, (tw, nv)),
+    ):
+        check_operand(name, t, shape, dev, F32)
     fn = _load().d4est_structured_apply
     out = torch.empty((E, nv), dtype=F32, device=dev)
     delta = (ctypes.c_int * 6)(*sb.deltas)

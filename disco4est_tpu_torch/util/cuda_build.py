@@ -4,9 +4,11 @@ Each kernel source under `disco4est_tpu_torch/csrc/` exposes a plain C
 interface.  At first use it is compiled with `nvcc` for Hopper
 (`sm_90a`) into a shared library under `build/kernels/` at the root of
 the checkout, named by a hash of the source and the flags, and loaded
-with `ctypes`.  A later call with the same source reuses the library.
-The compiler's report (registers, shared memory, spills from
-`-Xptxas -v`) is kept beside it as a `.log` file.
+with `ctypes`.  A later call with the same source (and the same shared
+headers, `csrc/*.cuh`) reuses the library.  `build_all` starts one
+`nvcc` per source, all at once.  The compiler's report (registers,
+shared memory, spills from `-Xptxas -v`) is kept beside it as a `.log`
+file.  `check_operand` is the operand check of every kernel wrapper.
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ import os
 import pathlib
 import shutil
 import subprocess
+import time
+from concurrent.futures import ThreadPoolExecutor
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = CSRC.parents[1] / "build" / "kernels"
@@ -41,9 +45,10 @@ def nvcc_path() -> str:
 def library_path(source: str) -> pathlib.Path:
     """Where the library built from `csrc/<source>` lives."""
     src = CSRC / source
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
+    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"{src.stem}_{digest}.so"
 
 
@@ -69,7 +74,33 @@ def build(source: str) -> pathlib.Path:
     return out
 
 
+def build_all(sources) -> dict:
+    """Build several sources at once, one `nvcc` each, all started
+    together; returns the seconds each build took."""
+
+    def timed(source):
+        t0 = time.perf_counter()
+        build(source)
+        return time.perf_counter() - t0
+
+    with ThreadPoolExecutor(max_workers=len(sources)) as pool:
+        return dict(zip(sources, pool.map(timed, sources)))
+
+
 @functools.lru_cache(maxsize=None)
 def load_library(source: str) -> ctypes.CDLL:
     """Build (if needed) and load the library of `csrc/<source>`."""
     return ctypes.CDLL(str(build(source)))
+
+
+def check_operand(name, t, shape, device, dtype):
+    """A kernel wrapper's check of one operand: a contiguous `dtype`
+    tensor of `shape` on `device`; raises ValueError otherwise."""
+    if t.device != device or t.dtype != dtype or not t.is_contiguous():
+        raise ValueError(
+            f"{name}: expected a contiguous {dtype} tensor on {device}, got "
+            f"{t.dtype} on {t.device} (contiguous={t.is_contiguous()})"
+        )
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")

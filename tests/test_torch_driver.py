@@ -172,10 +172,13 @@ def _imported_modules(path):
 
 
 def test_port_never_imports_jax():
+    """Nor the repo's top-level `bench` and `tools`, which import JAX."""
     files = sorted((ROOT / "disco4est_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
+    assert ROOT / "disco4est_tpu_torch" / "tools" / "time_fused.py" in files
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
-            assert top not in ("jax", "jaxlib", "disco4est_tpu"), (path, mod)
+            assert top not in ("jax", "jaxlib", "disco4est_tpu", "bench",
+                               "tools"), (path, mod)

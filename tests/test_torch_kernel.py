@@ -1,30 +1,51 @@
-"""The structured CUDA kernel against its plain PyTorch version, on a card.
+"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+
+- B1, the structured apply (`csrc/structured_apply.cu`), and B2, the
+  gathered fused apply (`csrc/fused_apply.cu`): against the plain version
+  and the f64 apply, to 5e-6 relative (max |Δ| / max |ref|), the f32
+  bound of `tests/test_structured.py` and `tests/test_pallas_sipg.py`;
+- B3, the three-axis apply (`csrc/axis_apply.cu`): against its plain
+  version to 1e-5 relative (f32 rounding over three 8-term sums, summed
+  in another order).
 
 Needs a CUDA device and `nvcc`; every test skips without a device (the
-kernel has no CPU mode).  This file imports neither JAX nor the JAX
+kernels have no CPU mode).  This file imports neither JAX nor the JAX
 package, so it also runs where JAX is not installed:
 
     python -m pytest tests/test_torch_kernel.py --noconftest -q
 
-Tolerance: 5e-6 relative (max |Δ| / max |ref|), the f32 bound of
-`tests/test_structured.py`, against the plain version and the f64 apply.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
 from disco4est_tpu_torch.geometry.brick import BrickGeometry
+from disco4est_tpu_torch.laplacian import fused
 from disco4est_tpu_torch.laplacian import structured as S
 from disco4est_tpu_torch.laplacian.fast import _apply_orth
 from disco4est_tpu_torch.mesh.builder import build_mesh
 from disco4est_tpu_torch.mesh.tree import Forest
+from disco4est_tpu_torch.tools import exp_kernel_design as X
 
 REL_TOL = 5e-6
+AXIS_TOL = 1e-5
 CASES = [(1, 2, (1.0, 1.0, 1.0)), (2, 1, (1.0, 1.0, 1.0)),
          (3, 2, (1.0, 1.0, 1.0)), (5, 2, (1.0, 1.0, 1.0)),
          (7, 2, (1.0, 1.0, 1.0)), (2, 1, (1.0, 2.0, 4.0)),
          (4, 2, (2.0, 1.0, 1.0)), (3, 5, (1.0, 1.0, 1.0))]
+# B2: (deg, level, x1, trees per axis); multi-tree bricks are not in lex
+# order, and E = 24 and 72 leave a ragged last tile of 64 elements
+FUSED_CASES = [(2, 1, (1.0, 1.0, 1.0), (1, 1, 1)),
+               (3, 1, (1.0, 1.0, 1.0), (1, 1, 1)),
+               (7, 1, (1.0, 1.0, 1.0), (1, 1, 1)),
+               (3, 1, (2.0, 1.0, 0.5), (1, 1, 1)),
+               (7, 2, (1.0, 1.0, 1.0), (1, 1, 1)),
+               (2, 2, (2.0, 2.0, 2.0), (2, 2, 2)),
+               (3, 1, (3.0, 1.0, 1.0), (3, 1, 1)),
+               (2, 1, (3.0, 3.0, 1.0), (3, 3, 1))]
 
 
 @pytest.fixture
@@ -35,10 +56,14 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _brick(deg, level, x1, device):
-    geom = BrickGeometry(x1=x1, dim=3)
-    mesh = build_mesh(geom, Forest.uniform(geom.conn, level), deg=deg,
+def _mesh(deg, level, x1, device, trees=(1, 1, 1)):
+    geom = BrickGeometry(x1=x1, n_trees_per_dim=trees, dim=3)
+    return build_mesh(geom, Forest.uniform(geom.conn, level), deg=deg,
                       device=device)
+
+
+def _brick(deg, level, x1, device):
+    mesh = _mesh(deg, level, x1, device)
     return mesh, S.build_structured(mesh)
 
 
@@ -78,3 +103,57 @@ def test_kernel_wrapper_checks_its_inputs(cuda_device):
         S.lex_apply_cuda(sb, u, tr.t().contiguous().t())
     with pytest.raises(ValueError, match="shape"):
         S.lex_apply_cuda(sb, u[:-1].contiguous(), tr)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("deg,level,x1,trees", FUSED_CASES)
+def test_fused_kernel_matches_plain_and_f64(cuda_device, deg, level, x1,
+                                            trees):
+    mesh = _mesh(deg, level, x1, cuda_device, trees)
+    fm = fused.build_fused(mesh)
+    E = mesh.n_elements
+    u = torch.as_tensor(
+        np.random.default_rng(deg).standard_normal((E,) + (deg + 1,) * 3),
+        dtype=torch.float32, device=cuda_device,
+    )
+    before = fused.KERNEL_LAUNCHES
+    out = fused.apply_sipg_fused(mesh, u)
+    torch.cuda.synchronize()
+    assert fused.KERNEL_LAUNCHES == before + 1
+    assert out.shape == u.shape and out.dtype == torch.float32
+    u2 = u.reshape(E, -1)
+    plain = fused.fused_apply_plain(
+        fm, u2, fused.scaled_traces(u2, fm.W_tr, fm.drstn))
+    assert _rel(out.reshape(E, -1), plain) <= REL_TOL
+    assert _rel(out, _apply_orth(mesh, u.double())) <= REL_TOL
+
+
+@pytest.mark.gpu
+def test_fused_wrapper_checks_its_inputs(cuda_device):
+    fm = fused.build_fused(_mesh(2, 1, (1.0, 1.0, 1.0), cuda_device))
+    u = torch.zeros((fm.n_elements, fm.nv), device=cuda_device)
+    tr = fused.scaled_traces(u, fm.W_tr, fm.drstn)
+    with pytest.raises(ValueError, match="float32"):
+        fused.fused_apply_cuda(fm, u.double(), tr)
+    with pytest.raises(ValueError, match="shape"):
+        fused.fused_apply_cuda(fm, u[:-1].contiguous(), tr)
+    with pytest.raises(ValueError, match="int32"):
+        fused.fused_apply_cuda(
+            dataclasses.replace(fm, nbr_row=fm.nbr_row.long()), u, tr)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("E", [1, 5, 4096])
+def test_axis_kernel_matches_plain(cuda_device, E):
+    rng = np.random.default_rng(E)
+    u = torch.as_tensor(rng.standard_normal((E, 8, 8, 8)),
+                        dtype=torch.float32, device=cuda_device)
+    m = torch.as_tensor(rng.standard_normal((8, 8)), dtype=torch.float32,
+                        device=cuda_device)
+    before = X.KERNEL_LAUNCHES
+    out = X.axis_apply(u, m)
+    torch.cuda.synchronize()
+    assert X.KERNEL_LAUNCHES == before + 1
+    assert _rel(out, X.axis_apply_plain(u, m)) <= AXIS_TOL
+    with pytest.raises(ValueError, match="shape"):
+        X.axis_apply_cuda(u[..., :4].contiguous(), m)
