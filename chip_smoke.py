@@ -9,11 +9,15 @@ and `nvcc`.  Phases, one or more lines each; any failure exits non-zero:
 1. the device, and `nvidia-smi --query-gpu=name,power.limit`;
 2. the build of the three CUDA kernels from `disco4est_tpu_torch/csrc/`
    (one `nvcc` each, all started together), with their register,
-   shared-memory and spill lines;
+   shared-memory and spill lines, and the count of tensor-core
+   instructions (HGMMA/HMMA) in each SIPG library's SASS, which must not
+   be 0 (B1 and B2 run split-TF32 `wgmma` products);
 3. B1, the structured kernel, against its plain PyTorch version and
    against the f64 GEMM-form apply, on bricks of several degrees and
    levels, the shapes of phases 4 and 5 among them (rel ≤ 5e-6), with the
-   median time per apply of kernel and plain version at deg 7 / level 4;
+   median time per apply of kernel and plain version at deg 7 / level 4
+   and deg 3 / level 5, each against two bounds: f32 FFMA and split-TF32
+   (three TF32 tensor-core products per f32 product);
 4. the reference sinx regression through the port's CLI entry on the
    card: the printed line, the L2 error, a solve that went through the
    kernel and no f64 fallback;
@@ -21,8 +25,10 @@ and `nvcc`.  Phases, one or more lines each; any failure exits non-zero:
    once through the kernel (`use_structured = auto`), once through the
    generic f32 apply (`use_structured = 0`) and once as a plain f64 FCG
    solve (`use_mixed_precision = 0`).  The kernel solve must not fall
-   back to the f64 solver.  All three solve the same f64
-   system to the residual floor (atol 5e-15), so their L2 errors must
+   back to the f64 solver, and its inner iteration count must stay within
+   2 % of the 1062 that the earlier IEEE-f32 FFMA tile code took (the
+   split-TF32 products must not slow the inner CG).  All three solve the
+   same f64 system to the residual floor (atol 5e-15), so their L2 errors must
    agree with each other to 1e-7 relative (solve-floor spread: a few
    1e-9), and each must match the JAX driver's value to 1e-5 relative.
    That value was computed with numpy 2.0.2, whose Gauss-Legendre
@@ -31,20 +37,23 @@ and `nvcc`.  Phases, one or more lines each; any failure exits non-zero:
    relative.  An operator fault moves it by orders more;
 6. B2, the gathered fused kernel, against its plain version and the f64
    apply (rel ≤ 5e-6) on the meshes of `tests/test_pallas_sipg.py`, deg 7
-   / level 4, deg 3 / level 5, a multi-tree brick (not in lex order) and a
-   ragged one, then timed at deg 7 / level 4: fused pass (kernel, plain),
-   the whole `apply_sipg_fused` and the f32 GEMM-form apply;
+   / level 4, deg 3 / level 5, a multi-tree brick (not in lex order), a
+   ragged one and an 18-tree one, then timed at both sizes of phase 3:
+   fused pass (kernel, plain), the whole `apply_sipg_fused` and the f32
+   GEMM-form apply;
 7. B3, the three-axis kernel, against its plain version (rel ≤ 1e-5),
    timed with the plain version and one `torch.einsum` call at E 4096
    (the probe's size, L2-resident) and E 32768 (above the 50 MB L2);
 8. the two kernel-timing tools end to end on the card
-   (`tools.time_fused` in its three modes, `tools.exp_kernel_design`),
-   their lines echoed; B1, B2 and B3 must each have launched there, the
-   tools' own error lines must be within the tolerances above, and TF32
-   must be off again afterwards.
+   (`tools.time_fused` in its three modes at deg 7 / level 4 and mode
+   fused at deg 3 / level 5, `tools.exp_kernel_design`), their lines
+   echoed; B1, B2 and B3 must each have launched there, the tools' own
+   error lines must be within the tolerances above, and TF32 must be off
+   again afterwards.
 
-Then one JSON line per kernel (`{"kernels": [...]}`; `launches` counts
-phase 5 for B1 and phase 8 for B2 and B3) and, last, the result line
+Then one JSON line of the kernels (`{"kernels": [...]}`; B1 and B2 once
+per timed size, each with the launches of a run at that size: phase 5
+for B1 at deg 3 / level 5, phase 8 for the rest) and, last, the result line
 `{"ok": true, "device": {...}}`.  Without a CUDA device the script fails
 before printing any result.
 """
@@ -52,6 +61,7 @@ before printing any result.
 import contextlib
 import io
 import json
+import pathlib
 import re
 import subprocess
 import sys
@@ -63,6 +73,8 @@ SINX_L2 = 0.024413557923538  # JAX driver, `tests/test_driver.py:59`
 LEVEL5_L2 = 4.483648876761e-10  # JAX CLI (CPU), deg 3, level 5
 LEVEL5_REL = 1e-5  # against the JAX value: numpy's Gauss weights, phase 5
 LEVEL5_SPREAD = 1e-7  # between the three solves on this machine
+LEVEL5_INNER = 1062  # inner CG iterations of the kernel solve, FFMA kernel
+LEVEL5_INNER_REL = 0.02
 CASES = [  # (deg, level, x1): nblk 1 on cubes, 3 on the non-cubic brick;
     # (1, 2) and (3, 5) are the shapes phases 4 and 5 run, and (3, 5) has
     # the z-offset 1024 that the Pallas kernel's window cannot reach
@@ -71,22 +83,29 @@ CASES = [  # (deg, level, x1): nblk 1 on cubes, 3 on the non-cubic brick;
     (7, 4, (1.0, 1.0, 1.0)), (3, 5, (1.0, 1.0, 1.0)),
     (2, 1, (1.0, 2.0, 4.0)),
 ]
-TIMED_CASE = (7, 4)
+# B1 and B2 are timed at both sizes: deg 7 / level 4 (the tools' size) and
+# deg 3 / level 5 (the main path's solve, phase 5)
+TIMED_CASES = ((7, 4), (3, 5))
 # B2 (deg, level, x1, trees per axis): the cases of
-# `tests/test_pallas_sipg.py:23,41`, the timed size, the size of phase 5,
-# a multi-tree brick (tree-major element order, not lex) and a ragged
-# brick (E = 24, below one 64-element tile)
+# `tests/test_pallas_sipg.py:23,41`, the two timed sizes, a multi-tree
+# brick (tree-major element order, not lex), a ragged brick (E = 24, below
+# one 64-element tile) and an 18-tree brick (tree ids past 15, which the
+# old packed leaf key wrapped)
 FUSED_CASES = [
     (2, 1, (1.0, 1.0, 1.0), (1, 1, 1)), (3, 1, (1.0, 1.0, 1.0), (1, 1, 1)),
     (7, 1, (1.0, 1.0, 1.0), (1, 1, 1)), (3, 1, (2.0, 1.0, 0.5), (1, 1, 1)),
     (7, 4, (1.0, 1.0, 1.0), (1, 1, 1)), (3, 5, (1.0, 1.0, 1.0), (1, 1, 1)),
     (3, 3, (2.0, 2.0, 2.0), (2, 2, 2)), (7, 1, (3.0, 1.0, 1.0), (3, 1, 1)),
+    (3, 1, (3.0, 3.0, 2.0), (3, 3, 2)),
 ]
 AXIS_TOL = 1e-5  # B3 vs plain: three 8-term f32 sums in another order
 AXIS_SIZES = (4096, 32768)
-# H100 SXM data sheet at 700 W: f32 FFMA peak and HBM3 rate
+# H100 SXM data sheet at 700 W: f32 FFMA peak, dense TF32 tensor-core
+# peak and HBM3 rate
 PEAK_F32 = 67e12
+PEAK_TF32 = 495e12
 PEAK_BYTES = 3.35e12
+SPLIT_PRODUCTS = 3  # the split-TF32 scheme issues three TF32 products
 
 SINX_OPTIONS = """
 [initial_mesh]
@@ -174,15 +193,60 @@ def phase_build():
                 seen.append(line)
         for line in seen:
             print("    ptxas:", line)
+        if m is not X:  # the two SIPG libraries run on the tensor cores
+            n = tensor_core_instructions(cuda_build, lib)
+            print(f"[2] {lib.name}: {n} tensor-core instructions "
+                  f"(HGMMA/HMMA) in cuobjdump -sass")
+            check(n > 0, f"{lib.name} has no tensor-core instruction")
 
 
-def bound_ms(flop, nbytes):
+def tensor_core_instructions(cuda_build, lib):
+    """The count of HGMMA and HMMA instructions in the library's SASS."""
+    tool = pathlib.Path(cuda_build.nvcc_path()).with_name("cuobjdump")
+    proc = subprocess.run([str(tool), "-sass", str(lib)],
+                          capture_output=True, text=True, timeout=300)
+    check(proc.returncode == 0, f"cuobjdump failed: {proc.stderr[-2000:]}")
+    return len(re.findall(r"\bH(?:GMMA|MMA)\.", proc.stdout))
+
+
+def bound_ms(flop, nbytes, split=False):
     """The least time of the work on the card (data-sheet peaks): the
-    larger of flop over the f32 FFMA peak and bytes over the memory rate;
-    returns (ms, what sets it)."""
-    t_ops, t_bytes = flop / PEAK_F32, nbytes / PEAK_BYTES
+    larger of bytes over the memory rate and flop over the f32 FFMA peak
+    or, with `split`, three times the flop over the dense TF32 peak (the
+    split-TF32 products); returns (ms, what sets it)."""
+    t_ops = (SPLIT_PRODUCTS * flop / PEAK_TF32 if split
+             else flop / PEAK_F32)
+    t_bytes = nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
+
+
+def sipg_timing(torch, label, card, fns, flop, nbytes):
+    """Time the fused SIPG pass `fns["kernel"]` against the other entries
+    of `fns` in alternating rounds, print both bounds and the share of
+    each, and return the kernel line's numbers (share of record: the
+    split-TF32 bound)."""
+    for fn in fns.values():  # warm-up
+        fn()
+    torch.cuda.synchronize()
+    t = {k: [] for k in fns}
+    for order in (list(fns), list(fns)[::-1]) * 2:  # alternate rounds
+        for k in order:
+            t[k].append(_time_ms(torch, fns[k]))
+    t = {k: _median(v) for k, v in t.items()}
+    ms = t["kernel"]
+    b_ffma, by_ffma = bound_ms(flop, nbytes)
+    b_split, by_split = bound_ms(flop, nbytes, split=True)
+    others = ", ".join(f"{k} {v:.4f} ms" for k, v in t.items()
+                       if k != "kernel")
+    print(f"{label} on {card}: fused pass kernel {ms:.4f} ms "
+          f"({flop / ms / 1e9:.2f} TFLOP/s); split-TF32 bound "
+          f"{b_split:.4f} ms by {by_split} ({b_split / ms:.1%} of it), "
+          f"FFMA bound {b_ffma:.4f} ms by {by_ffma} ({b_ffma / ms:.1%}); "
+          f"{others}")
+    return t, dict(ms=ms, plain_ms=t["plain"], bound_ms=b_split,
+                   bound_by=by_split, bound_ffma_ms=b_ffma,
+                   bound_ffma_by=by_ffma)
 
 
 def sipg_pass_cost(E, nv, nblk, tw, extra_bytes=0):
@@ -239,7 +303,7 @@ def phase_kernel(torch, np, card):
 
     dev = torch.device("cuda")
     max_abs = 0.0
-    timing = None
+    timing = {}
     for deg, level, x1 in CASES:
         geom = BrickGeometry(x1=x1, dim=3)
         mesh = build_mesh(geom, Forest.uniform(geom.conn, level), deg=deg,
@@ -270,34 +334,20 @@ def phase_kernel(torch, np, card):
               f"kernel disagrees with plain: rel {rel}")
         check(np.isfinite(rel64) and rel64 <= REL_TOL,
               f"kernel disagrees with f64 apply: rel {rel64}")
-        if (deg, level) == TIMED_CASE and x1 == (1.0, 1.0, 1.0):
+        if (deg, level) in TIMED_CASES and x1 == (1.0, 1.0, 1.0):
             tr = S.compute_traces_lex(sb, u).contiguous()
-            for _ in range(3):  # warm-up
-                S.lex_apply_cuda(sb, u, tr)
-                S.lex_apply_plain(sb, u, tr)
-            torch.cuda.synchronize()
-            kern, plain, kern_full, plain_full = [], [], [], []
-            for _ in range(4):  # alternate plain and kernel
-                plain.append(_time_ms(
-                    torch, lambda: S.lex_apply_plain(sb, u, tr)))
-                kern.append(_time_ms(
-                    torch, lambda: S.lex_apply_cuda(sb, u, tr)))
-                kern_full.append(_time_ms(
-                    torch, lambda: S.apply_structured(sb, u)))
-                plain_full.append(_time_ms(
-                    torch, lambda: S.apply_structured_plain(sb, u)))
+            fns = {
+                "plain": lambda: S.lex_apply_plain(sb, u, tr),
+                "kernel": lambda: S.lex_apply_cuda(sb, u, tr),
+                "whole apply (with the trace GEMM)":
+                    lambda: S.apply_structured(sb, u),
+                "whole plain apply": lambda: S.apply_structured_plain(sb, u),
+            }
             flop, nbytes = sipg_pass_cost(E, sb.nv, sb.nblk, 12 * nl * nl)
-            bms, by = bound_ms(flop, nbytes)
-            timing = dict(ms=_median(kern), plain_ms=_median(plain), bound_ms=bms,
-                          bound_by=by)
-            print(f"[3] timing deg {deg} level {level} (E {E}) on {card}: "
-                  f"fused pass kernel {timing['ms']:.4f} ms "
-                  f"({flop / timing['ms'] / 1e9:.2f} TFLOP/s; bound "
-                  f"{bms:.4f} ms by {by}, {bms / timing['ms']:.1%} of it) "
-                  f"vs plain {timing['plain_ms']:.4f} ms; whole apply (with "
-                  f"the trace GEMM) kernel {_median(kern_full):.4f} ms vs plain "
-                  f"{_median(plain_full):.4f} ms")
-    check(timing is not None, "timed case missing")
+            _, timing[(deg, level)] = sipg_timing(
+                torch, f"[3] timing deg {deg} level {level} (E {E})", card,
+                fns, flop, nbytes)
+    check(set(timing) == set(TIMED_CASES), "timed case missing")
     return max_abs, timing
 
 
@@ -366,6 +416,10 @@ def phase_real_size(torch):
     # a fallback would take the L2 from the plain f64 solve, not the kernel
     check(fields["fallback"] == "no",
           "the level-5 kernel solve fell back to the f64 solver")
+    inner = int(fields["iterations"])
+    check(abs(inner - LEVEL5_INNER) <= LEVEL5_INNER_REL * LEVEL5_INNER,
+          f"level-5 kernel solve took {inner} inner iterations, "
+          f"{LEVEL5_INNER} +- {LEVEL5_INNER_REL:.0%} expected")
     check(runs[("0", 1)][1] == 0 and runs[("0", 0)][1] == 0,
           "use_structured = 0 launched the kernel")
     return launches
@@ -380,7 +434,7 @@ def phase_fused(torch, np, card):
 
     dev = torch.device("cuda")
     max_abs = 0.0
-    timing = None
+    timing = {}
     for deg, level, x1, trees in FUSED_CASES:
         geom = BrickGeometry(x1=x1, n_trees_per_dim=trees, dim=3)
         mesh = build_mesh(geom, Forest.uniform(geom.conn, level), deg=deg,
@@ -411,7 +465,7 @@ def phase_fused(torch, np, card):
               f"fused kernel disagrees with plain: rel {rel}")
         check(np.isfinite(rel64) and rel64 <= REL_TOL,
               f"fused kernel disagrees with f64 apply: rel {rel64}")
-        if (deg, level) != TIMED_CASE:
+        if (deg, level) not in TIMED_CASES or trees != (1, 1, 1):
             continue
         mesh32 = mesh.astype(torch.float32)
         fns = {
@@ -420,31 +474,16 @@ def phase_fused(torch, np, card):
             "whole": lambda: fused.apply_fused(fm, u),
             "fast_f32": lambda: _apply_orth(mesh32, u),
         }
-        for fn in fns.values():  # warm-up
-            fn()
-        torch.cuda.synchronize()
-        t = {k: [] for k in fns}
-        for order in (list(fns), list(fns)[::-1]) * 2:  # alternate rounds
-            for k in order:
-                t[k].append(_time_ms(torch, fns[k]))
-        t = {k: _median(v) for k, v in t.items()}
         tw = 12 * nl * nl
         flop, nbytes = sipg_pass_cost(E, fm.nv, fm.nblk, tw,
                                       extra_bytes=4 * E * 6)
-        bms, by = bound_ms(flop, nbytes)
-        whole_flop = flop + 2.0 * E * fm.nv * tw
-        whole_bms, _ = bound_ms(whole_flop, nbytes)
-        timing = dict(ms=t["kernel"], plain_ms=t["plain"], bound_ms=bms,
-                      bound_by=by)
-        print(f"[6] timing deg {deg} level {level} (E {E}) on {card}: "
-              f"fused pass kernel {t['kernel']:.4f} ms "
-              f"({flop / t['kernel'] / 1e9:.2f} TFLOP/s; bound {bms:.4f} ms "
-              f"by {by}, {bms / t['kernel']:.1%} of it) vs plain "
-              f"{t['plain']:.4f} ms; whole apply_sipg_fused "
-              f"{t['whole']:.4f} ms (bound {whole_bms:.4f} ms, "
-              f"{whole_bms / t['whole']:.1%}); f32 _apply_orth "
-              f"{t['fast_f32']:.4f} ms")
-    check(timing is not None, "timed case missing")
+        t, timing[(deg, level)] = sipg_timing(
+            torch, f"[6] timing deg {deg} level {level} (E {E})", card, fns,
+            flop, nbytes)
+        whole_bms, _ = bound_ms(flop + 2.0 * E * fm.nv * tw, nbytes)
+        print(f"[6] whole apply_sipg_fused {t['whole']:.4f} ms (FFMA bound "
+              f"{whole_bms:.4f} ms, {whole_bms / t['whole']:.1%})")
+    check(set(timing) == set(TIMED_CASES), "timed case missing")
     return max_abs, timing
 
 
@@ -521,22 +560,31 @@ def phase_tools(torch):
     from disco4est_tpu_torch.tools import exp_kernel_design as X
     from disco4est_tpu_torch.tools import time_fused
 
-    S.KERNEL_LAUNCHES = fused.KERNEL_LAUNCHES = X.KERNEL_LAUNCHES = 0
-    rels = {}
-    for mode in ("fused", "phases", "structured"):
-        lines = _tool_lines(time_fused.main,
-                            ["--mode", mode, "--device", "cuda"])
-        if mode != "phases":
-            rels[mode] = _rel_from(lines, "rel err [^:]*:")
+    rels, launches = {}, {}
+    # (mode, deg, level): the default size, then B2 at the main path's
+    # size, so that each size's row has its own launch count
+    runs = [("fused", 7, 4), ("phases", 7, 4), ("structured", 7, 4),
+            ("fused", 3, 5)]
+    for mode, deg, level in runs:
+        S.KERNEL_LAUNCHES = fused.KERNEL_LAUNCHES = 0
+        lines = _tool_lines(time_fused.main, [
+            "--mode", mode, "--deg", str(deg), "--level", str(level),
+            "--device", "cuda"])
+        torch.cuda.synchronize()
+        if mode == "phases":
+            continue
+        rels[(mode, deg, level)] = _rel_from(lines, "rel err [^:]*:")
+        launches[(mode, deg, level)] = (S.KERNEL_LAUNCHES
+                                        + fused.KERNEL_LAUNCHES)
+    X.KERNEL_LAUNCHES = 0
     lines = _tool_lines(X.main, ["--device", "cuda"])
     rels["axis"] = _rel_from(lines, r"rel err vs plain \(one apply\)")
     torch.cuda.synchronize()
-    launches = dict(structured=S.KERNEL_LAUNCHES,
-                    fused=fused.KERNEL_LAUNCHES, axis=X.KERNEL_LAUNCHES)
+    launches["axis"] = X.KERNEL_LAUNCHES
     print(f"[8] launches in the tools: {launches}; errors {rels}")
     for name, n in launches.items():
         check(n > 0, f"the tools never launched the {name} kernel")
-    check(rels["fused"] <= REL_TOL and rels["structured"] <= REL_TOL,
+    check(all(v <= REL_TOL for k, v in rels.items() if k != "axis"),
           f"tool errors above {REL_TOL}: {rels}")
     check(rels["axis"] <= AXIS_TOL, f"E4 error above {AXIS_TOL}: {rels}")
     check(torch.backends.cuda.matmul.allow_tf32 is False,
@@ -565,17 +613,27 @@ def main():
     tool_launches = phase_tools(torch)
 
     csrc = "disco4est_tpu_torch/csrc/"
-    kernels = [
-        dict(name="structured_apply", route="cuda",
-             source=csrc + "structured_apply.cu",
-             replaces="disco4est_tpu/laplacian/structured.py:190",
-             launches=b1_launches, max_abs_err=b1_abs, library_ms=None,
-             **b1),
-        dict(name="fused_apply", route="cuda",
-             source=csrc + "fused_apply.cu",
-             replaces="disco4est_tpu/laplacian/pallas_sipg.py:131",
-             launches=tool_launches["fused"], max_abs_err=b2_abs,
-             library_ms=None, **b2),
+    # B1 and B2 have one entry per timed size; each entry's launches are
+    # those of a run at that size: B1 at deg 3 / level 5 is the main path's
+    # solve (phase 5), the rest are the tools' runs (phase 8)
+    b1_runs = {(7, 4): tool_launches[("structured", 7, 4)],
+               (3, 5): b1_launches}
+    kernels = []
+    for deg, level in TIMED_CASES:
+        size = f"deg {deg} / level {level}"
+        kernels.append(dict(
+            name=f"structured_apply ({size})", route="cuda",
+            source=csrc + "structured_apply.cu",
+            replaces="disco4est_tpu/laplacian/structured.py:190",
+            launches=b1_runs[(deg, level)], max_abs_err=b1_abs,
+            library_ms=None, **b1[(deg, level)]))
+        kernels.append(dict(
+            name=f"fused_apply ({size})", route="cuda",
+            source=csrc + "fused_apply.cu",
+            replaces="disco4est_tpu/laplacian/pallas_sipg.py:131",
+            launches=tool_launches[("fused", deg, level)],
+            max_abs_err=b2_abs, library_ms=None, **b2[(deg, level)]))
+    kernels += [
         dict(name="axis_apply", route="cuda",
              source=csrc + "axis_apply.cu",
              replaces="tools/exp_kernel_design.py:176",

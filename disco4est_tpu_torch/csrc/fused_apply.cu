@@ -1,5 +1,5 @@
 // Fused SIPG apply on any conforming orthogonal affine mesh, for NVIDIA
-// Hopper (sm_90a), f32 on FFMA.
+// Hopper (sm_90a), split-TF32 products on the tensor cores.
 //
 // Replaces the Pallas TPU kernel `_kernel` of
 // `disco4est_tpu/laplacian/pallas_sipg.py` (phase B of
@@ -15,24 +15,21 @@
 // [E*6, 2*nfl].  Two choices differ from the TPU kernel:
 //   - the element's OWN traces are read from phase A's output, not
 //     recomputed as u @ W_tr: that GEMM is 3.2 GFLOP at p = 7, E = 4096
-//     (~48 us at the FFMA peak) while reading the same 12.6 MB costs ~4 us,
-//     and reading keeps both sides of every face bit-identical;
-//   - the neighbor gather is an indexed load inside the kernel, made while
-//     the A tile is staged, so the gathered array never exists in device
-//     memory.  Boundary faces point at the element itself, so every index
-//     is in range; the bnd flag overrides their values.
+//     while reading the same 12.6 MB costs ~4 us, and reading keeps both
+//     sides of every face bit-identical;
+//   - the neighbor gather is an indexed load inside the kernel (cp.async
+//     into the A source slots), so the gathered array never exists in
+//     device memory.  Boundary faces point at the element itself, so every
+//     index is in range; the bnd flag overrides their values.
 //
 // What bounds it on this card.  The fused pass costs
 // 2*E*nv*(nblk*nv + tw) flop, 5.37 GFLOP at p = 7, E = 4096, against about
-// 32 MB of traffic (u, traces, Au, the weights, the tables): 166 flop per
-// byte, far above the card's f32 ridge of ~20 flop/byte (67 TFLOP/s on
-// FFMA over 3.35 TB/s), so f32 FFMA throughput bounds it (80 us).
-//
-// What the simple design leaves on the table: it runs on FFMA rather than
-// the tensor cores (TF32 or a split-bf16 scheme would be needed, and the
-// inner CG wants IEEE f32 products), it stages tiles with plain loads and
-// no TMA or cp.async pipeline, and it re-reads the per-face scalars for
-// every A entry.  Making it fast is later work.
+// 32.5 MB of traffic (u, traces, Au, the weights, the tables).  With the
+// products in split TF32 (three TF32 tensor-core products per f32 product,
+// 495 TFLOP/s dense) the operations bound p = 7 (32.5 us) and the bytes
+// bound p = 3 at E = 32768 (13.8 us).  The design is that of
+// `sipg_gemm.cuh`; only the neighbor policy differs from the structured
+// kernel.
 
 #include "sipg_gemm.cuh"
 
@@ -49,16 +46,17 @@ struct RowTable {
 }  // namespace
 
 // Plain C entry point (bound with ctypes).  All pointers are device
-// pointers to contiguous arrays: u [E, nv], tr [E, tw], cw [E, nblk],
-// scal [E, 24], wvol [nv, nblk*nv], wlift [tw, nv], out [E, nv] (f32) and
-// nbr_row [E, 6] (int32, each in [0, 6E)).  Returns the cudaError_t of the
-// launch (0 on success).
-extern "C" int d4est_fused_apply(
-    const float* u, const float* tr, const int* nbr_row, const float* cw,
-    const float* scal, const float* wvol, const float* wlift, float* out,
-    int E, int nl, int nblk, void* stream) {
+// pointers to contiguous arrays: u [E, nv], tr [E, tw], meta [E, 28]
+// (`fused.sipg_meta`: the per-face scalars and cw), wpack (B split and
+// packed by `fused.pack_sipg_weights`), out [E, nv] (f32) and nbr_row
+// [E, 6] (int32, each in [0, 6E)).  Returns the cudaError_t of the launch
+// (0 on success).
+extern "C" int d4est_fused_apply(const float* u, const float* tr,
+                                 const int* nbr_row, const float* meta,
+                                 const float* wpack, float* out, int E,
+                                 int nl, int nblk, void* stream) {
   RowTable t;
   t.nbr_row = nbr_row;
-  return d4est::launch_sipg(u, tr, cw, scal, wvol, wlift, out, E, nl, nblk,
-                            t, static_cast<cudaStream_t>(stream));
+  return d4est::launch_sipg(u, tr, meta, wpack, out, E, nl, nblk, t,
+                            static_cast<cudaStream_t>(stream));
 }

@@ -1,4 +1,5 @@
-// Fused structured SIPG apply for NVIDIA Hopper (sm_90a), f32 on FFMA.
+// Fused structured SIPG apply for NVIDIA Hopper (sm_90a), split-TF32
+// products on the tensor cores.
 //
 // Replaces the Pallas TPU kernel `_kernel_lex` of
 // `disco4est_tpu/laplacian/structured.py` (the inner f32 apply of the
@@ -12,19 +13,20 @@
 // lexicographic order (x fastest), so the neighbor across face f of
 // element e is element e + delta[f] and its matching face is opp[f].
 //
-// What bounds it on this card.  The apply costs ~2*E*nv*(nblk*nv + tw)
-// flop (5.4 GFLOP at p = 7, E = 4096) against ~4*E*(2*nv + tw) bytes of
-// streamed data (u, traces, Au): ~190 flop/byte at p = 7 and ~25 at p = 3.
-// The card's f32 ridge is ~20 flop/byte (67 TFLOP/s on FFMA over
-// 3.35 TB/s), so f32 FFMA throughput bounds it.  It must stay in IEEE f32
-// (no TF32, no tensor cores): the inner CG diverges under reduced-precision
-// products, and the kernel is held to 5e-6 relative against f64.
+// What bounds it on this card.  The apply costs 2*E*nv*(nblk*nv + tw)
+// flop against ~4*E*(2*nv + tw) bytes of streamed data (u, traces, Au):
+// ~166 flop/byte at p = 7 and ~24 at p = 3.  With the products in split
+// TF32 (three TF32 tensor-core products per f32 product, 495 TFLOP/s
+// dense) the operations bound p = 7 (32.5 us at E = 4096) and the bytes
+// bound p = 3 (13.5 us at E = 32768, the main path's solve).  The split
+// keeps f32 accuracy: the kernel is held to 5e-6 relative against f64,
+// and the inner CG keeps its iteration count.
 //
-// What the design does about it: see `sipg_gemm.cuh`.  Neighbor traces are
-// read straight from device memory at row e + delta[f], only on interior
-// faces and only inside 0 <= e + delta < E; there is no window, so any
-// brick size works.  Making it fast (wgmma, TMA, a bf16/TF32 variant) is
-// later work.
+// What the design does about it: see `sipg_gemm.cuh` (wgmma products, A
+// generated once per element tile, bulk-copied B chunks and cp.async A
+// sources in flight, a persistent grid).  Neighbor traces are read
+// straight from device memory at row e + delta[f], only inside
+// 0 <= e + delta < E; there is no window, so any brick size works.
 
 #include "sipg_gemm.cuh"
 
@@ -56,20 +58,22 @@ struct FaceShift {
 }  // namespace
 
 // Plain C entry point (bound with ctypes).  All pointers are device
-// pointers to contiguous f32 arrays: u [E, nv], tr [E, tw], cw [E, nblk],
-// scal [E, 24], wvol [nv, nblk*nv], wlift [tw, nv], out [E, nv].  `delta`
-// and `opp` are host arrays of 6 ints.  Returns the cudaError_t of the
-// launch (0 on success).
-extern "C" int d4est_structured_apply(
-    const float* u, const float* tr, const float* cw, const float* scal,
-    const float* wvol, const float* wlift, float* out, int E, int nl,
-    int nblk, const int* delta, const int* opp, void* stream) {
+// pointers to contiguous f32 arrays: u [E, nv], tr [E, tw], meta [E, 28]
+// (`fused.sipg_meta`: the per-face scalars and cw), wpack (B split and
+// packed by `fused.pack_sipg_weights`), out [E, nv].  `delta` and `opp`
+// are host arrays of 6 ints.  Returns the cudaError_t of the launch (0 on
+// success).
+extern "C" int d4est_structured_apply(const float* u, const float* tr,
+                                      const float* meta, const float* wpack,
+                                      float* out, int E, int nl, int nblk,
+                                      const int* delta, const int* opp,
+                                      void* stream) {
   FaceShift fs;
   for (int f = 0; f < d4est::kFaces; ++f) {
     fs.delta[f] = delta[f];
     fs.opp[f] = opp[f];
   }
   fs.E = E;
-  return d4est::launch_sipg(u, tr, cw, scal, wvol, wlift, out, E, nl, nblk,
-                            fs, static_cast<cudaStream_t>(stream));
+  return d4est::launch_sipg(u, tr, meta, wpack, out, E, nl, nblk, fs,
+                            static_cast<cudaStream_t>(stream));
 }

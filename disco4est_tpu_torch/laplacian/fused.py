@@ -160,6 +160,8 @@ class FusedMesh:
     W_vol: torch.Tensor  # [nv, nblk*nv]
     W_tr: torch.Tensor  # [nv, 2d*2*nfl]
     W_lift: torch.Tensor  # [2d*2*nfl, nv]
+    W_pack: torch.Tensor  # B of the kernel, `pack_sipg_weights`
+    meta: torch.Tensor  # [E, 28]: the kernel's table rows, `sipg_meta`
 
     @property
     def n_elements(self) -> int:
@@ -183,14 +185,16 @@ def build_fused(mesh: MeshData) -> FusedMesh:
     nbr_row = mesh.nbr_elem.long() * nfaces + mesh.nbr_face.long()
     hm = _mats(mesh.deg, mesh.deg_quad, mesh.quad.kind, mesh.dim, mesh.iso)
     kw = dict(dtype=F32, device=mesh.device)
+    W_vol = torch.as_tensor(hm["W_vol"], **kw)
+    W_lift = torch.as_tensor(hm["W_lift"], **kw)
     return FusedMesh(
         dim=mesh.dim, deg=mesh.deg, nblk=hm["nblk"],
         nbr_row=nbr_row.to(torch.int32).contiguous(),
         cw_in=cw_in.contiguous(), scal=scal.contiguous(),
-        drstn=drstn.contiguous(),
-        W_vol=torch.as_tensor(hm["W_vol"], **kw),
-        W_tr=torch.as_tensor(hm["W_tr"], **kw),
-        W_lift=torch.as_tensor(hm["W_lift"], **kw),
+        drstn=drstn.contiguous(), W_vol=W_vol,
+        W_tr=torch.as_tensor(hm["W_tr"], **kw), W_lift=W_lift,
+        W_pack=pack_sipg_weights(W_vol, W_lift, hm["nblk"]),
+        meta=sipg_meta(cw_in, scal),
     )
 
 
@@ -201,12 +205,19 @@ def fused_pass_plain(u2, tr, nb, cw_in, scal, W_vol, W_lift):
     faces nb is not read (u+ = 0, dn+ = -dn-)."""
     E, nv = u2.shape
     nblk = cw_in.shape[1]
-    nfaces = scal.shape[1] // 4
     acc = u2 @ W_vol
     au = cw_in[:, 0][:, None] * acc[:, :nv]
     for b in range(1, nblk):
         au = au + cw_in[:, b][:, None] * acc[:, b * nv:(b + 1) * nv]
+    return au + face_terms(tr, nb, scal) @ W_lift
 
+
+def face_terms(tr, nb, scal):
+    """The face block Z [E, tw] of the fused pass, per face [t13 | s2n],
+    from the own traces tr, the neighbor's nb (both [E, tw]) and the
+    per-face scalars scal [E, 2d·4]."""
+    E = tr.shape[0]
+    nfaces = scal.shape[1] // 4
     tr3 = tr.reshape(E, nfaces, -1)
     nb3 = nb.reshape(E, nfaces, -1)
     nfl = tr3.shape[2] // 2
@@ -220,8 +231,79 @@ def fused_pass_plain(u2, tr, nb, cw_in, scal, W_vol, W_lift):
     jump = u_f - u_p
     t13 = -0.5 * sj * (dn_m - dn_p) + sj * sig * jump
     s2n = -0.5 * c2 * sj * drstn * jump
-    Z = torch.cat([t13, s2n], dim=2).reshape(E, -1)
-    return au + Z @ W_lift
+    return torch.cat([t13, s2n], dim=2).reshape(E, -1)
+
+
+# The kernels' K chunk (`kKC` of `csrc/sipg_gemm.cuh`): B is packed in
+# chunks of this many K rows.
+SIPG_KC = 16
+# The width of the kernels' per-element table rows (`kMetaW`).
+SIPG_META_W = 28
+
+
+def sipg_meta(cw_in, scal):
+    """The kernels' per-element table [E, 28] in f32: scal (drstn, sj,
+    sigma, bnd per face, 24 columns), then cw_in (nblk columns), then
+    zeros, so that each row is 112 bytes and a tile's rows are one aligned
+    bulk copy."""
+    E, nblk = cw_in.shape
+    pad = torch.zeros((E, SIPG_META_W - scal.shape[1] - nblk), dtype=F32,
+                      device=scal.device)
+    return torch.cat([scal.to(F32), cw_in.to(F32), pad], dim=1).contiguous()
+
+
+def sipg_layout(nv: int, nblk: int, tw: int):
+    """The padded shape of B in the kernels (`Cfg` of `sipg_gemm.cuh`):
+    (NP, NCH), the column count nv rounded up to the warpgroups' widths
+    (a multiple of 8, or of 16 where a warpgroup's columns are cut in two
+    halves) and the count of K chunks."""
+    K = nblk * nv + tw
+    if nv > 256:
+        NP = 2 * ((nv + 15) // 16 * 8)
+    elif nv > 128:
+        NP = (nv + 15) // 16 * 16
+    else:
+        NP = (nv + 7) // 8 * 8
+    return NP, -(-K // SIPG_KC)
+
+
+def tf32_round(x):
+    """x rounded to TF32 as `cvt.rna.tf32.f32` rounds it: the nearest
+    value with 10 mantissa bits, ties away from zero, kept in f32."""
+    bits = x.to(F32).contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(F32)
+
+
+def split_tf32(x):
+    """(hi, lo), both TF32 values, hi + lo ≈ x to ~2^-22 relative."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x.to(F32) - hi)
+
+
+def sipg_b(W_vol, W_lift, nblk):
+    """B = [W_vol blocks stacked along K ; W_lift], [K, nv]: row
+    b·nv + m is W_vol[m, b·nv:(b+1)·nv], row nblk·nv + j is W_lift[j]."""
+    nv = W_vol.shape[0]
+    blocks = [W_vol[:, b * nv:(b + 1) * nv] for b in range(nblk)]
+    return torch.cat(blocks + [W_lift], dim=0)
+
+
+def pack_sipg_weights(W_vol, W_lift, nblk):
+    """B of the fused pass, split into TF32 hi and lo, transposed to
+    K-major, padded with zeros (N to `sipg_layout`'s NP, K to whole
+    chunks) and cut into K chunks in the kernels' shared-memory image:
+    [NCH, 2 (hi, lo), NP/8, KC/4, 8, 4], f32.  Entry (chunk c, part,
+    g, q, r, i) is part(B)[c·KC + 4q + i, 8g + r]."""
+    B = sipg_b(W_vol, W_lift, nblk).to(F32)
+    K, nv = B.shape
+    NP, NCH = sipg_layout(nv, nblk, K - nblk * nv)
+    Bt = torch.zeros((NP, NCH * SIPG_KC), dtype=F32, device=B.device)
+    Bt[:nv, :K] = B.T
+    parts = [
+        p.reshape(NP // 8, 8, NCH, SIPG_KC // 4, 4).permute(2, 0, 3, 1, 4)
+        for p in split_tf32(Bt)
+    ]
+    return torch.stack(parts, dim=1).contiguous()
 
 
 def gather_rows(fm: FusedMesh, tr):
@@ -254,11 +336,18 @@ def check_sipg_operands(dim, deg, nblk, E, dev):
     return tw
 
 
+def check_sipg_weights(W_pack, nv, nblk, tw, dev):
+    """The packed B operand's check, shared by both kernel wrappers."""
+    NP, NCH = sipg_layout(nv, nblk, tw)
+    check_operand("W_pack", W_pack, (NCH, 2, NP // 8, SIPG_KC // 4, 8, 4),
+                  dev, F32)
+
+
 @functools.lru_cache(maxsize=None)
 def _load():
     lib = load_library(SOURCE)
     fn = lib.d4est_fused_apply
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
         ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
@@ -275,10 +364,10 @@ def fused_apply_cuda(fm: FusedMesh, u2, tr):
     tw = check_sipg_operands(fm.dim, fm.deg, nblk, E, dev)
     for name, t, shape in (
         ("u", u2, (E, nv)), ("tr", tr, (E, tw)),
-        ("cw_in", fm.cw_in, (E, nblk)), ("scal", fm.scal, (E, 24)),
-        ("W_vol", fm.W_vol, (nv, nblk * nv)), ("W_lift", fm.W_lift, (tw, nv)),
+        ("meta", fm.meta, (E, SIPG_META_W)),
     ):
         check_operand(name, t, shape, dev, F32)
+    check_sipg_weights(fm.W_pack, nv, nblk, tw, dev)
     check_operand("nbr_row", fm.nbr_row, (E, 6), dev, torch.int32)
     fn = _load().d4est_fused_apply
     out = torch.empty((E, nv), dtype=F32, device=dev)
@@ -286,9 +375,8 @@ def fused_apply_cuda(fm: FusedMesh, u2, tr):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(
             u2.data_ptr(), tr.data_ptr(), fm.nbr_row.data_ptr(),
-            fm.cw_in.data_ptr(), fm.scal.data_ptr(), fm.W_vol.data_ptr(),
-            fm.W_lift.data_ptr(), out.data_ptr(), E, fm.deg + 1, nblk,
-            stream,
+            fm.meta.data_ptr(), fm.W_pack.data_ptr(), out.data_ptr(), E,
+            fm.deg + 1, nblk, stream,
         )
     if err != 0:
         raise RuntimeError(f"fused kernel launch failed: CUDA error {err}")

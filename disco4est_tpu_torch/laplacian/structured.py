@@ -64,6 +64,8 @@ class StructuredBrick:
     W_vol: torch.Tensor  # [nv, nblk*nv]
     W_tr: torch.Tensor  # [nv, 2d*2*nfl]
     W_lift: torch.Tensor  # [2d*2*nfl, nv]
+    W_pack: torch.Tensor  # B of the kernel, `fused.pack_sipg_weights`
+    meta: torch.Tensor  # [E, 28]: the kernel's table rows, `fused.sipg_meta`
 
     @property
     def n_elements(self) -> int:
@@ -137,18 +139,20 @@ def build_structured(mesh: MeshData):
 
     dev = mesh.device
     permt = torch.as_tensor(perm, device=dev)
-    cw_in, scal, drstn = fused.face_scalars(mesh)
+    cw_in, scal, drstn = (t[permt].contiguous()
+                          for t in fused.face_scalars(mesh))
     hm = fused._mats(mesh.deg, mesh.deg_quad, mesh.quad.kind, dim, mesh.iso)
     kw = dict(dtype=F32, device=dev)
+    W_vol = torch.as_tensor(hm["W_vol"], **kw)
+    W_lift = torch.as_tensor(hm["W_lift"], **kw)
     return StructuredBrick(
         dim=dim, deg=mesh.deg, nblk=hm["nblk"],
         deltas=tuple(deltas), opp=tuple(opps),
         perm=permt, inv_perm=torch.as_tensor(inv, device=dev),
-        cw_in=cw_in[permt].contiguous(), scal=scal[permt].contiguous(),
-        drstn=drstn[permt].contiguous(),
-        W_vol=torch.as_tensor(hm["W_vol"], **kw),
-        W_tr=torch.as_tensor(hm["W_tr"], **kw),
-        W_lift=torch.as_tensor(hm["W_lift"], **kw),
+        cw_in=cw_in, scal=scal, drstn=drstn,
+        W_vol=W_vol, W_tr=torch.as_tensor(hm["W_tr"], **kw), W_lift=W_lift,
+        W_pack=fused.pack_sipg_weights(W_vol, W_lift, hm["nblk"]),
+        meta=fused.sipg_meta(cw_in, scal),
     )
 
 
@@ -188,7 +192,7 @@ def lex_apply_plain(sb: StructuredBrick, u2, tr):
 def _load():
     lib = load_library(SOURCE)
     fn = lib.d4est_structured_apply
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
@@ -205,10 +209,10 @@ def lex_apply_cuda(sb: StructuredBrick, u2, tr):
     tw = fused.check_sipg_operands(sb.dim, sb.deg, nblk, E, dev)
     for name, t, shape in (
         ("u", u2, (E, nv)), ("tr", tr, (E, tw)),
-        ("cw_in", sb.cw_in, (E, nblk)), ("scal", sb.scal, (E, 24)),
-        ("W_vol", sb.W_vol, (nv, nblk * nv)), ("W_lift", sb.W_lift, (tw, nv)),
+        ("meta", sb.meta, (E, fused.SIPG_META_W)),
     ):
         check_operand(name, t, shape, dev, F32)
+    fused.check_sipg_weights(sb.W_pack, nv, nblk, tw, dev)
     fn = _load().d4est_structured_apply
     out = torch.empty((E, nv), dtype=F32, device=dev)
     delta = (ctypes.c_int * 6)(*sb.deltas)
@@ -216,9 +220,9 @@ def lex_apply_cuda(sb: StructuredBrick, u2, tr):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(
-            u2.data_ptr(), tr.data_ptr(), sb.cw_in.data_ptr(),
-            sb.scal.data_ptr(), sb.W_vol.data_ptr(), sb.W_lift.data_ptr(),
-            out.data_ptr(), E, sb.deg + 1, nblk, delta, opp, stream,
+            u2.data_ptr(), tr.data_ptr(), sb.meta.data_ptr(),
+            sb.W_pack.data_ptr(), out.data_ptr(), E, sb.deg + 1, nblk, delta,
+            opp, stream,
         )
     if err != 0:
         raise RuntimeError(

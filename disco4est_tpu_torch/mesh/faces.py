@@ -16,7 +16,9 @@ Face-node ordering: for face dir a0, tangent axes (t1 < t2), nodes stored
 [n_t2, n_t1] with t1 fastest.  Orientation codes (cross-tree faces) encode
 (swap, flip_t1, flip_t2): code = 4*swap + 2*flip2 + flip1; 2D: code = flip.
 
-Port of `disco4est_tpu/mesh/faces.py` (host numpy, copied unchanged).
+Port of `disco4est_tpu/mesh/faces.py` (host numpy), copied unchanged but
+for the leaf search, which goes through `Forest.find_leaves` (no packed
+tree-and-key integer; ROADMAP C8).
 """
 
 from __future__ import annotations
@@ -116,8 +118,6 @@ def build_face_tables(forest: Forest) -> FaceTables:
     hc_rows = []
     hf_rows = []
 
-    keys_sorted = forest._lookup_arrays()
-
     for f in range(nf):
         a0, side = divmod(f, 2)
         # center of the same-level neighbor cell, in my frame
@@ -132,10 +132,7 @@ def build_face_tables(forest: Forest) -> FaceTables:
         live = np.where(valid)[0]
         if len(live) == 0:
             continue
-        from disco4est_tpu_torch.mesh.tree import _key_of
-
-        q = _key_of(tr[live], pt[live], dim)
-        idx = np.searchsorted(keys_sorted, q, side="right") - 1
+        idx = forest.find_leaves(tr[live], pt[live])
         lv_e = forest.level[live].astype(np.int32)
         lv_n = forest.level[idx].astype(np.int32)
 

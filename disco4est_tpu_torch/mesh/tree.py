@@ -15,8 +15,15 @@ order).
 
 Port of `disco4est_tpu/mesh/tree.py` (host numpy, copied unchanged) for
 the uniform meshes of this slice: `Forest.uniform`, `refine` and the key
-helpers that `mesh/faces.py` uses.  Coarsening, 2:1 balance, `find_leaf`
-and `checksum` come with the AMR loop and checkpoints (ROADMAP A7, A14).
+leaf lookup that `mesh/faces.py` uses.  Coarsening, 2:1 balance,
+`find_leaf` and `checksum` come with the AMR loop and checkpoints (ROADMAP
+A7, A14).
+
+One deliberate difference from the JAX module: leaf lookup
+(`Forest.find_leaves`) searches each tree's own slice of the leaf order.
+The JAX module packs the tree id above bit 60 of the uint64 Morton key,
+so tree ids of 16 and above wrap and the face tables of bricks with more
+than 16 trees find wrong leaves there (ROADMAP C8).
 """
 
 from __future__ import annotations
@@ -137,9 +144,24 @@ class Forest:
     # Leaf lookup
     # ------------------------------------------------------------------
 
-    def _lookup_arrays(self):
-        """Per-forest sorted global keys (tree major, morton minor)."""
-        return _global_key(self)
+    def find_leaves(self, tree: np.ndarray, point: np.ndarray) -> np.ndarray:
+        """Index of the leaf of tree `tree[i]` whose cell holds lattice
+        point `point[i]`, for in-tree points: the last leaf of that tree
+        whose Morton key is not above the point's.  The search runs
+        within each tree's own slice of the (tree-major, Morton-minor)
+        leaf order, so it has no packed tree-and-key integer that more
+        trees could overflow."""
+        tree = np.asarray(tree)
+        q = morton_key(np.asarray(point), self.dim)
+        keys = morton_key(self.anchor, self.dim)
+        starts = np.searchsorted(self.tree, np.arange(self.conn.n_trees + 1))
+        idx = np.empty(len(tree), np.int64)
+        for t in np.unique(tree):
+            sel = tree == t
+            lo, hi = starts[t], starts[t + 1]
+            idx[sel] = lo + np.searchsorted(keys[lo:hi], q[sel],
+                                            side="right") - 1
+        return idx
 
 
 def _child_offsets(dim: int) -> np.ndarray:
@@ -147,15 +169,6 @@ def _child_offsets(dim: int) -> np.ndarray:
     return np.stack([(c >> d) & 1 for d in range(dim)], axis=-1).astype(
         np.int64
     )
-
-
-def _global_key(forest: Forest) -> np.ndarray:
-    return _key_of(forest.tree, forest.anchor, forest.dim)
-
-
-def _key_of(tree: np.ndarray, point: np.ndarray, dim: int) -> np.ndarray:
-    m = morton_key(np.asarray(point), dim)
-    return (np.asarray(tree).astype(np.uint64) << np.uint64(60)) | m
 
 
 def _canonicalize_points(

@@ -1,9 +1,12 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a card.
 
 - B1, the structured apply (`csrc/structured_apply.cu`), and B2, the
-  gathered fused apply (`csrc/fused_apply.cu`): against the plain version
-  and the f64 apply, to 5e-6 relative (max |Δ| / max |ref|), the f32
-  bound of `tests/test_structured.py` and `tests/test_pallas_sipg.py`;
+  gathered fused apply (`csrc/fused_apply.cu`), split-TF32 products on the
+  tensor cores: against the plain version and the f64 apply, to 5e-6
+  relative (max |Δ| / max |ref|), the f32 bound of
+  `tests/test_structured.py` and `tests/test_pallas_sipg.py`, at every
+  degree 1-7, on nblk-3 bricks and at ragged element counts (24, 65);
+  and they leave the TF32 flag of `torch.matmul` as they found it;
 - B3, the three-axis apply (`csrc/axis_apply.cu`): against its plain
   version to 1e-5 relative (f32 rounding over three 8-term sums, summed
   in another order).
@@ -35,7 +38,11 @@ AXIS_TOL = 1e-5
 CASES = [(1, 2, (1.0, 1.0, 1.0)), (2, 1, (1.0, 1.0, 1.0)),
          (3, 2, (1.0, 1.0, 1.0)), (5, 2, (1.0, 1.0, 1.0)),
          (7, 2, (1.0, 1.0, 1.0)), (2, 1, (1.0, 2.0, 4.0)),
-         (4, 2, (2.0, 1.0, 1.0)), (3, 5, (1.0, 1.0, 1.0))]
+         (4, 2, (2.0, 1.0, 1.0)), (3, 5, (1.0, 1.0, 1.0)),
+         # nblk 3 where a warpgroup's columns come in two sub-blocks (deg
+         # 5) and where two warpgroups split the columns (deg 6, 7)
+         (5, 1, (1.0, 2.0, 4.0)), (6, 1, (2.0, 1.0, 1.0)),
+         (7, 1, (1.0, 2.0, 4.0))]
 # B2: (deg, level, x1, trees per axis); multi-tree bricks are not in lex
 # order, and E = 24 and 72 leave a ragged last tile of 64 elements
 FUSED_CASES = [(2, 1, (1.0, 1.0, 1.0), (1, 1, 1)),
@@ -45,7 +52,8 @@ FUSED_CASES = [(2, 1, (1.0, 1.0, 1.0), (1, 1, 1)),
                (7, 2, (1.0, 1.0, 1.0), (1, 1, 1)),
                (2, 2, (2.0, 2.0, 2.0), (2, 2, 2)),
                (3, 1, (3.0, 1.0, 1.0), (3, 1, 1)),
-               (2, 1, (3.0, 3.0, 1.0), (3, 3, 1))]
+               (2, 1, (3.0, 3.0, 1.0), (3, 3, 1)),
+               (7, 1, (1.0, 2.0, 4.0), (1, 1, 1))]
 
 
 @pytest.fixture
@@ -90,6 +98,68 @@ def test_kernel_matches_plain_and_f64(cuda_device, deg, level, x1):
         mesh, S.from_lex(sb, u.double()).reshape((E,) + (deg + 1,) * 3)
     ).reshape(E, -1))
     assert _rel(out, ref64) <= REL_TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("deg", range(1, 8))
+def test_both_kernels_every_degree(cuda_device, deg):
+    """Each (nl, nblk = 1) instance of the shared tile code, through both
+    neighbor policies, on the unit cube at level 1 (E = 8)."""
+    mesh = _mesh(deg, 1, (1.0, 1.0, 1.0), cuda_device)
+    _check_both(mesh, deg)
+
+
+def _check_both(mesh, deg, structured=True):
+    E = mesh.n_elements
+    shape = (E,) + (deg + 1,) * 3
+    u = torch.as_tensor(np.random.default_rng(E + deg).standard_normal(shape),
+                        dtype=torch.float32, device=mesh.device)
+    ref64 = _apply_orth(mesh, u.double())
+    fm = fused.build_fused(mesh)
+    u2 = u.reshape(E, -1)
+    tr = fused.scaled_traces(u2, fm.W_tr, fm.drstn).contiguous()
+    out = fused.fused_apply_cuda(fm, u2, tr)
+    assert _rel(out, fused.fused_apply_plain(fm, u2, tr)) <= REL_TOL
+    assert _rel(fused.apply_sipg_fused(mesh, u), ref64) <= REL_TOL
+    if structured:
+        sb = S.build_structured(mesh)
+        u_lex = S.to_lex(sb, u2)
+        out = S.apply_structured(sb, u_lex)
+        assert _rel(out, S.apply_structured_plain(sb, u_lex)) <= REL_TOL
+        assert _rel(S.from_lex(sb, out), ref64.reshape(E, -1)) <= REL_TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("deg", [2, 7])
+@pytest.mark.parametrize("trees", [(3, 1, 1), (65, 1, 1)])
+def test_both_kernels_ragged_element_count(cuda_device, deg, trees):
+    """E = 24 and E = 65: a ragged last element tile (64 or 128 elements a
+    tile); the 65-tree brick also has tree ids past 15."""
+    level = 1 if trees == (3, 1, 1) else 0
+    mesh = _mesh(deg, level, tuple(float(t) for t in trees), cuda_device,
+                 trees)
+    assert mesh.n_elements in (24, 65)
+    _check_both(mesh, deg)
+
+
+@pytest.mark.gpu
+def test_kernels_leave_the_tf32_flag_alone(cuda_device):
+    """The split-TF32 products are the kernels' own: neither wrapper reads
+    or sets `torch.backends.cuda.matmul.allow_tf32`."""
+    mesh = _mesh(3, 1, (1.0, 1.0, 1.0), cuda_device)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    try:
+        for flag in (False, True, False):
+            torch.backends.cuda.matmul.allow_tf32 = flag
+            fm = fused.build_fused(mesh)
+            u = torch.ones((mesh.n_elements, fm.nv), device=cuda_device)
+            fused.apply_fused(fm, u)
+            sb = S.build_structured(mesh)
+            S.apply_structured(sb, u)
+            torch.cuda.synchronize()
+            assert torch.backends.cuda.matmul.allow_tf32 is flag
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
 
 
 @pytest.mark.gpu

@@ -189,3 +189,42 @@ def test_unported_mesh_features_raise():
                device="cpu")
     with pytest.raises(NotImplementedError, match="A11"):
         tbuild(geom, forest, deg=2, compactified_k=2, device="cpu")
+
+
+def test_face_tables_past_16_trees_match_lattice_search():
+    """On an 18-tree brick the face table equals a brute-force neighbor
+    search on the global lattice.  The JAX package packs the tree id above
+    bit 60 of its leaf key, so trees 16 and 17 wrap onto trees 0 and 1 and
+    its table differs here (ROADMAP C8); the port searches tree by tree."""
+    from disco4est_tpu_torch.mesh.tree import ROOT
+
+    level, trees = 1, (3, 3, 2)
+    kw = dict(x1=(3.0, 3.0, 2.0), n_trees_per_dim=trees, dim=3)
+    jg, tg = JBrick(**kw), TBrick(**kw)
+    assert tg.conn.n_trees == 18
+    jm = jbuild(jg, JForest.uniform(jg.conn, level), deg=1)
+    tm = tbuild(tg, TForest.uniform(tg.conn, level), deg=1, device="cpu")
+    forest = tm.forest
+    coords = (np.asarray(tg.tree_origin)[forest.tree] * ROOT
+              + forest.anchor) // (ROOT >> level)
+    dims = np.asarray(trees) << level
+    where = {tuple(c): e for e, c in enumerate(coords)}
+    E = len(coords)
+    nbr = np.tile(np.arange(E)[:, None], (1, 6))
+    bnd = np.zeros((E, 6), bool)
+    for e, c in enumerate(coords):
+        for f in range(6):
+            step = np.zeros(3, np.int64)
+            step[f // 2] = 1 if f % 2 else -1
+            n = c + step
+            if np.all((n >= 0) & (n < dims)):
+                nbr[e, f] = where[tuple(n)]
+            else:
+                bnd[e, f] = True
+    np.testing.assert_array_equal(tm.nbr_elem.numpy(), nbr)
+    np.testing.assert_array_equal(tm.bnd_mask.numpy(), bnd)
+    interior = ~bnd
+    face = np.tile(np.arange(6) ^ 1, (E, 1))
+    np.testing.assert_array_equal(tm.nbr_face.numpy()[interior],
+                                  face[interior])
+    assert not np.array_equal(np.asarray(jm.nbr_elem), nbr)

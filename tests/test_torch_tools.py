@@ -8,6 +8,9 @@
 - `time_fused.main` in its three modes and `exp_kernel_design.main` with
   `--device=cpu` at a small size: each prints its lines, and the errors
   they print are within the bounds of `tests/test_pallas_sipg.py`.
+- `profile_solve.main` on the CPU at a small size (no device intervals
+  there, and it says so), and the source edits of `ablate_sipg`, which
+  must keep matching the tile code they cut.
 
 The kernels themselves are tested on the card by `test_torch_kernel.py`.
 """
@@ -19,8 +22,8 @@ import numpy as np
 import pytest
 import torch
 
+from disco4est_tpu_torch.tools import ablate_sipg, profile_solve, time_fused
 from disco4est_tpu_torch.tools import exp_kernel_design as X
-from disco4est_tpu_torch.tools import time_fused
 
 AXIS_TOL = 1e-5
 F32_TOL = 5e-6
@@ -96,3 +99,21 @@ def test_tools_refuse_cuda_without_a_card():
         time_fused.main(["--level", "1", "--deg", "2"])
     with pytest.raises(RuntimeError, match="cuda"):
         X.main(["--elements", "64"])
+
+
+@pytest.mark.parametrize("name", sorted(ablate_sipg.VARIANTS))
+def test_ablation_edits_match_the_tile_code(name):
+    """Every ablation of `tools/ablate_sipg.py` still finds the source it
+    edits in `csrc/sipg_gemm.cuh` (the timing itself needs the card)."""
+    text = ablate_sipg.edited_header(name)
+    assert (text == (ablate_sipg.cuda_build.CSRC / ablate_sipg.HEADER)
+            .read_text()) == (name == "base")
+
+
+def test_profile_solve_on_the_cpu(capsys):
+    assert profile_solve.main(["--level", "1", "--deg", "1", "--rounds",
+                               "1", "--device", "cpu"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    runs = [line for line in lines if line.startswith("round 0:")]
+    assert len(runs) == 2 and all("not a device run" in r for r in runs)
+    assert profile_solve._union([(0, 2), (1, 3), (5, 6)]) == 4
