@@ -31,9 +31,11 @@ and `nvcc`.  Phases, one or more lines each; any failure exits non-zero:
    same f64 system to the residual floor (atol 5e-15), so their L2 errors must
    agree with each other to 1e-7 relative (solve-floor spread: a few
    1e-9), and each must match the JAX driver's value to 1e-5 relative.
-   That value was computed with numpy 2.0.2, whose Gauss-Legendre
-   weights differ by up to 2 ulp from those of numpy 2.3; the error here
-   is only 4.5e-10, and those last bits alone move it by 1.1e-6
+   That value was computed with numpy 2.0.2.  The Gauss and
+   Gauss-Lobatto rules numpy computes move by up to 33 ulp between
+   versions, and the error here is only 4.5e-10, so the port reads its
+   rules from a table written under numpy 2.0.2 (`ops/gauss_table.py`,
+   ROADMAP C9); with numpy 2.3's own rules the digit moved by 1.1e-6
    relative.  An operator fault moves it by orders more;
 6. B2, the gathered fused kernel, against its plain version and the f64
    apply (rel ≤ 5e-6) on the meshes of `tests/test_pallas_sipg.py`, deg 7
@@ -49,7 +51,28 @@ and `nvcc`.  Phases, one or more lines each; any failure exits non-zero:
    fused at deg 3 / level 5, `tools.exp_kernel_design`), their lines
    echoed; B1, B2 and B3 must each have launched there, the tools' own
    error lines must be within the tolerances above, and TF32 must be off
-   again afterwards.
+   again afterwards;
+9. the AMR loop through the CLI entry (`run_poisson`'s epochs: mesh
+   build, solve, estimate, mark, refine + balance, field transfer), one
+   line per epoch with its elements, DOF, degree histogram, hanging
+   faces, solve path and iterations, B1 launches, L2 error and the host
+   seconds of mesh build (face tables), solve, estimator and AMR step
+   (refine + balance), timed here around the driver's calls:
+   (a) uniform_h from level 4 at deg 3 (4096 then 32768 elements), its
+       level-4 L2 held to the JAX value and its level-5 L2 to `LEVEL5_L2`
+       and to phase 5's, with B1's device time in it (launches times the
+       batched time per launch);
+   (b) uniform_p from level 4, deg 3 to 5 (4096 elements);
+   (c) hp smooth_pred from level 3, deg 2, max_degree 4, three steps,
+       whose forests, degree histograms and L2 errors must equal the JAX
+       driver's (`refcheck/amr_smoke_pins.py`);
+   (d) the same from level 4, two steps, at an adaptive size without a
+       JAX pin: the error falls every level, degrees above 2 and hanging
+       faces appear, no f64 fallback, every residual below
+       1e-10·(1 + ‖b‖).
+   Every epoch on a uniform brick at one degree must take the kernel
+   path with B1 launches; (a) and (b) have only such epochs, (c) and (d)
+   also hanging and mixed-degree ones.
 
 Then one JSON line of the kernels (`{"kernels": [...]}`; B1 and B2 once
 per timed size, each with the launches of a run at that size: phase 5
@@ -71,10 +94,32 @@ REL_TOL = 5e-6  # f32 kernel vs plain / f64, as `tests/test_structured.py`
 SINX_LINE = "64 512 512 0.02441355792354"
 SINX_L2 = 0.024413557923538  # JAX driver, `tests/test_driver.py:59`
 LEVEL5_L2 = 4.483648876761e-10  # JAX CLI (CPU), deg 3, level 5
-LEVEL5_REL = 1e-5  # against the JAX value: numpy's Gauss weights, phase 5
+LEVEL5_REL = 1e-5  # against the JAX value (phase 5, ROADMAP C9)
 LEVEL5_SPREAD = 1e-7  # between the three solves on this machine
 LEVEL5_INNER = 1062  # inner CG iterations of the kernel solve, FFMA kernel
 LEVEL5_INNER_REL = 0.02
+# phase 9, the AMR runs: [initial_mesh] min_level, region0_deg,
+# [mesh_parameters] max_degree, [amr] scheme, num_of_amr_steps
+AMR_RUNS = {
+    "a": dict(level=4, deg=3, max_degree=3, scheme="uniform_h", steps=1),
+    "b": dict(level=4, deg=3, max_degree=5, scheme="uniform_p", steps=2),
+    "c": dict(level=3, deg=2, max_degree=4, scheme="smooth_pred", steps=3),
+    "d": dict(level=4, deg=2, max_degree=4, scheme="smooth_pred", steps=2),
+}
+# (elements, DOF, degree histogram, L2) per level from the JAX driver on
+# the CPU with numpy 2.0.2 (`python refcheck/amr_smoke_pins.py`); run (a)'s
+# level 5 is LEVEL5_L2, (d) has no pin
+AMR_PINS = {
+    "a": [(4096, 262144, {3: 4096}, 1.6362252134483867e-08)],
+    "b": [(4096, 262144, {3: 4096}, 1.6362252134483867e-08),
+          (4096, 512000, {4: 4096}, 1.064237334762837e-09),
+          (4096, 884736, {5: 4096}, 7.425078891216997e-13)],
+    "c": [(512, 13824, {2: 512}, 0.0002051858857341539),
+          (1520, 41040, {2: 1520}, 0.00010726299926583374),
+          (4040, 258560, {2: 4016, 3: 24}, 1.8071305443427726e-05),
+          (4096, 262144, {2: 3064, 3: 1032}, 1.3531952590467783e-05)],
+}
+AMR_REL = 1e-5  # L2 against the JAX pins, as LEVEL5_REL
 CASES = [  # (deg, level, x1): nblk 1 on cubes, 3 on the non-cubic brick;
     # (1, 2) and (3, 5) are the shapes phases 4 and 5 run, and (3, 5) has
     # the z-offset 1024 that the Pallas kernel's window cannot reach
@@ -146,6 +191,16 @@ use_mixed_precision = {mixed}
 [quadrature]
 name = legendre
 """
+
+
+# the options of `refcheck/amr_smoke_pins.py`, with the solve settings
+# above
+AMR_OPTIONS = SINX_OPTIONS.replace(
+    "max_degree = 7", "max_degree = {max_degree}").replace(
+    "scheme = uniform_p\nnum_of_amr_steps = 0",
+    "scheme = {scheme}\nnum_of_amr_steps = {steps}\npercentile = 25\n"
+    "gamma_h = 10.0\ngamma_p = 0.1\ngamma_n = 1.0")
+assert AMR_OPTIONS.count("{scheme}") == 1
 
 
 def fail(msg):
@@ -352,8 +407,10 @@ def phase_kernel(torch, np, card):
 
 
 def run_cli(opts_text, torch):
-    """The port's CLI entry on the card; returns its stdout lines and the
-    kernel launches it made."""
+    """The port's CLI entry on the card.  Returns its norm lines and solve
+    lines (one each per level), the key=value fields of each solve line
+    and the B1 launches the run made; checks that the convergence fit
+    follows when there are two or more levels."""
     from disco4est_tpu_torch import __main__ as cli
     from disco4est_tpu_torch.laplacian import structured as S
 
@@ -365,20 +422,27 @@ def run_cli(opts_text, torch):
     launches = S.KERNEL_LAUNCHES
     check(code == 0, f"CLI exit code {code}")
     lines = buf.getvalue().splitlines()
-    check(len(lines) >= 2 and lines[1].startswith("solve level 0:"),
+    n = sum(line.startswith("solve level ") for line in lines)
+    norms, solves = lines[:n], lines[n:2 * n]
+    check(n >= 1 and len(lines) == 2 * n + (n >= 2)
+          and all(len(line.split()) == 4 for line in norms)
+          and all(line.startswith(f"solve level {k}:")
+                  for k, line in enumerate(solves))
+          and (n < 2 or lines[-1].startswith("C1 = ")),
           f"unexpected CLI output {lines}")
-    fields = dict(kv.split("=", 1) for kv in lines[1].split()[3:])
-    return lines, fields, launches
+    fields = [dict(kv.split("=", 1) for kv in line.split()[3:])
+              for line in solves]
+    return norms, solves, fields, launches
 
 
 def phase_regression(torch):
     text = SINX_OPTIONS.format(level=2, deg=1, use_structured="auto",
                                mixed=1)
-    lines, fields, launches = run_cli(text, torch)
-    print(f"[4] {lines[0]}")
-    print(f"[4] {lines[1]}; kernel launches {launches}")
-    check(lines[0] == SINX_LINE, f"sinx line {lines[0]!r} != {SINX_LINE!r}")
-    l2 = float(lines[0].split()[3])
+    (line,), (solve,), (fields,), launches = run_cli(text, torch)
+    print(f"[4] {line}")
+    print(f"[4] {solve}; kernel launches {launches}")
+    check(line == SINX_LINE, f"sinx line {line!r} != {SINX_LINE!r}")
+    l2 = float(line.split()[3])
     check(abs(l2 - SINX_L2) <= 1e-12, f"sinx L2 {l2} vs {SINX_L2}")
     check(fields["path"] == "mixed-structured",
           f"solve path {fields['path']}")
@@ -393,12 +457,12 @@ def phase_real_size(torch):
                                    mixed=mixed)
         tag = f"use_structured={mode} use_mixed_precision={mixed}"
         t0 = time.perf_counter()
-        lines, fields, launches = run_cli(text, torch)
+        (line,), (solve,), (fields,), launches = run_cli(text, torch)
         wall = time.perf_counter() - t0
-        l2 = float(lines[0].split()[3])
+        l2 = float(line.split()[3])
         rel = abs(l2 - LEVEL5_L2) / LEVEL5_L2
-        print(f"[5] {tag}: {lines[0]} (rel to JAX {rel:.3e})")
-        print(f"[5] {tag}: {lines[1]}; kernel launches {launches}; "
+        print(f"[5] {tag}: {line} (rel to JAX {rel:.3e})")
+        print(f"[5] {tag}: {solve}; kernel launches {launches}; "
               f"CLI wall {wall:.2f} s")
         if fields["fallback"] != "no":
             print(f"[5] {tag}: the f64 fallback ran")
@@ -422,7 +486,7 @@ def phase_real_size(torch):
           f"{LEVEL5_INNER} +- {LEVEL5_INNER_REL:.0%} expected")
     check(runs[("0", 1)][1] == 0 and runs[("0", 0)][1] == 0,
           "use_structured = 0 launched the kernel")
-    return launches
+    return launches, runs[("auto", 1)][2]
 
 
 def phase_fused(torch, np, card):
@@ -592,6 +656,165 @@ def phase_tools(torch):
     return launches
 
 
+@contextlib.contextmanager
+def amr_probe(torch, np):
+    """Per-epoch records of a driver run.  Wraps the driver's mesh build,
+    estimator and AMR step, and inside them the face tables and the
+    refine + balance, each with host clocks behind a device
+    synchronize; one record per mesh build, that is per epoch."""
+    from disco4est_tpu_torch import driver
+    from disco4est_tpu_torch.amr import amr
+    from disco4est_tpu_torch.laplacian import structured as S
+    from disco4est_tpu_torch.mesh import builder
+
+    sites = [(driver, "build_mesh", "mesh"),
+             (builder, "build_face_tables", "faces"),
+             (driver, "estimate_bi", "estimate"),
+             (driver, "amr_step_hp", "amr"),
+             (amr, "refine_and_balance", "balance")]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in sites]
+    epochs = []
+
+    def timed(fn, key):
+        def wrapper(*args, **kw):
+            if key == "mesh":
+                forest = args[1]
+                values, counts = np.unique(np.asarray(kw["deg_e"]),
+                                           return_counts=True)
+                epochs.append(dict(
+                    launches=S.KERNEL_LAUNCHES,
+                    hist={int(v): int(c) for v, c in zip(values, counts)},
+                    uniform=len(values) == 1
+                    and len(np.unique(forest.level)) == 1))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            rec = epochs[-1]
+            rec[key] = rec.get(key, 0.0) + time.perf_counter() - t0
+            if key == "mesh":
+                rec["hanging"] = int(out.hc_elem.shape[0])
+                check(out.device.type == "cuda",
+                      f"an epoch's mesh was built on {out.device}")
+            return out
+        return wrapper
+
+    for mod, name, key in sites:
+        setattr(mod, name, timed(getattr(mod, name), key))
+    try:
+        yield epochs
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def amr_run(torch, np, key):
+    """One AMR run of phase 9 through the CLI entry: its per-epoch lines,
+    records and the checks every run shares."""
+    run = AMR_RUNS[key]
+    text = AMR_OPTIONS.format(use_structured="auto", mixed=1, **run)
+    t0 = time.perf_counter()
+    with amr_probe(torch, np) as epochs:
+        norms, _, fields, launches = run_cli(text, torch)
+    wall = time.perf_counter() - t0
+    n = run["steps"] + 1
+    check(len(norms) == len(epochs) == n,
+          f"({key}) {len(norms)} levels, {len(epochs)} epochs, {n} expected")
+    ends = [e["launches"] for e in epochs[1:]] + [launches]
+    for k, (rec, line, f, end) in enumerate(zip(epochs, norms, fields,
+                                                ends)):
+        E, dof, _, l2 = line.split()
+        rec.update(E=int(E), dof=int(dof), l2=float(l2), fields=f,
+                   b1=end - rec["launches"], solve=float(f["seconds"]))
+        print(f"[9] ({key}) level {k}: E {E} DOF {dof} deg_e {rec['hist']} "
+              f"hanging {rec['hanging']}; path={f['path']} outer="
+              f"{f['outer']} iterations={f['iterations']} residual="
+              f"{f['residual']} fallback={f['fallback']}; B1 launches "
+              f"{rec['b1']}; L2 {l2}; seconds: "
+              f"mesh {rec['mesh']:.3f} (face tables {rec['faces']:.3f}), "
+              f"solve {rec['solve']:.3f}, estimate "
+              f"{rec.get('estimate', 0.0):.3f}, amr {rec.get('amr', 0.0):.3f}"
+              f" (refine + balance {rec.get('balance', 0.0):.3f})")
+        if rec["uniform"]:  # a uniform brick at one degree: the kernel
+            check(f["path"] == "mixed-structured" and rec["b1"] > 0,
+                  f"({key}) uniform epoch {k} took {f['path']} with "
+                  f"{rec['b1']} B1 launches")
+        else:
+            check(rec["b1"] == 0, f"({key}) B1 ran on an adapted mesh")
+        check(np.isfinite(rec["l2"]), f"({key}) L2 {l2}")
+    print(f"[9] ({key}) {run}: CLI wall {wall:.2f} s, B1 launches "
+          f"{launches}, final elements {epochs[-1]['E']}")
+    for k, (E, dof, hist, l2) in enumerate(AMR_PINS.get(key, [])):
+        rec = epochs[k]
+        rel = abs(rec["l2"] - l2) / l2
+        print(f"[9] ({key}) level {k} against JAX: L2 rel {rel:.3e}")
+        check((rec["E"], rec["dof"], rec["hist"]) == (E, dof, hist),
+              f"({key}) level {k}: {rec['E']} {rec['dof']} {rec['hist']}, "
+              f"JAX {E} {dof} {hist}")
+        check(rel <= AMR_REL, f"({key}) level {k} L2 {rec['l2']} vs JAX "
+              f"{l2} (rel {rel})")
+    return epochs
+
+
+def phase_amr(torch, np, card, level5_l2, b1_level5_ms):
+    from disco4est_tpu_torch.geometry.brick import BrickGeometry
+    from disco4est_tpu_torch.laplacian import structured as S
+    from disco4est_tpu_torch.mesh.builder import build_mesh
+    from disco4est_tpu_torch.mesh.tree import Forest
+
+    print(f"[9] the AMR loop on {card}")
+    a = amr_run(torch, np, "a")
+    check([e["E"] for e in a] == [4096, 32768]
+          and a[1]["dof"] == 2097152, "(a) sizes")
+    l2 = a[1]["l2"]
+    rel_jax = abs(l2 - LEVEL5_L2) / LEVEL5_L2
+    rel_p5 = abs(l2 - level5_l2) / level5_l2
+    print(f"[9] (a) level 5 L2 {l2!r}: rel to JAX {rel_jax:.3e}, to phase 5 "
+          f"{rel_p5:.3e}")
+    check(rel_jax <= LEVEL5_REL, f"(a) level-5 L2 {l2} vs {LEVEL5_L2}")
+    check(rel_p5 <= LEVEL5_SPREAD, f"(a) level-5 L2 {l2} vs phase 5 "
+          f"{level5_l2}")
+    # B1's device time in (a): each epoch's launches times the batched
+    # device time per launch at that epoch's shape (level 5: phase 3)
+    geom = BrickGeometry(dim=3)
+    sb = S.build_structured(build_mesh(geom, Forest.uniform(geom.conn, 4),
+                                       deg=3, device="cuda"))
+    u = torch.as_tensor(
+        np.random.default_rng(9).standard_normal((sb.n_elements, sb.nv)),
+        dtype=torch.float32, device="cuda")
+    tr = S.compute_traces_lex(sb, u).contiguous()
+    launches0 = S.KERNEL_LAUNCHES
+    per = [_time_ms(torch, lambda: S.lex_apply_cuda(sb, u, tr)),
+           b1_level5_ms]
+    S.KERNEL_LAUNCHES = launches0  # timing launches are not the run's
+    b1_ms = [e["b1"] * t for e, t in zip(a, per)]
+    print(f"[9] (a) B1 device time on {card}: level 4 {a[0]['b1']} x "
+          f"{per[0]:.4f} ms = {b1_ms[0]:.1f} ms of a {a[0]['solve']:.3f} s "
+          f"solve; level 5 {a[1]['b1']} x {per[1]:.4f} ms = {b1_ms[1]:.1f} "
+          f"ms of a {a[1]['solve']:.3f} s solve")
+
+    b = amr_run(torch, np, "b")
+    check([max(e["hist"]) for e in b] == [3, 4, 5], "(b) degrees")
+
+    c = amr_run(torch, np, "c")
+    check(any(e["hanging"] for e in c), "(c) no epoch with hanging faces")
+    check(any(len(e["hist"]) > 1 for e in c), "(c) no mixed-degree epoch")
+    check(c[0]["b1"] > 0, "(c) epoch 0 did not run B1")
+
+    d = amr_run(torch, np, "d")
+    l2s = [e["l2"] for e in d]
+    check(all(x > y for x, y in zip(l2s, l2s[1:])),
+          f"(d) the error did not fall every level: {l2s}")
+    check(max(max(e["hist"]) for e in d) > 2, "(d) no degree above 2")
+    check(any(e["hanging"] for e in d), "(d) no hanging faces")
+    for k, e in enumerate(d):
+        f = e["fields"]
+        bound = 1e-10 * (1.0 + float(f["rhs_norm"]))
+        check(f["fallback"] == "no", f"(d) level {k} fell back to f64")
+        check(float(f["residual"]) <= bound,
+              f"(d) level {k} residual {f['residual']} above {bound:.3e}")
+
+
 def main():
     import numpy as np
     import torch
@@ -607,10 +830,11 @@ def main():
     phase_build()
     b1_abs, b1 = phase_kernel(torch, np, card)
     phase_regression(torch)
-    b1_launches = phase_real_size(torch)
+    b1_launches, level5_l2 = phase_real_size(torch)
     b2_abs, b2 = phase_fused(torch, np, card)
     b3_abs, b3 = phase_axis(torch, np, card)
     tool_launches = phase_tools(torch)
+    phase_amr(torch, np, card, level5_l2, b1[(3, 5)]["ms"])
 
     csrc = "disco4est_tpu_torch/csrc/"
     # B1 and B2 have one entry per timed size; each entry's launches are

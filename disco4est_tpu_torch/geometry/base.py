@@ -68,6 +68,12 @@ class Geometry:
     is_affine: bool = False
     is_orthogonal: bool = False
 
+    def tree_region(self, tree):
+        """Geometry region (`d4est_geometry.h:117-118` get_region) per tree,
+        for the per-region estimator stats; one region unless a geometry
+        says otherwise."""
+        return np.zeros_like(np.asarray(tree), dtype=np.int32)
+
     def x(self, tree, rst):
         """Physical coordinates; rst [..., dim] -> [..., dim]."""
         raise NotImplementedError

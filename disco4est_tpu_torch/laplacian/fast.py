@@ -1,6 +1,6 @@
-"""Speed-of-light SIPG apply for affine conforming meshes (GEMM form).
+"""Speed-of-light SIPG apply for affine meshes (GEMM form).
 
-Port of the orthogonal, conforming part of `disco4est_tpu/laplacian/fast.py`
+Port of the orthogonal part of `disco4est_tpu/laplacian/fast.py`
 (reference semantics: `dGMath/d4est_laplacian.c:318-399` +
 `d4est_laplacian_flux_sipg.c`).  For affine elements every geometric factor
 is constant, so the exact quadrature folds into fixed Lobatto-space
@@ -9,9 +9,13 @@ matrices: the volume term is Σ_b c_b ⊙ (u @ Q_b) with shared dense
 one packed row gather, and mass + lift is one more GEMM.  The GEMMs stay
 `torch.matmul`, as they were plain XLA GEMMs in the JAX package.
 
-This is the f64 outer operator of the mixed-precision solve.  The
-general-affine path (`_apply_general`) and the hanging-face mortars are not
-ported yet (ROADMAP A8, A9).
+This is the f64 outer operator of the mixed-precision solve, and in f32
+the generic inner one.  Hanging faces ride the same [E, 2d] face arrays
+through the dense mortar pass of `_apply_orth` (the builder's `hang_code`
+tables); `_add_hanging` is the legacy route through the [M, K] row kernels
+of `sipg._apply_hanging`, kept as the reference the dense pass is tested
+against.  The general-affine path (`_apply_general`) is not ported yet
+(ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -106,8 +110,30 @@ def _host_mats_orth(deg: int, deg_quad: int, quad_key, dim: int, iso: bool):
     rows += [bm["sels"][f] @ bm["dvol"][f // 2] for f in range(nfaces)]
     W_lift = np.concatenate(rows, axis=0)  # [2*nfaces*nfl, nv]
 
-    return dict(W_vol=W_vol, nblk=nblk, W_tr=W_tr, W_lift=W_lift, Mf=Mf,
-                nv=nv, nfl=nfl)
+    # mass-FREE lift for the dense coarse-mortar lanes (their loads carry
+    # the subface mass already): [place t13m | D̂_nᵀ place s2n]
+    rows2 = [bm["sels"][f] for f in range(nfaces)]
+    rows2 += [bm["sels"][f] @ bm["dvol"][f // 2] for f in range(nfaces)]
+    W_lift2 = np.concatenate(rows2, axis=0)
+
+    return dict(W_vol=W_vol, nblk=nblk, W_tr=W_tr, W_lift=W_lift,
+                W_lift2=W_lift2, Mf=Mf, nv=nv, nfl=nfl)
+
+
+@functools.lru_cache(maxsize=None)
+def _hang_prolong_mats(deg: int, dim: int):
+    """[K, nfl, nfl] coarse-face -> subface-b interpolation (flattened face
+    layout, subface bit t on the t-th-fastest face axis — the same
+    convention as `sipg._apply_hanging`'s `prolong_b`)."""
+    hp = [DB.hp_prolong(deg, deg, c) for c in (0, 1)]
+    K = 1 << (dim - 1)
+    mats = []
+    for b in range(K):
+        Pm = hp[b & 1]
+        for t in range(1, dim - 1):
+            Pm = np.kron(hp[(b >> t) & 1], Pm)
+        mats.append(Pm)
+    return np.stack(mats)
 
 
 @functools.lru_cache(maxsize=64)
@@ -121,13 +147,45 @@ def _device_mats_orth(deg, deg_quad, quad_key, dim, iso, dtype, device):
             np.concatenate([hm["W_vol"], hm["W_tr"]], axis=1), **kw
         ),
         W_lift=torch.as_tensor(hm["W_lift"], **kw),
+        W_lift2=torch.as_tensor(hm["W_lift2"], **kw),
         Mf=torch.as_tensor(hm["Mf"], **kw),
+        P=torch.as_tensor(_hang_prolong_mats(deg, dim), **kw),
         nv=hm["nv"], nblk=hm["nblk"],
     )
 
 
 def fast_path_available(mesh: MeshData) -> bool:
-    return mesh.affine and mesh.wjgg_c is not None
+    return (
+        mesh.affine
+        and mesh.wjgg_c is not None
+        # hanging meshes ride the fast conforming bulk + a mortar pass:
+        # either the dense orth tables, or the legacy [M, K] kernels
+        # (which need the full face factor arrays for the fine sides)
+        and (
+            mesh.hc_elem.shape[0] == 0
+            or (
+                mesh.orth
+                and not mesh.orient_codes
+                and mesh.hang_code is not None
+            )
+            or mesh.face_drst is not None
+        )
+    )
+
+
+def _add_hanging(mesh: MeshData, Au, u_vol, dtype):
+    """Mortar contributions on top of the conf-masked fast bulk through
+    the legacy [M, K] row kernels of `sipg._apply_hanging`."""
+    from disco4est_tpu_torch.laplacian import sipg as _sipg
+
+    dim, deg = mesh.dim, mesh.deg
+    D1 = torch.as_tensor(DB.ops(deg).diff, dtype=dtype, device=u_vol.device)
+    dudr = [tensor.apply_axis(D1, u_vol, l) for l in range(dim)]
+    u_f = _sipg._face_slices(u_vol, dim)
+    dudr_f = torch.stack(
+        [_sipg._face_slices(dudr[l], dim) for l in range(dim)], dim=2
+    )
+    return Au + _sipg._apply_hanging(mesh, u_f, dudr_f, dtype)
 
 
 def apply_sipg_fast(mesh: MeshData, u, g=None):
@@ -198,13 +256,70 @@ def _apply_orth(mesh: MeshData, u, g=None):
     sj = mesh.face_sj_c.to(dtype)[..., None]
     sig = mesh.sigma.to(dtype)[..., None]
 
+    hanging = mesh.hc_elem.shape[0] > 0
+    dense_hang = hanging and mesh.hang_code is not None
+    if dense_hang:
+        # Dense mortar pass: the [M, K] row kernels of `sipg._apply_hanging`
+        # re-expressed on the conforming [E, 2d] face arrays.  FINE side:
+        # the gathered neighbor row IS the coarse face's trace (faces.py
+        # sets nbr_* to the coarse element); prolong its lanes onto my
+        # subface and use the mortar penalty — then the conforming
+        # t13/s2n formulas apply verbatim (the fine face is the mortar).
+        # The COARSE side reuses the fine rows via the mortar
+        # antisymmetry t13_c = -t13_f, jump_c = -jump_f.
+        code = mesh.hang_code  # [E, 2d]
+        P = dm["P"]  # [K, nfl, nfl]
+        for k in range(P.shape[0]):
+            mk = (code == k + 1)[..., None]
+            u_p = torch.where(mk, u_p @ P[k].T, u_p)
+            dn_p = torch.where(mk, dn_p @ P[k].T, dn_p)
+        sig = torch.where((code > 0)[..., None],
+                          mesh.hang_sigma.to(dtype)[..., None], sig)
+
     jump = u_f - u_p
     t13 = -0.5 * sj * (dn_m - dn_p) + sj * sig * jump
     mj = (jump.reshape(-1, nfl) @ dm["Mf"]).reshape(E, nfaces, nfl)
     s2n = (-0.5) * c2 * sj * mj * drstn_n[..., None]
 
+    t13_z, s2n_z = t13, s2n
+    if hanging:
+        # faces this pass does not handle are masked out: every hanging
+        # face for the legacy mortar pass, coarse-hanging only in dense mode
+        cmb = mesh.conf_mask
+        if dense_hang:
+            cmb = cmb | (code > 0)
+        cm = cmb[..., None].to(dtype)
+        t13_z, s2n_z = t13 * cm, s2n * cm
     Z = torch.cat(
-        [t13.reshape(E, nfaces * nfl), s2n.reshape(E, nfaces * nfl)], dim=1
+        [t13_z.reshape(E, nfaces * nfl), s2n_z.reshape(E, nfaces * nfl)],
+        dim=1,
     )
     Au = Au + Z @ dm["W_lift"]
-    return Au.reshape(u.shape)
+
+    if dense_hang:
+        # coarse side: gather the M·K fine-face loads, transpose-prolong
+        # and negate per mortar, then one unique-index store onto the
+        # dense face arrays (coarse hanging faces are distinct rows)
+        K = P.shape[0]
+        t13m = (t13.reshape(-1, nfl) @ dm["Mf"]).reshape(E, nfaces, nfl)
+        packc = torch.cat([t13m, sj * mj], dim=-1).reshape(
+            E * nfaces, 2 * nfl)
+        rows_c = mesh.hc_fine.long() * nfaces + mesh.hc_fine_face.long()
+        gk = packc[rows_c.reshape(-1)].reshape(-1, K, 2 * nfl)
+        cidx = mesh.hc_elem.long() * nfaces + mesh.hc_face.long()
+        loads = torch.zeros((E * nfaces, 2 * nfl), dtype=dtype,
+                            device=u.device)
+        loads[cidx] = -torch.cat(
+            [torch.einsum("mkb,kba->ma", gk[..., :nfl], P),
+             torch.einsum("mkb,kba->ma", gk[..., nfl:], P)], dim=-1)
+        loads = loads.reshape(E, nfaces, 2 * nfl)
+        s2n_c = -0.5 * loads[..., nfl:] * drstn_n[..., None]
+        Z2 = torch.cat([loads[..., :nfl].reshape(E, nfaces * nfl),
+                        s2n_c.reshape(E, nfaces * nfl)], dim=1)
+        Au = Au + Z2 @ dm["W_lift2"]
+
+    Au = Au.reshape(u.shape)
+    if hanging and not dense_hang:
+        Au = _add_hanging(mesh, Au, u.reshape((E,) + (deg + 1,) * dim),
+                          dtype)
+    return Au

@@ -117,14 +117,15 @@ def compute_traces(mesh: MeshData, u):
 def fused_path_available(mesh: MeshData, g) -> bool:
     """The gate of JAX `pallas_path_available`: orthogonal, no orientation
     codes, no boundary data, degree ≥ 1, no hanging faces and no pointwise
-    (sigma_q) penalty.  The port's `MeshData` holds neither hanging faces
-    nor sigma_q yet (`build_mesh` refuses them, ROADMAP A9, A11), so those
-    two terms hold for every mesh it has and are not written out."""
+    (sigma_q) penalty.  The port's `MeshData` holds no sigma_q yet
+    (`build_mesh` refuses it, ROADMAP A11), so that term holds for every
+    mesh it has and is not written out."""
     return (
         mesh.orth
         and not mesh.orient_codes
         and g is None
         and mesh.deg >= 1
+        and mesh.hc_elem.shape[0] == 0
     )
 
 

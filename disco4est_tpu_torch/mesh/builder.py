@@ -1,18 +1,21 @@
 """Mesh-data builder: per-epoch precomputation of all geometric factors.
 
-Port of the affine-conforming subset of `disco4est_tpu/mesh/builder.py`
-(role of the reference's `d4est_mesh_update` + `d4est_mesh_data_compute`,
+Port of the affine subset of `disco4est_tpu/mesh/builder.py` (role of
+the reference's `d4est_mesh_update` + `d4est_mesh_data_compute`,
 `Mesh/d4est_mesh.c:2544-2791`).  After every mesh epoch the struct of
 element-major factor tensors is rebuilt once, on the requested device, in
 float64; kernels read them every solver iteration.
 
-What this subset covers: conforming meshes (no hanging faces), identity
-face orientations, the scalar penalty modes (`volume_div_area`, `tree_h`,
-`j_div_sj_min_lobatto`) and the full per-point factor arrays the driver
-builds (`store_full=True` in the JAX package).  Hanging faces, non-identity
-orientations, the pointwise `j_div_sj_quad` penalty and compactified
-quadrature raise `NotImplementedError` naming the ROADMAP item that brings
-them.
+What this subset covers: conforming and 2:1 hanging faces (the mortar
+tables, their coarse-side factors and the dense per-face hanging tables of
+the GEMM-form apply), identity face orientations, the scalar penalty modes
+(`volume_div_area`, `tree_h`, `j_div_sj_min_lobatto`) and the full
+per-point factor arrays the driver builds (`store_full=True` in the JAX
+package).  Non-identity orientations, the pointwise `j_div_sj_quad`
+penalty and compactified quadrature raise `NotImplementedError` naming the
+ROADMAP item that brings them.  On identity orientations the JAX mortar
+tables' node permutations (`hc_perm_*`, `hf_perm_*`) are the identity, so
+the port carries none.
 """
 
 from __future__ import annotations
@@ -39,8 +42,8 @@ F64 = torch.float64
 
 @dataclasses.dataclass
 class MeshData:
-    """Everything the solvers need for one mesh epoch (conforming subset
-    of the JAX `MeshData`; field names and layouts are the same).
+    """Everything the solvers need for one mesh epoch (affine subset of
+    the JAX `MeshData`; field names and layouts are the same).
 
     Host metadata: `dim`, `deg`, `deg_quad`, `quad`, `geom`, `forest`,
     `affine`, `orth`, `iso`, `orient_codes`.  Every other field is a torch
@@ -78,7 +81,23 @@ class MeshData:
     nbr_elem: torch.Tensor  # [E, 2d] int32
     nbr_face: torch.Tensor  # [E, 2d] int32
     bnd_mask: torch.Tensor  # [E, 2d] bool (True on physical boundary)
-    conf_mask: torch.Tensor  # [E, 2d] bool
+    conf_mask: torch.Tensor  # [E, 2d] bool (conforming or boundary)
+    # --- hanging-face mortars (coarse-side rows [M], K = 2^{dim-1}) ---
+    # In the COARSE element's face frame; hc_sj includes the subface
+    # parametrization factor (1/2)^{dim-1} (the reference's halved
+    # spanning vectors, `d4est_mortars.c` dqa/=2).
+    hc_elem: torch.Tensor  # [M] int32
+    hc_face: torch.Tensor  # [M] int32
+    hc_fine: torch.Tensor  # [M, K] int32, mortar-subface order
+    hc_fine_face: torch.Tensor  # [M, K] int32
+    hc_sj: torch.Tensor  # [M, K, nfq...]
+    hc_n: torch.Tensor  # [M, K, dim, nfq...] outward from the coarse elem
+    hc_drst_m: torch.Tensor  # [M, K, dim, dim, nfq...] coarse drst
+    hc_sigma: torch.Tensor  # [M, K]
+    # --- dense per-face hanging tables (GEMM-form apply; None if M = 0) ---
+    hang_code: torch.Tensor | None = None  # [E, 2d] int32: 0, or subface
+    #                                        b+1 on the FINE side
+    hang_sigma: torch.Tensor | None = None  # [E, 2d] mortar penalty there
     # --- compact affine factors (None for curved geometries) ---
     j_c: torch.Tensor | None = None  # [E]
     drdx_c: torch.Tensor | None = None  # [E, dim(l), dim(d)]
@@ -240,19 +259,12 @@ def build_mesh(
             raise ValueError("deg_e exceeds storage degree")
 
     ft = build_face_tables(forest)
-    if len(ft.hc_elem) > 0:
-        raise NotImplementedError(
-            "hanging faces (adapted meshes) are not ported yet (ROADMAP A9)"
-        )
-    conf_codes = ft.orient[ft.kind == CONF]
-    orient_codes = tuple(
-        sorted(int(c) for c in np.unique(conf_codes) if c != 0)
-    )
-    if orient_codes:
+    if ft.orient.any() or ft.hc_orient.any():
         raise NotImplementedError(
             "non-identity face orientations need the general apply "
             "(ROADMAP A8)"
         )
+    orient_codes = ()
     affine = bool(getattr(geom, "is_affine", False))
 
     kw = dict(dtype=F64, device=device)
@@ -298,6 +310,10 @@ def build_mesh(
         )
         fac["face_h"] = h_m
 
+    mortar = _mortar_tables(
+        geom, ft, forest, deg_quad, quad, penalty, deg_e, fac["face_h"],
+        device,
+    )
     kind = torch.as_tensor(ft.kind.astype(np.int64), device=device)
     return MeshData(
         dim=dim,
@@ -315,9 +331,61 @@ def build_mesh(
         nbr_face=nbr_face.to(torch.int32),
         bnd_mask=bnd,
         conf_mask=(kind == CONF) | (kind == BOUNDARY),
+        **mortar,
         **fac,
         **compact,
     )
+
+
+def _mortar_tables(geom, ft, forest, deg_quad, quad, penalty, deg_e,
+                   face_h, device):
+    """Hanging-mortar rows and the dense per-face hanging tables
+    (JAX `build_mesh`, `builder.py:524-610`).  The mortar penalty takes
+    h_m = the coarse full face's h and h_p = the fine element's face h,
+    both of the selected face_h_type (`face_h`), and the true degrees."""
+    penalty_fcn, penalty_prefactor = penalty
+    dim = forest.dim
+    E, nfaces = ft.kind.shape
+    M = len(ft.hc_elem)
+    K = 1 << (dim - 1)
+    kw = dict(dtype=F64, device=device)
+
+    def idx(a):
+        return torch.as_tensor(np.asarray(a, np.int64), device=device)
+
+    ce, cf = idx(ft.hc_elem), idx(ft.hc_face)
+    fe, ff = idx(ft.hc_fine), idx(ft.hc_fine_face)
+    out = dict(
+        hc_elem=ce.to(torch.int32), hc_face=cf.to(torch.int32),
+        hc_fine=fe.reshape(M, K).to(torch.int32),
+        hc_fine_face=ff.reshape(M, K).to(torch.int32),
+    )
+    mfac = _compute_mortar_factors(
+        geom, dim, deg_quad, quad, K, idx(forest.tree[ft.hc_elem]),
+        torch.as_tensor(forest.anchor[ft.hc_elem], **kw).reshape(M, dim)
+        / ROOT,
+        torch.as_tensor(2.0 ** -forest.level[ft.hc_elem].astype(np.float64),
+                        **kw),
+        cf,
+    )
+    fe, ff = fe.reshape(M, K), ff.reshape(M, K)
+    h_c = face_h[ce, cf][:, None].expand(M, K)
+    h_f = face_h[fe, ff]
+    deg_t = torch.as_tensor(deg_e, **kw)
+    p_c = deg_t[ce][:, None].expand(M, K)
+    hc_sigma = sigma_from_degrees(penalty_fcn, penalty_prefactor, p_c,
+                                  deg_t[fe], h_c, h_f)
+    out.update(hc_sj=mfac["sj"], hc_n=mfac["n"], hc_drst_m=mfac["drst"],
+               hc_sigma=hc_sigma)
+    if M > 0:
+        b = torch.arange(1, K + 1, dtype=torch.int32, device=device)
+        hang_code = torch.zeros((E, nfaces), dtype=torch.int32,
+                                device=device)
+        hang_code[fe, ff] = b.expand(M, K)
+        hang_sigma = torch.zeros((E, nfaces), **kw)
+        hang_sigma[fe, ff] = hc_sigma
+        out.update(hang_code=hang_code, hang_sigma=hang_sigma)
+    return out
 
 
 def sigma_from_degrees(penalty_fcn, pf, p_m, p_p, h_m, h_p):
@@ -440,6 +508,76 @@ def _compute_affine_factors(geom, dim, penalty, tree, anchor, hfrac,
         j_c=j_c, drdx_c=drdx_c, wjgg_c=wjgg_c, face_sj_c=face_sj_c,
         face_n_c=face_n_c,
     )
+
+
+def _compute_mortar_factors(geom, dim, deg_quad, quad, K, tree, anchor,
+                            hfrac, cf):
+    """Coarse-side geometry factors on hanging-mortar subfaces.
+
+    For each mortar row (a coarse element's hanging face `cf`) and each of
+    its K subfaces: sj (including the subface parametrization factor
+    (1/2)^{dim-1}), outward unit normal and ∂r/∂x of the COARSE element at
+    the subface quadrature points, as [M, K, ...] tensors.  The JAX
+    function's mortar-sized j/sj feeds only the pointwise penalty, which
+    comes with ROADMAP A11."""
+    dev = anchor.device
+    M = tree.shape[0]
+    xq, _ = quad.nodes_weights(deg_quad)
+    a0 = cf // 2
+    sign = torch.where(cf % 2 == 0, -1.0, 1.0).to(F64)
+    npts = dim - 1
+    sjs, ns, drsts = [], [], []
+    for b in range(K):
+        # [2d, nfq..., dim] points of subface b of every face, row-selected
+        pts = torch.stack([_subface_points(xq, dim, f, b, dev)
+                           for f in range(2 * dim)])[cf]  # [M, nfq..., dim]
+        a = anchor.reshape((M,) + (1,) * npts + (dim,))
+        h = hfrac.reshape((M,) + (1,) * (npts + 1))
+        rst_tree = a + (pts + 1.0) * 0.5 * h
+        t = tree.reshape((M,) + (1,) * npts)
+        dx = geom.dx(t, rst_tree) * (0.5 * h[..., None])
+        J = _det(dx)
+        drdx = _inv(dx, J)  # [M, nfq..., l, d]
+        row = a0.reshape((M,) + (1,) * npts + (1, 1)).expand(
+            drdx.shape[:-2] + (1, dim))
+        ntilde = (sign.reshape((M,) + (1,) * (npts + 1)) * J[..., None]
+                  * torch.gather(drdx, -2, row).squeeze(-2))
+        sj = torch.sqrt(torch.sum(ntilde**2, dim=-1))
+        n = ntilde / sj[..., None]
+        sjs.append(sj * 0.5 ** (dim - 1))
+        ns.append(torch.movedim(n, -1, 1))
+        drsts.append(torch.movedim(torch.movedim(drdx, -1, 1), -1, 1))
+    return {
+        "sj": torch.stack(sjs, dim=1),
+        "n": torch.stack(ns, dim=1),
+        "drst": torch.stack(drsts, dim=1),
+    }
+
+
+def _subface_points(x1, dim: int, face: int, b: int, device):
+    """Reference points of subface `b` of `face` (coarse element coords):
+    the tangent-axis intervals are halved according to b's bits (bit 0 ↦
+    the faster tangent axis).  [nf_shape..., dim]."""
+    a0, side = divmod(face, 2)
+    tang = _tangent_axes(dim, face)
+    x1 = np.asarray(x1)
+
+    def sub(x, bit):
+        return 0.5 * (x - 1.0) if bit == 0 else 0.5 * (x + 1.0)
+
+    n = len(x1)
+    if dim == 2:
+        pts = np.zeros((n, dim))
+        pts[:, tang[0]] = sub(x1, b & 1)
+    else:
+        t1, t2 = tang
+        g2, g1 = np.meshgrid(sub(x1, (b >> 1) & 1), sub(x1, b & 1),
+                             indexing="ij")
+        pts = np.zeros((n, n, dim))
+        pts[..., t1] = g1
+        pts[..., t2] = g2
+    pts[..., a0] = -1.0 if side == 0 else 1.0
+    return torch.as_tensor(pts, dtype=F64, device=device)
 
 
 # ---------------------------------------------------------------------------

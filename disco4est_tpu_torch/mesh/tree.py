@@ -13,17 +13,16 @@ units; a leaf at level l has side `ROOT >> l` and anchor on that lattice.
 Child ordering within a refined cell is x-fastest (p4est's Morton child
 order).
 
-Port of `disco4est_tpu/mesh/tree.py` (host numpy, copied unchanged) for
-the uniform meshes of this slice: `Forest.uniform`, `refine` and the key
-leaf lookup that `mesh/faces.py` uses.  Coarsening, 2:1 balance,
-`find_leaf` and `checksum` come with the AMR loop and checkpoints (ROADMAP
-A7, A14).
+Port of `disco4est_tpu/mesh/tree.py` (host numpy): `Forest.uniform`,
+`refine`, `coarsen`, 2:1 `balance` and leaf lookup.  `checksum` comes with
+checkpoints (ROADMAP A14).
 
-One deliberate difference from the JAX module: leaf lookup
-(`Forest.find_leaves`) searches each tree's own slice of the leaf order.
-The JAX module packs the tree id above bit 60 of the uint64 Morton key,
-so tree ids of 16 and above wrap and the face tables of bricks with more
-than 16 trees find wrong leaves there (ROADMAP C8).
+One deliberate difference from the JAX module: every leaf lookup
+(`Forest.find_leaves`, and through it `find_leaf`, the balance test, the
+created-parent mask of `coarsen` and `amr.element_lineage`) searches each
+tree's own slice of the leaf order.  The JAX module packs the tree id above
+bit 60 of the uint64 Morton key, so tree ids of 16 and above wrap and
+bricks with more than 16 trees find wrong leaves there (ROADMAP C8).
 """
 
 from __future__ import annotations
@@ -96,7 +95,7 @@ class Forest:
         )
 
     # ------------------------------------------------------------------
-    # Construction / refinement
+    # Construction / refinement / coarsening
     # ------------------------------------------------------------------
 
     @staticmethod
@@ -140,9 +139,67 @@ class Forest:
             np.concatenate([self.anchor[keep], child_anchor]).astype(np.int32),
         ).sorted()
 
+    def coarsen(self, flags: np.ndarray) -> tuple["Forest", np.ndarray]:
+        """Coarsen complete sibling families whose members are all flagged
+        (`p4est_coarsen_ext` semantics).  Returns (new forest,
+        family_replaced[new_E] bool mask marking the created parents)."""
+        dim = self.dim
+        flags = np.asarray(flags, bool)
+        E = self.n_elements
+        nch = 1 << dim
+        # A family is nch consecutive leaves (SFC order) with same tree,
+        # same level, first one anchored at the parent anchor & child id 0.
+        h = (ROOT >> self.level.astype(np.int32))[:, None]
+        child_id = ((self.anchor // h) & 1).astype(np.int8)
+        is_first = np.all(child_id == 0, axis=1)
+        cand = np.where(is_first[: E - nch + 1] if E >= nch else [])[0]
+        keep = np.ones(E, bool)
+        new_parents = []
+        for i in cand:
+            j = i + nch
+            lv = self.level[i]
+            if not np.all(self.level[i:j] == lv):
+                continue
+            if not np.all(self.tree[i:j] == self.tree[i]):
+                continue
+            if not np.all(flags[i:j]):
+                continue
+            # verify siblings: same parent anchor
+            hp = ROOT >> int(lv - 1)
+            pa = self.anchor[i] - (self.anchor[i] % hp)
+            if not np.all((self.anchor[i:j] - self.anchor[i:j] % hp) == pa):
+                continue
+            keep[i:j] = False
+            new_parents.append((self.tree[i], lv - 1, pa))
+        if not new_parents:
+            return self, np.zeros(E, bool)
+        pt = np.array([p[0] for p in new_parents], np.int32)
+        pl = np.array([p[1] for p in new_parents], np.int8)
+        pa = np.array([p[2] for p in new_parents], np.int32)
+        out = Forest(
+            self.conn,
+            np.concatenate([self.tree[keep], pt]),
+            np.concatenate([self.level[keep], pl]),
+            np.concatenate([self.anchor[keep], pa]),
+        ).sorted()
+        # mark the created parents in the new ordering: each parent's
+        # anchor lies in the parent itself
+        mask = np.zeros(out.n_elements, bool)
+        mask[out.find_leaves(pt, pa)] = True
+        return out, mask
+
     # ------------------------------------------------------------------
     # Leaf lookup
     # ------------------------------------------------------------------
+
+    def find_leaf(self, tree: np.ndarray, point: np.ndarray) -> np.ndarray:
+        """Index of the leaf containing integer point coords [..., dim]
+        inside `tree`.  Points must be inside the tree ([0, ROOT))."""
+        point = np.asarray(point)
+        tree = np.broadcast_to(np.asarray(tree), point.shape[:-1])
+        idx = self.find_leaves(tree.reshape(-1),
+                               point.reshape(-1, self.dim))
+        return idx.reshape(point.shape[:-1])
 
     def find_leaves(self, tree: np.ndarray, point: np.ndarray) -> np.ndarray:
         """Index of the leaf of tree `tree[i]` whose cell holds lattice
@@ -163,12 +220,64 @@ class Forest:
                                             side="right") - 1
         return idx
 
+    # ------------------------------------------------------------------
+    # 2:1 balance
+    # ------------------------------------------------------------------
+
+    def balance(self) -> "Forest":
+        """2:1 balance across faces, edges and corners (the reference uses
+        `p4est_balance(CONNECT_FULL)`, `driver.c:154`).  Iterative fixpoint:
+        refine any leaf more than one level coarser than a neighbor."""
+        forest = self
+        for _ in range(64):
+            flags = forest._balance_violations()
+            if not flags.any():
+                return forest
+            forest = forest.refine(flags)
+        raise RuntimeError("2:1 balance did not converge")
+
+    def _balance_violations(self) -> np.ndarray:
+        E = self.n_elements
+        flags = np.zeros(E, bool)
+        if E == 0:
+            return flags
+        h = (ROOT >> self.level.astype(np.int32)).astype(np.int64)
+        anchor = self.anchor.astype(np.int64)
+        # All neighbor directions: offsets in {-1, 0, +1}^dim \ {0}
+        for off in _neighbor_offsets(self.dim):
+            # Point just outside e in direction off (one unit into the
+            # neighbor cell at e's level).
+            pt = anchor + np.where(
+                off[None, :] < 0, -1, np.where(off[None, :] > 0, h[:, None], 0)
+            )
+            valid = np.ones(E, bool)
+            pt, tree, valid = _canonicalize_points(
+                self.conn, self.tree.astype(np.int32), pt, valid
+            )
+            if not valid.any():
+                continue
+            idx = self.find_leaves(tree[valid], pt[valid])
+            # The found leaf contains the point; if it is >1 level coarser
+            # than e, it must refine.
+            lv_e = self.level[valid].astype(np.int32)
+            lv_n = self.level[idx].astype(np.int32)
+            flags[idx[lv_n < lv_e - 1]] = True
+        return flags
+
 
 def _child_offsets(dim: int) -> np.ndarray:
     c = np.arange(1 << dim)
     return np.stack([(c >> d) & 1 for d in range(dim)], axis=-1).astype(
         np.int64
     )
+
+
+def _neighbor_offsets(dim: int):
+    from itertools import product
+
+    for off in product((-1, 0, 1), repeat=dim):
+        if any(off):
+            yield np.asarray(off[::-1], np.int64)  # index 0 = x axis
 
 
 def _canonicalize_points(

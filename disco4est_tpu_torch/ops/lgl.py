@@ -1,16 +1,19 @@
 """Jacobi polynomials and Gauss / Gauss-Lobatto-Legendre nodes & weights.
 
 Role of the reference's `dGMath/d4est_lgl.c` and the hard-coded long-double
-node tables in `dGMath/GL_and_GLL_nodes_and_weights.h` (4,661 lines): instead
-of shipping tables, nodes/weights are computed at setup time in float64
-numpy (Newton iteration on the Legendre derivative for LGL; Golub-Welsch via
-numpy.polynomial for Gauss), accurate to ~1e-16 which matches the table
-precision that survives a cast to double.
+node tables in `dGMath/GL_and_GLL_nodes_and_weights.h` (4,661 lines):
+the port ships float64 tables too (`ops/gauss_table.py`), written once by
+`util/gen_gauss.py` from numpy's `leggauss` (Gauss) and a Newton
+iteration on the Legendre derivative (Gauss-Lobatto), accurate to ~1e-16.
+Computed at run time, their last bits would move with the numpy version,
+and digits at the f64 floor with them (ROADMAP C9).
 
 Everything here is host-side setup code (numpy, float64); runtime kernels
 consume the resulting small operator matrices as torch tensors.
 
-Port of `disco4est_tpu/ops/lgl.py` (host numpy, copied unchanged).
+Port of `disco4est_tpu/ops/lgl.py` (host numpy), with one change: the
+rules come from that table, which holds the values the JAX module computes
+under numpy 2.0.2.
 """
 
 from __future__ import annotations
@@ -18,6 +21,8 @@ from __future__ import annotations
 import functools
 
 import numpy as np
+
+from disco4est_tpu_torch.ops import gauss_table
 
 
 def jacobi(x: np.ndarray, alpha: float, beta: float, n: int) -> np.ndarray:
@@ -84,47 +89,31 @@ def grad_jacobi(x: np.ndarray, alpha: float, beta: float, n: int) -> np.ndarray:
     )
 
 
+def _tabulated(rules: dict, n_nodes: int, what: str):
+    if n_nodes not in rules:
+        raise ValueError(
+            f"no tabulated {what} rule with {n_nodes} nodes (up to "
+            f"{gauss_table.MAX_NODES}; `python -m "
+            "disco4est_tpu_torch.util.gen_gauss` writes the table)"
+        )
+    x, w = rules[n_nodes]
+    return (np.array([float.fromhex(v) for v in x]),
+            np.array([float.fromhex(v) for v in w]))
+
+
 @functools.lru_cache(maxsize=None)
 def gauss_nodes_weights(n_nodes: int) -> tuple[np.ndarray, np.ndarray]:
-    """Gauss-Legendre nodes/weights on [-1, 1] (degree = n_nodes-1)."""
-    x, w = np.polynomial.legendre.leggauss(n_nodes)
-    return x.astype(np.float64), w.astype(np.float64)
+    """Gauss-Legendre nodes/weights on [-1, 1] (degree = n_nodes-1): numpy's
+    `leggauss`, from the shipped table (module docstring)."""
+    return _tabulated(gauss_table.GAUSS, n_nodes, "Gauss")
 
 
 @functools.lru_cache(maxsize=None)
 def lobatto_nodes_weights(n_nodes: int) -> tuple[np.ndarray, np.ndarray]:
-    """Gauss-Lobatto-Legendre nodes/weights on [-1, 1].
-
-    Newton iteration on q(x) = (1-x²) P'_N(x) with Chebyshev-Gauss-Lobatto
-    initial guess; weights w_i = 2 / (N (N+1) P_N(x_i)²) with the
-    *unnormalized* Legendre polynomial P_N.
-    """
+    """Gauss-Lobatto-Legendre nodes/weights on [-1, 1], from the shipped
+    table (module docstring): Newton iteration on q(x) = (1-x²) P'_N(x)
+    from a Chebyshev-Gauss-Lobatto guess, weights 2 / (N (N+1) P_N(x_i)²)
+    (`util/gen_gauss.py:lobatto`)."""
     if n_nodes < 2:
         raise ValueError("LGL requires at least 2 nodes")
-    N = n_nodes - 1
-    # Chebyshev-Gauss-Lobatto initial guess.
-    x = -np.cos(np.pi * np.arange(n_nodes) / N)
-    # Newton: solve (1-x²) P'_N(x) = 0 at interior points.
-    # Use the identity with normalized polys is awkward; use plain Legendre
-    # via numpy polynomial evaluation for robustness.
-    c = np.zeros(n_nodes)
-    c[N] = 1.0
-    for _ in range(100):
-        pN = np.polynomial.legendre.legval(x, c)
-        dpN = np.polynomial.legendre.legval(x, np.polynomial.legendre.legder(c))
-        d2pN = np.polynomial.legendre.legval(
-            x, np.polynomial.legendre.legder(c, 2)
-        )
-        # q = (1-x²)dpN ; q' = -2x dpN + (1-x²) d2pN
-        q = (1.0 - x**2) * dpN
-        dq = -2.0 * x * dpN + (1.0 - x**2) * d2pN
-        interior = slice(1, N)
-        dx = np.zeros_like(x)
-        dx[interior] = q[interior] / dq[interior]
-        x = x - dx
-        if np.max(np.abs(dx)) < 1e-15:
-            break
-    x[0], x[N] = -1.0, 1.0
-    pN = np.polynomial.legendre.legval(x, c)
-    w = 2.0 / (N * (N + 1) * pN**2)
-    return x.astype(np.float64), w.astype(np.float64)
+    return _tabulated(gauss_table.LOBATTO, n_nodes, "Gauss-Lobatto")

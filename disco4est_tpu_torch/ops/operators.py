@@ -14,8 +14,10 @@ verify against dense numpy exactly as the reference's
 `Tests/Unit/d4est_test_operators.c` does.
 
 Port of `disco4est_tpu/ops/operators.py` (host numpy, copied unchanged)
-for what a uniform mesh uses.  The cross-degree and parent/child
-operators (p/hp prolong and restrict) come with the AMR loop (ROADMAP A7).
+for what the port uses: the per-degree tables, p-prolong / p-restrict
+(`d4est_operators_build_p_prolong_1d`: nodal interpolation V_h(x)·V_H⁻¹;
+`d4est_operators_build_hp_restrict_1d_aux`: L2 projection M_H⁻¹·Pᵀ·M_h)
+and the parent-to-child hp-prolong of the AMR transfer and the mortars.
 """
 
 from __future__ import annotations
@@ -96,6 +98,36 @@ class OperatorDB:
         pts = np.asarray(points, dtype=np.float64)
         Vt = _vandermonde(pts, deg)
         return Vt @ self.ops(deg).inv_vandermonde
+
+    # ---- p-prolong / p-restrict ----------------------------------------
+
+    @functools.lru_cache(maxsize=None)
+    def p_prolong(self, deg_H: int, deg_h: int) -> np.ndarray:
+        """[n_h, n_H]: interpolate degree-H nodal values onto the LGL nodes
+        of degree h (`d4est_operators_build_p_prolong_1d`)."""
+        xh, _ = lgl.lobatto_nodes_weights(deg_h + 1)
+        return self.interp_to_points(deg_H, tuple(xh))
+
+    @functools.lru_cache(maxsize=None)
+    def p_restrict(self, deg_h: int, deg_H: int) -> np.ndarray:
+        """[n_H, n_h]: L2 projection from degree h down to degree H
+        (`d4est_operators_build_p_restrict_1d` via `hp_restrict_1d_aux`:
+        R = M_H⁻¹ Pᵀ M_h)."""
+        P = self.p_prolong(deg_H, deg_h)
+        Mh = self.ops(deg_h).mass
+        invMH = self.ops(deg_H).inv_mass
+        return invMH @ P.T @ Mh
+
+    # ---- hp-prolong (parent -> 2 children in 1D) -----------------------
+
+    @functools.lru_cache(maxsize=None)
+    def hp_prolong(self, deg_H: int, deg_h: int, child: int) -> np.ndarray:
+        """[n_h, n_H]: evaluate the degree-H parent at the child's LGL nodes
+        mapped into the parent interval (child 0 ↦ [-1,0], child 1 ↦ [0,1])
+        (`d4est_operators_build_hp_prolong_1d`)."""
+        xh, _ = lgl.lobatto_nodes_weights(deg_h + 1)
+        xp = 0.5 * (xh - 1.0) if child == 0 else 0.5 * (xh + 1.0)
+        return self.interp_to_points(deg_H, tuple(xp))
 
 
 def _vandermonde(x: np.ndarray, deg: int) -> np.ndarray:

@@ -48,6 +48,15 @@ def tensor_weights(w_per_dir, dtype=torch.float64, device=None):
     return out
 
 
+def face_slice(u, face: int, dim: int):
+    """Extract the face plane of `u[..., n_dim, ..., n_1]` (the reference's
+    slicer, `d4est_operators_apply_slicer`): the face direction's axis is
+    dropped, the others keep their (z, y, x) order."""
+    dir_, side = divmod(face, 2)
+    axis = u.ndim - 1 - dir_
+    return u.select(axis, 0 if side == 0 else u.shape[axis] - 1)
+
+
 def np_face_slice_indices(face: int, dim: int, n: int) -> np.ndarray:
     """Flat volume-node indices of a face plane (x-fastest ordering).
     Host-side helper for building gather maps."""

@@ -9,7 +9,11 @@
   and they leave the TF32 flag of `torch.matmul` as they found it;
 - B3, the three-axis apply (`csrc/axis_apply.cu`): against its plain
   version to 1e-5 relative (f32 rounding over three 8-term sums, summed
-  in another order).
+  in another order);
+- the AMR loop on the card: a one-step uniform_h sinx run from level 3 at
+  deg 3 launches B1 in both epochs, and its L2 errors equal the same
+  run's on the CPU to 1e-9 relative (both solves reach the f64 floor; the
+  L2 is 6.2e-7 and 1.6e-8).
 
 Needs a CUDA device and `nvcc`; every test skips without a device (the
 kernels have no CPU mode).  This file imports neither JAX nor the JAX
@@ -227,3 +231,47 @@ def test_axis_kernel_matches_plain(cuda_device, E):
     assert _rel(out, X.axis_apply_plain(u, m)) <= AXIS_TOL
     with pytest.raises(ValueError, match="shape"):
         X.axis_apply_cuda(u[..., :4].contiguous(), m)
+
+
+AMR_OPTIONS = """
+[initial_mesh]
+min_level = 3
+region0_deg = 3
+[amr]
+scheme = uniform_h
+num_of_amr_steps = 1
+[geometry]
+name = brick
+[d4est_solver_krylov_petsc]
+ksp_type = fcg
+"""
+
+
+@pytest.mark.gpu
+def test_uniform_h_amr_launches_b1_every_epoch(cuda_device):
+    from disco4est_tpu_torch import driver
+    from disco4est_tpu_torch.problems.poisson import SinxProblem
+    from disco4est_tpu_torch.util.config import Options
+
+    starts = []
+    build = driver.build_mesh
+
+    def counting(*args, **kw):
+        starts.append(S.KERNEL_LAUNCHES)
+        return build(*args, **kw)
+
+    driver.build_mesh = counting
+    try:
+        card = driver.run_poisson(Options.load(AMR_OPTIONS), SinxProblem,
+                                  device="cuda")
+        launches = S.KERNEL_LAUNCHES
+    finally:
+        driver.build_mesh = build
+    cpu = driver.run_poisson(Options.load(AMR_OPTIONS), SinxProblem,
+                             device="cpu")
+    per_epoch = np.diff(starts + [launches])
+    assert len(per_epoch) == 2 and (per_epoch > 0).all(), per_epoch
+    assert [s.path for s in card.solves] == ["mixed-structured"] * 2
+    assert [r["num_quadrants"] for r in card.norms.rows] == [512, 4096]
+    for a, b in zip(card.norms.rows, cpu.norms.rows):
+        assert abs(a["L_2"] - b["L_2"]) <= 1e-9 * b["L_2"], (a, b)

@@ -180,10 +180,6 @@ def test_base_dx_is_forward_autodiff():
 def test_unported_mesh_features_raise():
     geom = TBrick(dim=3)
     forest = TForest.uniform(geom.conn, 1)
-    flags = np.zeros(forest.n_elements, bool)
-    flags[0] = True
-    with pytest.raises(NotImplementedError, match="A9"):
-        tbuild(geom, forest.refine(flags), deg=2, device="cpu")
     with pytest.raises(NotImplementedError, match="A11"):
         tbuild(geom, forest, deg=2, face_h_type="j_div_sj_quad",
                device="cpu")

@@ -109,3 +109,31 @@ def test_options_parse_like_jax():
     assert to.section("b") == jo.section("b")
     with pytest.raises(KeyError):
         to.get("b", "missing", required=True)
+
+
+@pytest.mark.parametrize("rule", ["gauss", "lobatto"])
+def test_gauss_table(rule):
+    """The shipped Gauss and Gauss-Lobatto rules (ROADMAP C9): within 64
+    ulp of the JAX package's, which computes them with numpy at run time
+    (numpy 2.0.2 and 2.3.5 differ by up to 33 ulp), exact for polynomials
+    of degree 2n - 1 (Gauss) or 2n - 3 (Gauss-Lobatto), and what
+    `util/gen_gauss.py` writes under the numpy version the table names."""
+    from disco4est_tpu.ops import lgl as jlgl
+    from disco4est_tpu_torch.ops import gauss_table, lgl
+    from disco4est_tpu_torch.util import gen_gauss
+
+    fn = f"{rule}_nodes_weights"
+    first, exact_to = (1, 1) if rule == "gauss" else (2, 3)
+    for n in range(first, gauss_table.MAX_NODES + 1):
+        x, w = getattr(lgl, fn)(n)
+        xj, wj = getattr(jlgl, fn)(n)
+        for a, b in ((x, xj), (w, wj)):
+            assert np.all(np.abs(a - b) <= 64 * np.spacing(np.abs(b))), n
+        k = np.arange(2 * n - exact_to + 1)
+        exact = np.where(k % 2 == 0, 2.0 / (k + 1), 0.0)
+        err = (w[:, None] * x[:, None] ** k).sum(axis=0) - exact
+        assert np.max(np.abs(err)) <= 1e-14, n
+    with pytest.raises(ValueError, match="gen_gauss"):
+        getattr(lgl, fn)(gauss_table.MAX_NODES + 1)
+    if f"numpy\n{np.__version__}." in gen_gauss.OUT.read_text():
+        assert gen_gauss.render() == gen_gauss.OUT.read_text()
