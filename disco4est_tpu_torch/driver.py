@@ -1,8 +1,9 @@
 """Driver: config → geometry → mesh → solve → norms → estimate → AMR.
 
 Port of the linear Poisson path of `disco4est_tpu/driver.py`
-(`geometry_from_options`, `run_poisson`) for `pc_type = none` on bricks:
-the AMR loop of the reference's problem drivers
+(`geometry_from_options`, `run_poisson`) for `pc_type = none` on bricks
+and cubed spheres (7-tree and 13-tree, compactified shells included): the
+AMR loop of the reference's problem drivers
 (`Problems/Poisson/poisson_sinx_uniform.c:142`),
 
     for level in 0..num_of_amr_steps:
@@ -16,9 +17,12 @@ solve takes one of these paths, as in the JAX driver:
   p-refinement): plain f64 CG on the hp operator `apply_sipg_hp`
   (path `cg-hp`);
 - mixed precision on (the default): f64 outer refinement whose inner f32
-  CG runs the structured apply (`laplacian/structured.py`, the CUDA kernel
-  on a card) when `use_structured` is on and the mesh is a uniform brick,
-  else the generic f32 fast apply (hanging faces included);
+  CG runs, when `use_structured` is on, the structured apply
+  (`laplacian/structured.py`, the CUDA kernel on a card) on a uniform
+  brick (`mixed-structured`), the tree-structured curved apply
+  (`laplacian/curved.py`) on a uniform multi-tree mesh of one degree
+  (`mixed-curved`), and otherwise the generic f32 apply (`mixed`:
+  hanging faces, curved adapted meshes);
 - if that solve stagnates above the refinement floor, the plain f64
   solver (the "f64 fallback");
 - mixed precision off: plain f64 CG or FCG (`ksp_type`).
@@ -48,8 +52,9 @@ from disco4est_tpu_torch.amr.smooth_pred import (
 )
 from disco4est_tpu_torch.estimators.bi import estimate_bi
 from disco4est_tpu_torch.geometry.brick import BrickGeometry
+from disco4est_tpu_torch.geometry.cubed_sphere import CubedSphereGeometry
 from disco4est_tpu_torch.io.norms import NormLog, norm_L2, norm_Linfty
-from disco4est_tpu_torch.laplacian import structured
+from disco4est_tpu_torch.laplacian import curved, structured
 from disco4est_tpu_torch.laplacian.hp import (
     adjoint_to_own,
     apply_sipg_hp,
@@ -85,20 +90,29 @@ def resolve_device(name) -> torch.device:
 
 def geometry_from_options(opts: Options):
     """[geometry] section → Geometry (reference `d4est_geometry_new`,
-    `Geometry/d4est_geometry.c:127`).  Brick only in this port."""
+    `Geometry/d4est_geometry.c:127`): the brick and the cubed spheres."""
     name = opts.get("geometry", "name", required=True)
+    g = lambda k, d: opts.get_float("geometry", k, d)
     if name == "brick":
-        g = lambda k, d: opts.get_float("geometry", k, d)
         return BrickGeometry(
             x0=(g("x0", 0.0), g("y0", 0.0), g("z0", 0.0)),
             x1=(g("x1", 1.0), g("y1", 1.0), g("z1", 1.0)),
             dim=3,
         )
-    if name in ("cubed_sphere", "cubed_sphere_7tree", "disk", "5treedisk",
-                "trap", "trapezoid", "pizza_half", "hole_in_a_box"):
+    if name in ("cubed_sphere", "cubed_sphere_7tree"):
+        return CubedSphereGeometry(
+            "13tree" if name == "cubed_sphere" else "7tree",
+            R0=g("r0", 1.0), R1=g("r1", 2.0), R2=g("r2", 3.0),
+            compactify_outer_shell=opts.get(
+                "geometry", "compactify_outer_shell", False, cast=bool),
+            compactify_inner_shell=opts.get(
+                "geometry", "compactify_inner_shell", False, cast=bool),
+        )
+    if name in ("disk", "5treedisk", "trap", "trapezoid", "pizza_half",
+                "hole_in_a_box"):
         raise NotImplementedError(
-            f"geometry {name!r}: curved geometries are not ported yet "
-            "(ROADMAP A11)"
+            f"geometry {name!r}: the disk and misc geometries are not "
+            "ported yet (ROADMAP A11b)"
         )
     raise ValueError(f"unknown geometry {name}")
 
@@ -141,7 +155,8 @@ def vol_h_from_options(opts: Options) -> str:
 class SolveInfo:
     """What one level's linear solve did."""
 
-    path: str  # "mixed-structured" | "mixed" | "cg" | "fcg" | "cg-hp"
+    path: str  # "mixed-structured" | "mixed-curved" | "mixed" | "cg" |
+    #            "fcg" | "cg-hp"
     outer_iterations: int  # refinement steps (0 for a plain Krylov solve)
     iterations: int  # inner f32 iterations, or the plain solve's
     residual_norm: float
@@ -201,7 +216,7 @@ def _refuse_unported(opts: Options):
 
 
 def run_poisson(opts: Options, problem, *, device) -> DriverResult:
-    """Linear Poisson AMR-solve loop on the configured brick, on
+    """Linear Poisson AMR-solve loop on the configured geometry, on
     `device`."""
     device = resolve_device(device)
     # IEEE f32 products everywhere: reduced-precision (TF32) products make
@@ -361,8 +376,8 @@ def _solve_hp(mesh: MeshData, rhs, x0):
 
 def _solve(mesh: MeshData, rhs, x0, *, use_mixed, structured_on, ksp,
            mixed_opts):
-    """A uniform-degree epoch: the mixed-structured, generic mixed, f64
-    fallback or plain CG/FCG solve."""
+    """A uniform-degree epoch: the mixed-structured, mixed-curved, generic
+    mixed, f64 fallback or plain CG/FCG solve."""
 
     def plain_solve():
         solver, cap = (fcg_solve, 10000) if ksp == "fcg" else (
@@ -377,6 +392,8 @@ def _solve(mesh: MeshData, rhs, x0, *, use_mixed, structured_on, ksp,
     bnorm = float(torch.linalg.norm(rhs.reshape(-1)))
     if use_mixed:
         sb = structured.build_structured(mesh) if structured_on else None
+        ts = (curved.build_tree_structured(mesh)
+              if structured_on and sb is None else None)
         if sb is not None:
             # inner settings as the JAX driver has them on this path
             # (`driver.py:330-331`): the mixed_inner_* options are not
@@ -388,6 +405,23 @@ def _solve(mesh: MeshData, rhs, x0, *, use_mixed, structured_on, ksp,
                     sb, rtol=1e-3, max_iter=400
                 ),
                 atol=5e-15, rtol=1e-20, max_outer=mixed_opts["max_outer"],
+            )
+        elif ts is not None:
+            # inner settings of the JAX driver's curved solve
+            # (`driver.py:347-349`; its call at `:963` passes none of the
+            # mixed_* options, ROADMAP C3).  Its host-stepped outer loop
+            # (`:370-390`) exists for a TPU stall and stops after 3 outer
+            # steps (ROADMAP C1): the port runs `mixed_refine_solve`,
+            # whose stall test compares with the previous residual.
+            path = "mixed-curved"
+            res = mixed_refine_solve(
+                lambda v: apply_sipg(mesh, v), rhs, x0=x0,
+                inner_solve=curved.make_inner_solve(
+                    ts.astype(torch.float32),
+                    curved.permute_mesh_lex(ts, mesh).astype(torch.float32),
+                    rtol=1e-4, max_iter=400,
+                ),
+                atol=5e-15, rtol=1e-20, max_outer=30,
             )
         else:
             path = "mixed"

@@ -12,7 +12,9 @@ prefactors from the Houston library (`d4est_estimator_bi.h:25-200`).
 R is the nodal residual Au−rhs, measured through the mass matrix exactly
 as `d4est_mesh_compute_l2_norm_sqr` does.  Conforming and boundary faces
 run as one batch over [E, 2d], the hanging mortars as one batch per
-subface.  Identity face orientations only, as the builder (ROADMAP A8).
+subface.  The other side's data reach each face through the builder's
+node permutations (`perm_l`, `perm_q` for conforming faces, `hc_perm_*`
+for the mortars), so faces across reoriented trees line up point by point.
 """
 
 from __future__ import annotations
@@ -89,17 +91,24 @@ def _estimate_bi_impl(mesh: MeshData, u, residual, g, pf, vol_h):
                           for l in range(dim)], dim=2)
     drst_m = mesh.face_drst.to(dtype)
 
-    rows = mesh.nbr_elem.long() * F + mesh.nbr_face.long()  # [E, 2d]
+    fshape_l = u_f.shape[2:]
+    fshape_q = drst_m.shape[4:]
 
-    def gather(a):
-        return a.reshape((E * F,) + a.shape[2:])[rows]
+    def gather(a, perm, fshape):
+        """The neighbor's face data in my frame: [E, 2d, C..., fshape]."""
+        lead = a.shape[:-len(fshape)]
+        flat = a.reshape(lead + (-1,))
+        return _sipg._gather_nd(flat, mesh.nbr_elem, mesh.nbr_face,
+                                perm).reshape(a.shape)
 
     u_m_q = _sipg._face_apply(Vq, u_f, dim)
-    u_p_q = _sipg._face_apply(Vq, gather(u_f), dim)
+    u_p_q = _sipg._face_apply(Vq, gather(u_f, mesh.perm_l, fshape_l), dim)
     du_m_q = _sipg._face_apply(Vq, dudr_f, dim)
-    du_p_q = _sipg._face_apply(Vq, gather(dudr_f), dim)
+    du_p_q = _sipg._face_apply(
+        Vq, gather(dudr_f, mesh.perm_l, fshape_l), dim)
     dudx_m = torch.einsum("efld...,efl...->efd...", drst_m, du_m_q)
-    dudx_p = torch.einsum("efld...,efl...->efd...", gather(drst_m), du_p_q)
+    dudx_p = torch.einsum("efld...,efl...->efd...",
+                          gather(drst_m, mesh.perm_q, fshape_q), du_p_q)
 
     bnd = mesh.bnd_mask
     bshape = bnd.shape + ones
@@ -151,10 +160,19 @@ def _estimate_bi_impl(mesh: MeshData, u, residual, g, pf, vol_h):
         dudxm = torch.einsum("mld...,ml...->md...",
                              mesh.hc_drst_m[:, b].to(dtype), du_mq)
 
+        # the fine side's data, permuted into the coarse frame
         fe, ff = mesh.hc_fine[:, b].long(), mesh.hc_fine_face[:, b].long()
-        u_pq = _sipg._face_apply(Vq, u_f[fe, ff], dim)
-        du_pq = _sipg._face_apply(Vq, dudr_f[fe, ff], dim)
-        dudxp = torch.einsum("mld...,ml...->md...", drst_m[fe, ff], du_pq)
+        pl, pq = mesh.hc_perm_l[:, b], mesh.hc_perm_q[:, b]  # [M, n_flat]
+        uf = torch.gather(u_f[fe, ff].reshape(M, -1), -1, pl)
+        duf = torch.gather(dudr_f[fe, ff].reshape(M, dim, -1), -1,
+                           pl[:, None].expand(M, dim, pl.shape[-1]))
+        drstp = torch.gather(
+            drst_m[fe, ff].reshape(M, dim, dim, -1), -1,
+            pq[:, None, None].expand(M, dim, dim, pq.shape[-1]))
+        u_pq = _sipg._face_apply(Vq, uf.reshape(uc.shape), dim)
+        du_pq = _sipg._face_apply(Vq, duf.reshape(duc.shape), dim)
+        dudxp = torch.einsum("mld...,ml...->md...",
+                             drstp.reshape(drst_m[fe, ff].shape), du_pq)
 
         min_h = torch.minimum(h_c, mesh.face_h[fe, ff])
         p = torch.maximum(p_e[ce], p_e[fe])  # max(p⁻, p⁺) per mortar row

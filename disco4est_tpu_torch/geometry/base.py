@@ -67,6 +67,9 @@ class Geometry:
     conn: Connectivity
     is_affine: bool = False
     is_orthogonal: bool = False
+    # geometry regions (`d4est_geometry.h:117-118` get_region): tree →
+    # region id, for the per-region estimator statistics
+    n_regions: int = 1
 
     def tree_region(self, tree):
         """Geometry region (`d4est_geometry.h:117-118` get_region) per tree,
@@ -81,6 +84,8 @@ class Geometry:
     def dx(self, tree, rst):
         """Jacobian ∂x_i/∂rst_j, shape [..., dim, dim]; default autodiff."""
         lead = rst.shape[:-1]
+        if rst.numel() == 0:  # vmap cannot map over an empty batch
+            return rst.new_zeros((*lead, self.dim, self.dim))
         flat_tree = torch.broadcast_to(torch.as_tensor(tree), lead).reshape(-1)
         flat_rst = rst.reshape(-1, self.dim)
         jac = torch.func.vmap(

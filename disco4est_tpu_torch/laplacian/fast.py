@@ -14,8 +14,9 @@ the generic inner one.  Hanging faces ride the same [E, 2d] face arrays
 through the dense mortar pass of `_apply_orth` (the builder's `hang_code`
 tables); `_add_hanging` is the legacy route through the [M, K] row kernels
 of `sipg._apply_hanging`, kept as the reference the dense pass is tested
-against.  The general-affine path (`_apply_general`) is not ported yet
-(ROADMAP A8).
+against.  `_apply_general` takes affine meshes with sheared cells or
+reoriented tree faces (6 volume blocks, every drstn component, the static
+orientation transforms).
 """
 
 from __future__ import annotations
@@ -73,6 +74,47 @@ def _base_mats(deg: int, deg_quad: int, quad_key, dim: int):
     return dict(
         Mt=Mt, Kt=Kt, Bt=Bt, D=D, kron_dirs=kron_dirs, sels=sels,
         sel_rows=sel_rows, dvol=dvol, Mf=Mf, nv=nv, nfl=nfl, nfaces=nfaces,
+    )
+
+
+@functools.lru_cache(maxsize=None)
+def _host_mats_general(deg: int, deg_quad: int, quad_key, dim: int,
+                       orth: bool):
+    """Fixed f64 numpy matrices for the general-affine GEMM apply."""
+    bm = _base_mats(deg, deg_quad, quad_key, dim)
+    Mt, Kt, Bt = bm["Mt"], bm["Kt"], bm["Bt"]
+    kron_dirs = bm["kron_dirs"]
+    nfaces = bm["nfaces"]
+
+    pairs = [(l, l) for l in range(dim)]
+    if not orth:
+        pairs += [(l, lp) for l in range(dim) for lp in range(l + 1, dim)]
+    blocks = []
+    for l, lp in pairs:
+        if l == lp:
+            blocks.append(
+                kron_dirs([Kt if a == l else Mt for a in range(dim)])
+            )
+        else:
+            # T_{lp,l} + T_{l,lp} (symmetric; coefficient wjgg_c[l,lp])
+            f1 = [Mt] * dim
+            f1[l] = Bt
+            f1[lp] = Bt.T
+            f2 = [Mt] * dim
+            f2[l] = Bt.T
+            f2[lp] = Bt
+            blocks.append(kron_dirs(f1) + kron_dirs(f2))
+    W_vol = np.concatenate(blocks, axis=1)
+
+    dn_cols, dn_dirs = [], []
+    for f in range(nfaces):
+        for l in ([f // 2] if orth else range(dim)):
+            dn_cols.append(bm["dvol"][l][bm["sel_rows"][f]].T)
+            dn_dirs.append((f, l))
+    return dict(
+        W_vol=W_vol, nblk=len(pairs), pairs=tuple(pairs),
+        W_dn=np.concatenate(dn_cols, axis=1), dn_dirs=tuple(dn_dirs),
+        sel_cat=np.concatenate(bm["sel_rows"]), Mf=bm["Mf"], D=bm["D"],
     )
 
 
@@ -154,7 +196,24 @@ def _device_mats_orth(deg, deg_quad, quad_key, dim, iso, dtype, device):
     )
 
 
-def fast_path_available(mesh: MeshData) -> bool:
+@functools.lru_cache(maxsize=64)
+def _device_mats_general(deg, deg_quad, quad_key, dim, orth, dtype, device):
+    """`_host_mats_general` as tensors on `device`, uploaded once."""
+    hm = _host_mats_general(deg, deg_quad, quad_key, dim, orth)
+    kw = dict(dtype=dtype, device=device)
+    return dict(
+        W=torch.as_tensor(np.concatenate([hm["W_vol"], hm["W_dn"]], axis=1),
+                          **kw),
+        sel=torch.as_tensor(hm["sel_cat"], device=device),
+        Mf=torch.as_tensor(hm["Mf"], **kw),
+        D=torch.as_tensor(hm["D"], **kw),
+    )
+
+
+def fast_path_available(mesh: MeshData, neighbors: str, robin) -> bool:
+    """Whether `apply_sipg(mesh, u, g, neighbors, robin_coeff=robin)` may
+    take the GEMM form: an affine mesh with one scalar σ per face, the
+    full neighbor coupling and no Robin data."""
     return (
         mesh.affine
         and mesh.wjgg_c is not None
@@ -167,9 +226,13 @@ def fast_path_available(mesh: MeshData) -> bool:
                 mesh.orth
                 and not mesh.orient_codes
                 and mesh.hang_code is not None
+                and mesh.hc_sigma_q is None
             )
             or mesh.face_drst is not None
         )
+        and neighbors == "full"
+        and robin is None
+        and mesh.sigma_q is None  # the fast paths take a scalar σ per face
     )
 
 
@@ -179,7 +242,8 @@ def _add_hanging(mesh: MeshData, Au, u_vol, dtype):
     from disco4est_tpu_torch.laplacian import sipg as _sipg
 
     dim, deg = mesh.dim, mesh.deg
-    D1 = torch.as_tensor(DB.ops(deg).diff, dtype=dtype, device=u_vol.device)
+    D1 = _sipg._general_ops(deg, mesh.deg_quad, mesh.quad.kind, dim, dtype,
+                            u_vol.device)["D"]
     dudr = [tensor.apply_axis(D1, u_vol, l) for l in range(dim)]
     u_f = _sipg._face_slices(u_vol, dim)
     dudr_f = torch.stack(
@@ -192,10 +256,7 @@ def apply_sipg_fast(mesh: MeshData, u, g=None):
     """GEMM-form SIPG apply; requires `fast_path_available`."""
     if mesh.orth and not mesh.orient_codes:
         return _apply_orth(mesh, u, g)
-    raise NotImplementedError(
-        "the general-affine apply (sheared cells, cross-tree orientations) "
-        "is not ported yet (ROADMAP A8)"
-    )
+    return _apply_general(mesh, u, g)
 
 
 def drstn_normal(mesh: MeshData, dtype):
@@ -322,4 +383,106 @@ def _apply_orth(mesh: MeshData, u, g=None):
     if hanging and not dense_hang:
         Au = _add_hanging(mesh, Au, u.reshape((E,) + (deg + 1,) * dim),
                           dtype)
+    return Au
+
+
+def _apply_general(mesh: MeshData, u, g=None):
+    """General affine path (sheared cells, cross-tree orientations): the
+    volume blocks and the normal-derivative partials in one GEMM, every
+    component of drstn, the static orientation transforms on the gathered
+    neighbor rows, and the lift through per-face Dᵀ contractions."""
+    from disco4est_tpu_torch.laplacian.sipg import _apply_orient_codes
+
+    dim, deg = mesh.dim, mesh.deg
+    nl = deg + 1
+    nfl = nl ** (dim - 1)
+    nfaces = 2 * dim
+    E = u.shape[0]
+    dtype, dev = u.dtype, u.device
+    fshape_l = (nl,) * (dim - 1)
+    kw = dict(dtype=dtype, device=dev)
+
+    hm = _host_mats_general(deg, mesh.deg_quad, mesh.quad.kind, dim,
+                            mesh.orth)
+    dm = _device_mats_general(deg, mesh.deg_quad, mesh.quad.kind, dim,
+                              mesh.orth, dtype, dev)
+    nblk, nv = hm["nblk"], nl**dim
+    u2 = u.reshape(E, nv)
+
+    # ---- one fused GEMM: volume blocks + normal-derivative partials ----
+    Y = u2 @ dm["W"]
+    cw = mesh.wjgg_c.to(dtype)  # [E, dim, dim]
+    Au = torch.zeros((E, nv), **kw)
+    for b, (l, lp) in enumerate(hm["pairs"]):
+        Au = Au + cw[:, l, lp][:, None] * Y[:, b * nv:(b + 1) * nv]
+
+    # ---- traces at Lobatto ----------------------------------------------
+    u_f = u2[:, dm["sel"]].reshape(E, nfaces, nfl)
+    dparts = Y[:, nblk * nv:]  # [E, len(dn_dirs)*nfl]
+    # dn = n·∇u = Σ_l drstn[e,f,l]·(D_l u)|_f, drstn = (drdx·n) per face
+    drstn = torch.einsum("eld,efd->efl", mesh.drdx_c.to(dtype),
+                         mesh.face_n_c.to(dtype))  # [E, 2d, dim]
+    dn_m = torch.zeros((E, nfaces, nfl), **kw)
+    for i, (f, l) in enumerate(hm["dn_dirs"]):
+        dn_m[:, f] += drstn[:, f, l][:, None] * dparts[:, i * nfl:(i + 1) * nfl]
+
+    # ---- neighbor gather (one packed row gather) -------------------------
+    rows = (mesh.nbr_elem.long() * nfaces + mesh.nbr_face.long()).reshape(-1)
+    packed = torch.cat([u_f, dn_m], dim=-1).reshape(E * nfaces, 2 * nfl)
+    gath = packed[rows].reshape(E, nfaces, 2 * nfl)
+    u_p = gath[..., :nfl].reshape((E, nfaces) + fshape_l)
+    dn_p = gath[..., nfl:].reshape((E, nfaces) + fshape_l)
+    u_p = _apply_orient_codes(u_p, mesh.orient_code, mesh.orient_codes, dim)
+    dn_p = _apply_orient_codes(dn_p, mesh.orient_code, mesh.orient_codes,
+                               dim)
+    u_p = u_p.reshape(E, nfaces, nfl)
+    dn_p = dn_p.reshape(E, nfaces, nfl)
+
+    # ---- boundary overrides ----------------------------------------------
+    bnd = mesh.bnd_mask[..., None]  # [E, 2d, 1]
+    g_f = (torch.zeros((E, nfaces, nfl), **kw) if g is None
+           else g.to(dtype).reshape(E, nfaces, nfl))
+    u_p = torch.where(bnd, g_f, u_p)
+    dn_p = torch.where(bnd, -dn_m, dn_p)
+    c2 = torch.where(bnd, 2.0, 1.0).to(dtype)
+
+    sj = mesh.face_sj_c.to(dtype)[..., None]  # [E, 2d, 1]
+    sig = mesh.sigma.to(dtype)[..., None]
+    jump = u_f - u_p
+    t13 = -0.5 * sj * (dn_m - dn_p) + sj * sig * jump
+
+    # face-mass applies at Lobatto (M̃_f = ⊗M̃, conforming faces only)
+    Mf = dm["Mf"]
+    t13m = (t13.reshape(-1, nfl) @ Mf).reshape(E, nfaces, nfl)
+    s2 = (-0.5) * c2 * sj * (jump.reshape(-1, nfl) @ Mf).reshape(
+        E, nfaces, nfl)
+    hanging = mesh.hc_elem.shape[0] > 0
+    if hanging:
+        cm = mesh.conf_mask[..., None].to(dtype)
+        t13m, s2 = t13m * cm, s2 * cm
+
+    # ---- lift back to the volume -----------------------------------------
+    Au = Au.reshape((E,) + (nl,) * dim)
+    t13m = t13m.reshape((E, nfaces) + fshape_l)
+    s2 = s2.reshape((E, nfaces) + fshape_l)
+    Dt = dm["D"].T
+    cshape = (E,) + (1,) * (dim - 1)
+    for f in range(nfaces):
+        dir_, side = divmod(f, 2)
+        tang = [d for d in range(dim) if d != dir_]
+        a = t13m[:, f]
+        for l in tang:
+            vt2_l = drstn[:, f, l].reshape(cshape) * s2[:, f]
+            a = a + tensor.apply_axis(Dt, vt2_l, tang.index(l))
+        axis = Au.ndim - 1 - dir_
+        Au.select(axis, 0 if side == 0 else nl - 1).add_(a)
+        # normal-direction symmetry term: Dᵀ[:, edge] ⊗ (drstn_n · s2)
+        vt2_n = drstn[:, f, dir_].reshape(cshape) * s2[:, f]
+        dcol = Dt[:, 0] if side == 0 else Dt[:, -1]
+        col_shape = [1] * Au.ndim
+        col_shape[axis] = nl
+        Au = Au + vt2_n.unsqueeze(axis) * dcol.reshape(col_shape)
+
+    if hanging:
+        Au = _add_hanging(mesh, Au, u.reshape((E,) + (nl,) * dim), dtype)
     return Au

@@ -117,15 +117,14 @@ def compute_traces(mesh: MeshData, u):
 def fused_path_available(mesh: MeshData, g) -> bool:
     """The gate of JAX `pallas_path_available`: orthogonal, no orientation
     codes, no boundary data, degree ≥ 1, no hanging faces and no pointwise
-    (sigma_q) penalty.  The port's `MeshData` holds no sigma_q yet
-    (`build_mesh` refuses it, ROADMAP A11), so that term holds for every
-    mesh it has and is not written out."""
+    (sigma_q) penalty."""
     return (
         mesh.orth
         and not mesh.orient_codes
         and g is None
         and mesh.deg >= 1
         and mesh.hc_elem.shape[0] == 0
+        and mesh.sigma_q is None
     )
 
 

@@ -62,10 +62,16 @@ def _row_apply_axes(mats, u, dim: int):
     return u
 
 
-def _table_rows(table_np, deg_e, like, transpose=False):
-    """Rows `deg_e` of a padded table, as a tensor of `like`'s dtype and
-    device."""
-    T = torch.as_tensor(table_np, dtype=like.dtype, device=like.device)
+@lru_cache(maxsize=64)
+def _table_on(table_fn, deg_max: int, dtype, device):
+    """A padded table as a tensor on `device`, uploaded once."""
+    return torch.as_tensor(table_fn(deg_max), dtype=dtype, device=device)
+
+
+def _table_rows(table_fn, deg_max, deg_e, like, transpose=False):
+    """Rows `deg_e` of the padded table `table_fn(deg_max)`, as a tensor of
+    `like`'s dtype and device."""
+    T = _table_on(table_fn, deg_max, like.dtype, like.device)
     if transpose:
         T = T.transpose(-1, -2)
     return T[torch.as_tensor(deg_e, device=like.device).long()]
@@ -75,13 +81,13 @@ def prolong_padded(u_own, deg_e, deg_storage: int, dim: int):
     """Mesh-free variant of `to_max` (for AMR transfer before the new
     MeshData exists): padded own-degree coefficients -> nodal field at
     `deg_storage`."""
-    mats = _table_rows(_prolong_table_np(deg_storage), deg_e, u_own)
+    mats = _table_rows(_prolong_table_np, deg_storage, deg_e, u_own)
     return _row_apply_axes(mats, u_own, dim)
 
 
 def restrict_padded(u_max, deg_e, deg_storage: int, dim: int):
     """Mesh-free variant of `restrict_to_own` (L2 projection)."""
-    mats = _table_rows(_restrict_table_np(deg_storage), deg_e, u_max)
+    mats = _table_rows(_restrict_table_np, deg_storage, deg_e, u_max)
     return _row_apply_axes(mats, u_max, dim)
 
 
@@ -92,7 +98,7 @@ def to_max(mesh: MeshData, u_own):
 
 def adjoint_to_own(mesh: MeshData, r_max):
     """Pᵀ r: storage-degree residual -> hp-space residual (padded)."""
-    mats = _table_rows(_prolong_table_np(mesh.deg), mesh.deg_e, r_max,
+    mats = _table_rows(_prolong_table_np, mesh.deg, mesh.deg_e, r_max,
                        transpose=True)
     return _row_apply_axes(mats, r_max, mesh.dim)
 
@@ -106,7 +112,7 @@ def restrict_to_own(mesh: MeshData, u_max):
 def adjoint_restrict_to_storage(mesh: MeshData, r_own):
     """Rᵀ r: hp-space dual vector (padded) -> storage-degree dual — the
     adjoint of `restrict_to_own` (the hp-multigrid transfers use it)."""
-    mats = _table_rows(_restrict_table_np(mesh.deg), mesh.deg_e, r_own,
+    mats = _table_rows(_restrict_table_np, mesh.deg, mesh.deg_e, r_own,
                        transpose=True)
     return _row_apply_axes(mats, r_own, mesh.dim)
 

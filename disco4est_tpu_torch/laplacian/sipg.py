@@ -1,18 +1,31 @@
 """Matrix-free SIPG Laplacian apply, mass apply and strong-BC rhs.
 
-Port of the affine subset of `disco4est_tpu/laplacian/sipg.py` (role of
-the reference's `dGMath/d4est_laplacian.c` and
-`d4est_laplacian_flux_sipg.c`).  `apply_sipg` dispatches to the GEMM-form
-fast path (`laplacian/fast.py`), which also takes hanging faces.  The
-general quadrature-point apply (curved elements, Robin data, zeroed
-neighbors) and its hanging-face masking are not ported yet and raise
-(ROADMAP A8).
+Port of `disco4est_tpu/laplacian/sipg.py` (role of the reference's
+`dGMath/d4est_laplacian.c:318-399` and `d4est_laplacian_flux_sipg.c`).
+`apply_sipg` dispatches to the GEMM-form fast path (`laplacian/fast.py`)
+on affine meshes; everywhere else (curved elements, Robin data, zeroed
+neighbors, the pointwise penalty) it runs the general quadrature-point
+apply below, in torch operations, as the JAX package runs it in plain XLA:
 
-`_apply_hanging` is the [M, K] mortar-row pass of the hanging faces (the
-reference's hanging cases of `d4est_laplacian_flux_sipg_interface` with
-`d4est_mortars_project_side_onto_mortar_space` and
-`project_mass_mortar_onto_side`).  The fast path reaches it through
-`fast._add_hanging` when a mesh has no dense hanging tables.
+- the volume stiffness as dense [E, nl^dim]·[nl^dim, nq^dim] GEMMs
+  (`volume_mode="dense"`, the default up to deg 4) or per-axis tensor
+  contractions (`"tensor"`, which also takes the per-element radial rule
+  of compactified shells);
+- one batch over every directed face (element, face): the neighbor's
+  trace and normal derivative come through one packed row gather, fixed
+  into my frame by one static flip/swap transform per orientation code
+  present (`_apply_orient_codes`); boundary faces take u⁺ := g,
+  ∂u⁺ := ∂u⁻ and a doubled symmetry term
+  (`d4est_laplacian_flux_sipg.c:133-148`);
+- hanging faces masked out of that batch and done by the mortar rows of
+  `_apply_hanging`, with the mortar node permutations.
+
+SIPG terms on each directed face (minus side),
+`d4est_laplacian_flux_sipg_interface_aux` (reference :560-640):
+  term1 = -n·sj·½(∇u⁻ + ∇u⁺)            (consistency)
+  term2_l = -½·(∂r_l/∂x·n)·sj·(u⁻-u⁺)    (symmetry; then lifted & Dᵀ)
+  term3 = sj·σ·(u⁻-u⁺)                   (penalty; pointwise σ on
+                                          j_div_sj_quad meshes)
 """
 
 from __future__ import annotations
@@ -32,25 +45,234 @@ from disco4est_tpu_torch.ops import tensor
 from disco4est_tpu_torch.ops.operators import DB
 
 
-def apply_sipg(mesh: MeshData, u, g=None):
+def apply_sipg(mesh: MeshData, u, g=None, neighbors: str = "full",
+               robin_coeff=None, robin_rhs=None, volume_mode: str = "auto"):
     """Au for the SIPG Laplacian (−∇² weak form).  `u`: [E, nl...] nodal
     field; `g`: optional Dirichlet data at face Lobatto nodes
     [E, 2d, nfl...] (None ⇒ homogeneous, the pure linear operator).
-    The JAX function's `neighbors` and `robin_coeff` arguments come with
-    the general apply (ROADMAP A8)."""
-    if fast_path_available(mesh):
-        return apply_sipg_fast(mesh, u, g)
-    raise NotImplementedError(
-        "the general SIPG apply (curved elements) is not ported yet "
-        "(ROADMAP A8)"
+
+    `neighbors="zero"` drops every cross-element coupling: the
+    element-block-diagonal action, whose unit-vector probes assemble the
+    diagonal blocks of A (`d4est_solver_schwarz_apply_lhs` role).
+
+    Robin boundary conditions (`d4est_laplacian_flux_sipg_robin_aux`,
+    reference :340-436: ∂u/∂n + c·u = r replaces every boundary flux term
+    by ∫ sj·(c·u − r)·v): `robin_coeff` [E, 2d, nfq...] (values used on
+    physical-boundary faces, e.g. `mesh.boundary_values_quad` of the
+    coefficient) and optionally `robin_rhs`.
+
+    `volume_mode`: "auto" (fast path where it applies, else dense up to
+    deg 4 in 3D without a radial rule, else tensor), "fast" (raise if the
+    fast path does not apply), "dense" or "tensor"."""
+    if volume_mode in ("auto", "fast"):
+        if fast_path_available(mesh, neighbors, robin_coeff):
+            return apply_sipg_fast(mesh, u, g)
+        if volume_mode == "fast":
+            raise ValueError("fast path unavailable for this mesh/options")
+        volume_mode = (
+            "dense"
+            if mesh.deg <= 4 and mesh.dim == 3 and mesh.rad_interp is None
+            else "tensor"
+        )
+    if volume_mode not in ("dense", "tensor"):
+        raise ValueError(f"unknown volume_mode {volume_mode!r}")
+    if neighbors not in ("full", "zero"):
+        raise ValueError(f"unknown neighbors {neighbors!r}")
+
+    dim, deg = mesh.dim, mesh.deg
+    nl, nq = deg + 1, mesh.nq
+    E = u.shape[0]
+    dtype, dev = u.dtype, u.device
+    ops = _general_ops(deg, mesh.deg_quad, mesh.quad.kind, dim, dtype, dev)
+    D, Vq, wf = ops["D"], ops["Vq"], ops["wf"]
+
+    # ---- reference-space gradient (shared volume/face) ------------------
+    dudr = [tensor.apply_axis(D, u, l) for l in range(dim)]
+
+    # ---- volume stiffness ----------------------------------------------
+    # Au_vol = Σ_lp Dᵀ_lp Vᵀ (w·J·Σ_l g_lp·g_l ⊙ V D_l u)
+    w3 = ops["w3"]
+    if volume_mode == "dense":
+        Gs = ops["Gs"]
+        u_flat = u.reshape(E, -1)
+        t_flat = torch.stack([u_flat @ Gs[l] for l in range(dim)], 1)
+        if mesh.wjgg_c is not None:
+            wjgg_flat = mesh.wjgg_c.to(dtype)[..., None] * w3.reshape(-1)
+        else:
+            wjgg_flat = mesh.wjgg.to(dtype).reshape(E, dim, dim, -1)
+        Au = torch.zeros_like(u)
+        for lp in range(dim):
+            # elementwise: an einsum here is a batched GEMV over E·nq^dim
+            s_flat = (wjgg_flat[:, lp] * t_flat).sum(1)
+            Au = Au + (s_flat @ Gs[lp].T).reshape(u.shape)
+    else:
+        t = [vol_interp(mesh, dudr[l]) for l in range(dim)]
+        Au = torch.zeros_like(u)
+        cshape = (E,) + (1,) * dim
+        for lp in range(dim):
+            s = torch.zeros_like(t[0])
+            for l in range(dim):
+                if mesh.wjgg_c is not None:
+                    c = mesh.wjgg_c[:, lp, l].to(dtype).reshape(cshape)
+                    s = s + c * (w3 * t[l])
+                else:
+                    s = s + mesh.wjgg[:, lp, l].to(dtype) * t[l]
+            s = vol_interp(mesh, s, transpose=True)
+            Au = Au + tensor.apply_axis(D.T, s, lp)
+
+    # ---- face sweep (single batch over [E, 2d]) -------------------------
+    # Neighbor data is two scalars per face point: the trace u⁺ and the
+    # frame-independent normal derivative n⁺·∇u⁺, one row gather and the
+    # static orientation transforms.
+    nfl_flat = nl ** (dim - 1)
+    nfq_flat = nq ** (dim - 1)
+    fshape_l = (nl,) * (dim - 1)
+    fshape_q = (nq,) * (dim - 1)
+    nfaces = 2 * dim
+    ones = (1,) * (dim - 1)
+
+    u_f = _face_slices(u, dim)  # [E, 2d, nfl...]
+    dudr_f = torch.stack([_face_slices(dudr[l], dim) for l in range(dim)],
+                         dim=2)  # [E, 2d, dim, nfl...]
+    u_m_q = _face_apply(Vq, u_f, dim)  # [E, 2d, nfq...]
+    dudr_m_q = _face_apply(Vq, dudr_f, dim)  # [E, 2d, dim, nfq...]
+
+    # own-side geometric data (trailing 1s for the compact affine factors)
+    if mesh.face_n_c is not None:
+        drst_m = mesh.drdx_c.to(dtype).reshape((E, 1, dim, dim) + ones)
+        n_m = mesh.face_n_c.to(dtype).reshape((E, nfaces, dim) + ones)
+        sj = mesh.face_sj_c.to(dtype).reshape((E, nfaces) + ones)
+    else:
+        drst_m = mesh.face_drst.to(dtype)  # [E, 2d, l, d, nfq...]
+        n_m = mesh.face_n.to(dtype)  # [E, 2d, d, nfq...]
+        sj = mesh.face_sj.to(dtype)  # [E, 2d, nfq...]
+
+    # n·∇u = (drst·n)·∂u/∂r : only drst_n is needed, not the full ∂u/∂x
+    drst_n = (drst_m * n_m[:, :, None]).sum(3)  # [E, 2d, l, nfq...|1s]
+    dn_m = (drst_n * dudr_m_q).sum(2)  # [E, 2d, nfq...]
+
+    bnd_b = mesh.bnd_mask.reshape((E, nfaces) + ones)
+
+    if neighbors == "zero":
+        u_p_q = torch.zeros_like(u_m_q)
+        dn_p = torch.zeros_like(dn_m)
+    else:
+        # one packed row gather for both traces
+        rows = mesh.nbr_elem.long() * nfaces + mesh.nbr_face.long()
+        packed = torch.cat(
+            [u_f.reshape(E, nfaces, nfl_flat),
+             dn_m.reshape(E, nfaces, nfq_flat)], dim=-1,
+        ).reshape(E * nfaces, nfl_flat + nfq_flat)
+        gath = packed[rows]  # [E, 2d, nfl + nfq]
+        u_p = gath[..., :nfl_flat].reshape((E, nfaces) + fshape_l)
+        dn_p = gath[..., nfl_flat:].reshape((E, nfaces) + fshape_q)
+        u_p = _apply_orient_codes(u_p, mesh.orient_code, mesh.orient_codes,
+                                  dim)
+        dn_p = _apply_orient_codes(dn_p, mesh.orient_code,
+                                   mesh.orient_codes, dim)
+        u_p_q = _face_apply(Vq, u_p, dim)
+
+    # boundary: u⁺ := g (or 0), ∂u⁺ := ∂u⁻ (⇔ gathered dn_p := -dn_m)
+    g_q = (torch.zeros_like(u_m_q) if g is None
+           else _face_apply(Vq, g.to(dtype), dim))
+    u_p_q = torch.where(bnd_b, g_q, u_p_q)
+    dn_p = torch.where(bnd_b, -dn_m, dn_p)
+
+    jump = u_m_q - u_p_q
+    c2 = torch.where(bnd_b, 2.0, 1.0).to(dtype)
+
+    # n⁺ = -n⁻ at matched points, so n⁻·∇u⁺ = -dn_p
+    term1 = -0.5 * sj * (dn_m - dn_p)
+    term2 = -0.5 * c2[:, :, None] * drst_n * (sj * jump)[:, :, None]
+    if mesh.sigma_q is not None:
+        # pointwise penalty (FACE_H_EQ_J_DIV_SJ_QUAD)
+        term3 = sj * mesh.sigma_q.to(dtype) * jump
+    else:
+        term3 = sj * mesh.sigma.to(dtype).reshape((E, nfaces) + ones) * jump
+
+    if robin_coeff is not None:
+        rr = (torch.zeros_like(u_m_q) if robin_rhs is None
+              else robin_rhs.to(dtype))
+        robin_term = sj * (robin_coeff.to(dtype) * u_m_q - rr)
+        term1 = torch.where(bnd_b, robin_term, term1)
+        term2 = torch.where(bnd_b[:, :, None], 0.0, term2)
+        term3 = torch.where(bnd_b, 0.0, term3)
+
+    # Galerkin integral on the face: Vᵀ(w ⊙ term); hanging faces are
+    # masked out here and done by the mortar rows below
+    cmask = mesh.conf_mask.reshape((E, nfaces) + ones).to(dtype)
+    vt1 = _face_apply(Vq.T, wf * (term1 + term3), dim) * cmask
+    vt2 = _face_apply(Vq.T, wf * term2, dim) * cmask[:, :, None]
+
+    # lift to volume and accumulate: per face, the tangential Dᵀ terms act
+    # within the face plane; the normal-direction Dᵀ of a lifted plane is
+    # an outer product with one column of Dᵀ
+    Dt = D.T
+    for f in range(nfaces):
+        dir_, side = divmod(f, 2)
+        tang = [d for d in range(dim) if d != dir_]
+        a = vt1[:, f]
+        for l in tang:
+            a = a + tensor.apply_axis(Dt, vt2[:, f, l], tang.index(l))
+        axis = Au.ndim - 1 - dir_
+        Au.select(axis, 0 if side == 0 else nl - 1).add_(a)
+        dcol = Dt[:, 0] if side == 0 else Dt[:, -1]
+        col_shape = [1] * Au.ndim
+        col_shape[axis] = nl
+        Au = Au + vt2[:, f, dir_].unsqueeze(axis) * dcol.reshape(col_shape)
+
+    if mesh.hc_elem.shape[0] > 0:
+        Au = Au + _apply_hanging(mesh, u_f, dudr_f, dtype,
+                                 neighbors=neighbors)
+    return Au
+
+
+@functools.lru_cache(maxsize=None)
+def _dense_grad_ops(deg, deg_quad, quad_key, dim):
+    """Per-direction dense [nl^dim, nq^dim] operators G_l = ((⊗V)·D_l)ᵀ,
+    flattened for [E, n] GEMMs: the volume stage as GEMMs with contraction
+    nl^dim instead of per-axis contractions of size nl (host f64)."""
+    from disco4est_tpu_torch.quadrature.quadrature import Quadrature
+
+    V = Quadrature(quad_key).interp(deg, deg_quad)
+    D = DB.ops(deg).diff
+
+    def kron_all(mats):
+        # direction 0 acts on the fastest (x) index: the LAST kron operand
+        out = mats[-1]
+        for m in mats[-2::-1]:
+            out = np.kron(out, m)
+        return out
+
+    return [kron_all([V @ D if d == l else V for d in range(dim)]).T
+            for l in range(dim)]
+
+
+@functools.lru_cache(maxsize=64)
+def _general_ops(deg, deg_quad, quad_key, dim, dtype, device):
+    """The general apply's fixed operators as tensors of `dtype` on
+    `device`, uploaded once per (operator, dtype, device)."""
+    from disco4est_tpu_torch.quadrature.quadrature import Quadrature
+
+    quad = Quadrature(quad_key)
+    kw = dict(dtype=dtype, device=device)
+    _, wq1 = quad.nodes_weights(deg_quad)
+    return dict(
+        D=torch.as_tensor(DB.ops(deg).diff, **kw),
+        Vq=torch.as_tensor(quad.interp(deg, deg_quad), **kw),
+        wf=tensor.tensor_weights([wq1] * (dim - 1), **kw),
+        w3=tensor.tensor_weights([wq1] * dim, **kw),
+        Gs=[torch.as_tensor(G, **kw)
+            for G in _dense_grad_ops(deg, deg_quad, quad_key, dim)],
     )
 
 
-def apply_mass(mesh: MeshData, v):
+def apply_mass(mesh: MeshData, v, on_quad: bool = False):
     """M v: nodal mass apply via quadrature
-    (`d4est_quadrature_apply_mass_matrix`)."""
+    (`d4est_quadrature_apply_mass_matrix`).  With `on_quad`, v is given at
+    the volume quadrature points and only Vᵀ(wJ·v) is applied."""
     w = vol_weights(mesh, v.dtype)
-    v_q = vol_interp(mesh, v)
+    v_q = v if on_quad else vol_interp(mesh, v)
     return vol_interp(mesh, w * mesh.j_quad.to(v.dtype) * v_q,
                       transpose=True)
 
@@ -65,7 +287,7 @@ def build_rhs_with_strong_bc(mesh: MeshData, f, g):
 
 
 # ---------------------------------------------------------------------------
-# face helpers shared with the estimator
+# face helpers shared with the estimator and the curved apply
 # ---------------------------------------------------------------------------
 
 
@@ -92,12 +314,47 @@ def _face_slices(u, dim):
 def _face_quad_ops(mesh: MeshData, dtype, device):
     """Lobatto → face-quadrature interpolation Vq and the face quadrature
     weights wf [nq...]."""
-    Vq = torch.as_tensor(mesh.quad.interp(mesh.deg, mesh.deg_quad),
-                         dtype=dtype, device=device)
-    _, wq1 = mesh.quad.nodes_weights(mesh.deg_quad)
-    wf = tensor.tensor_weights([wq1] * (mesh.dim - 1), dtype=dtype,
-                               device=device)
-    return Vq, wf
+    ops = _general_ops(mesh.deg, mesh.deg_quad, mesh.quad.kind, mesh.dim,
+                       dtype, device)
+    return ops["Vq"], ops["wf"]
+
+
+def _gather_nd(field_flat, ne, nf, perm):
+    """Neighbor rows of a [S, 2d, C..., n_flat] face array (C component
+    axes) permuted into my frame: row (ne, nf) of every directed face,
+    node j taken from the neighbor's node perm[..., j]."""
+    S, F = field_flat.shape[:2]
+    flat = field_flat.reshape((S * F,) + field_flat.shape[2:])
+    g = flat[ne.long() * F + nf.long()]  # [E, 2d, C..., n_flat]
+    idx = perm.reshape(perm.shape[:2] + (1,) * (g.ndim - 3)
+                       + perm.shape[-1:])
+    return torch.gather(g, -1, idx.expand(g.shape[:-1] + perm.shape[-1:]))
+
+
+def _orient_transform(v, code: int, dim: int):
+    """STATIC orientation transform of a face array [..., n2, n1] (dim-1
+    trailing tangent axes): out[j2, j1] = v[i2(j), i1(j)] for the
+    flip/flip/swap encoding of `mesh/faces.py:orientation_perm`."""
+    if dim == 2:
+        return torch.flip(v, dims=(-1,)) if (code & 1) else v
+    if code & 4:
+        v = v.transpose(-1, -2)
+    if code & 1:
+        v = torch.flip(v, dims=(-1,))
+    if code & 2:
+        v = torch.flip(v, dims=(-2,))
+    return v
+
+
+def _apply_orient_codes(v, code_arr, codes: tuple, dim: int):
+    """Fix gathered neighbor face data whose source frame differs from
+    mine: for each static orientation code present, transform the whole
+    array and select the rows with that code."""
+    shape = code_arr.shape + (1,) * (dim - 1)
+    for c in codes:
+        v = torch.where((code_arr == c).reshape(shape),
+                        _orient_transform(v, c, dim), v)
+    return v
 
 
 # ---------------------------------------------------------------------------
@@ -154,7 +411,21 @@ def _lift_rows(elems, faces, vt13, vt2, E, deg, dim, dtype):
     return out.reshape((E,) + (nl,) * dim)
 
 
-def _apply_hanging(mesh: MeshData, u_f, dudr_f, dtype):
+@functools.lru_cache(maxsize=64)
+def _mortar_ops(deg, dim, dtype, device):
+    """The two 1D child interpolations hp[c] and the subface bits
+    [K, dim-1] of the mortar pass, on `device`, uploaded once."""
+    K = 1 << (dim - 1)
+    hp = torch.as_tensor(np.stack([DB.hp_prolong(deg, deg, c)
+                                   for c in (0, 1)]),
+                         dtype=dtype, device=device)
+    bits = torch.as_tensor([[(b >> t) & 1 for t in range(dim - 1)]
+                            for b in range(K)], device=device)
+    return hp, bits
+
+
+def _apply_hanging(mesh: MeshData, u_f, dudr_f, dtype,
+                   neighbors: str = "full"):
     """Hanging-face (nonconforming) mortar contributions, two batched
     passes:
 
@@ -166,11 +437,14 @@ def _apply_hanging(mesh: MeshData, u_f, dudr_f, dtype):
       onto it.
 
     `u_f` [E, 2d, nfl...] and `dudr_f` [E, 2d, dim, nfl...] are the face
-    traces of u and of its reference gradient.  Identity orientations
-    only: the mortar node permutations of the JAX version are the
-    identity on a brick (the builder refuses others, ROADMAP A8)."""
+    traces of u and of its reference gradient.  The other side's data
+    reach each row through the mortar node permutations (`hc_perm_*`,
+    `hf_perm_*`: the identity unless the mortar crosses reoriented tree
+    faces).  `neighbors="zero"` drops the other side."""
     dim, deg = mesh.dim, mesh.deg
-    nl = deg + 1
+    nl, nq = deg + 1, mesh.nq
+    nfl_flat, nfq_flat = nl ** (dim - 1), nq ** (dim - 1)
+    fshape_l, fshape_q = (nl,) * (dim - 1), (nq,) * (dim - 1)
     K = 1 << (dim - 1)
     M = mesh.hc_elem.shape[0]
     E = u_f.shape[0]
@@ -178,14 +452,7 @@ def _apply_hanging(mesh: MeshData, u_f, dudr_f, dtype):
     Vq, wf = _face_quad_ops(mesh, dtype, dev)
     ones = (1,) * (dim - 1)
 
-    hp = torch.as_tensor(
-        np.stack([DB.hp_prolong(deg, deg, c) for c in (0, 1)]),
-        dtype=dtype, device=dev,
-    )  # [2, nl, nl]
-    bits = torch.as_tensor(
-        [[(b >> t) & 1 for t in range(dim - 1)] for b in range(K)],
-        device=dev,
-    )  # [K, dim-1]
+    hp, bits = _mortar_ops(deg, dim, dtype, dev)  # [2, nl, nl], [K, dim-1]
 
     ce, cfc = mesh.hc_elem.long(), mesh.hc_face.long()
 
@@ -218,22 +485,38 @@ def _apply_hanging(mesh: MeshData, u_f, dudr_f, dtype):
     u_m_q = _face_apply(Vq, u_m_sub, dim)  # [M, K, nfq...]
     du_m_q = _face_apply(Vq, du_m_sub, dim)  # [M, K, dim, nfq...]
     drst_m = mesh.hc_drst_m.to(dtype)  # [M, K, l, d, nfq...]
-    dudx_m = torch.einsum("mkld...,mkl...->mkd...", drst_m, du_m_q)
+    # the small contractions elementwise (as einsums they are batched
+    # GEMVs over every point)
+    dudx_m = (drst_m * du_m_q[:, :, :, None]).sum(2)
 
+    # the fine neighbors' traces, permuted from each fine frame into the
+    # coarse one
     fe2, ff2 = mesh.hc_fine.long(), mesh.hc_fine_face.long()
-    u_p_q = _face_apply(Vq, u_f[fe2, ff2], dim)
-    du_p_q = _face_apply(Vq, dudr_f[fe2, ff2], dim)
-    drst_p = mesh.face_drst[fe2, ff2].to(dtype)
-    dudx_p = torch.einsum("mkld...,mkl...->mkd...", drst_p, du_p_q)
+    perm_l, perm_q = mesh.hc_perm_l, mesh.hc_perm_q  # [M, K, n_flat]
+    uf = torch.gather(u_f[fe2, ff2].reshape(M, K, nfl_flat), -1, perm_l)
+    duf = torch.gather(dudr_f[fe2, ff2].reshape(M, K, dim, nfl_flat), -1,
+                       perm_l[:, :, None].expand(M, K, dim, nfl_flat))
+    drst_p = torch.gather(
+        mesh.face_drst[fe2, ff2].to(dtype).reshape(M, K, dim, dim, nfq_flat),
+        -1, perm_q[:, :, None, None].expand(M, K, dim, dim, nfq_flat))
+    u_p_q = _face_apply(Vq, uf.reshape((M, K) + fshape_l), dim)
+    du_p_q = _face_apply(Vq, duf.reshape((M, K, dim) + fshape_l), dim)
+    dudx_p = (drst_p.reshape((M, K, dim, dim) + fshape_q)
+              * du_p_q[:, :, :, None]).sum(2)
+    if neighbors == "zero":
+        u_p_q = torch.zeros_like(u_p_q)
+        dudx_p = torch.zeros_like(dudx_p)
 
     sj = mesh.hc_sj.to(dtype)  # [M, K, nfq...]
     n = mesh.hc_n.to(dtype)  # [M, K, d, nfq...]
     jump = u_m_q - u_p_q
-    term1 = -torch.einsum("mkd...,mkd...->mk...", n,
-                          0.5 * (dudx_m + dudx_p)) * sj
-    drst_n = torch.einsum("mkld...,mkd...->mkl...", drst_m, n)
+    term1 = -(n * (0.5 * (dudx_m + dudx_p))).sum(2) * sj
+    drst_n = (drst_m * n[:, :, None]).sum(3)
     term2 = -0.5 * drst_n * (sj * jump)[:, :, None]
-    term3 = sj * mesh.hc_sigma.to(dtype).reshape((M, K) + ones) * jump
+    if mesh.hc_sigma_q is not None:  # pointwise mortar penalty
+        term3 = sj * mesh.hc_sigma_q.to(dtype) * jump
+    else:
+        term3 = sj * mesh.hc_sigma.to(dtype).reshape((M, K) + ones) * jump
 
     vt13 = _face_apply(Vq.T, wf * (term1 + term3), dim)
     vt2 = _face_apply(Vq.T, wf * term2, dim)
@@ -257,26 +540,42 @@ def _apply_hanging(mesh: MeshData, u_f, dudr_f, dtype):
     n = mesh.face_n[fe, ff].to(dtype)
     u_m_q = _face_apply(Vq, u_f[fe, ff], dim)
     du_m_q = _face_apply(Vq, dudr_f[fe, ff], dim)
-    dudx_m = torch.einsum("mld...,ml...->md...", drst_m, du_m_q)
+    dudx_m = (drst_m * du_m_q[:, :, None]).sum(1)
 
-    # the coarse neighbor's trace prolonged onto my subface
+    # the coarse neighbor's trace prolonged onto my subface, then
+    # permuted from the coarse frame into mine
     u_p, du_p = u_f[ce_rep, cf_rep], dudr_f[ce_rep, cf_rep]
     for t in range(dim - 1):
         mats = hp[(b_idx >> t) & 1]  # [Mf, nl, nl]
         u_p = _row_mat_apply(mats, u_p, t)
         du_p = _row_mat_apply(mats, du_p, t)
-    # the coarse element's drst at my quadrature points
-    drst_p = mesh.hc_drst_m.to(dtype).reshape(drst_m.shape)
-    u_p_q = _face_apply(Vq, u_p, dim)
-    du_p_q = _face_apply(Vq, du_p, dim)
-    dudx_p = torch.einsum("mld...,ml...->md...", drst_p, du_p_q)
+    hf_l, hf_q = mesh.hf_perm_l, mesh.hf_perm_q  # [Mf, n_flat]
+    u_p = torch.gather(u_p.reshape(Mf, nfl_flat), -1, hf_l)
+    du_p = torch.gather(du_p.reshape(Mf, dim, nfl_flat), -1,
+                        hf_l[:, None].expand(Mf, dim, nfl_flat))
+    # the coarse element's drst at my quadrature points, in my frame
+    drst_p = torch.gather(
+        mesh.hc_drst_m.to(dtype).reshape(Mf, dim, dim, nfq_flat), -1,
+        hf_q[:, None, None].expand(Mf, dim, dim, nfq_flat),
+    ).reshape(drst_m.shape)
+    u_p_q = _face_apply(Vq, u_p.reshape((Mf,) + fshape_l), dim)
+    du_p_q = _face_apply(Vq, du_p.reshape((Mf, dim) + fshape_l), dim)
+    dudx_p = (drst_p * du_p_q[:, :, None]).sum(1)
+    if neighbors == "zero":
+        u_p_q = torch.zeros_like(u_p_q)
+        dudx_p = torch.zeros_like(dudx_p)
 
     jump = u_m_q - u_p_q
-    term1 = -torch.einsum("md...,md...->m...", n,
-                          0.5 * (dudx_m + dudx_p)) * sj
-    drst_n = torch.einsum("mld...,md...->ml...", drst_m, n)
+    term1 = -(n * (0.5 * (dudx_m + dudx_p))).sum(1) * sj
+    drst_n = (drst_m * n[:, None]).sum(2)
     term2 = -0.5 * drst_n * (sj * jump)[:, None]
-    term3 = sj * mesh.hc_sigma.to(dtype).reshape((Mf,) + ones) * jump
+    if mesh.hc_sigma_q is not None:
+        # the coarse-frame pointwise penalty permuted into each fine frame
+        sig_q = torch.gather(mesh.hc_sigma_q.to(dtype).reshape(Mf, nfq_flat),
+                             -1, hf_q).reshape((Mf,) + fshape_q)
+        term3 = sj * sig_q * jump
+    else:
+        term3 = sj * mesh.hc_sigma.to(dtype).reshape((Mf,) + ones) * jump
 
     vt13f = _face_apply(Vq.T, wf * (term1 + term3), dim)
     vt2f = _face_apply(Vq.T, wf * term2, dim)

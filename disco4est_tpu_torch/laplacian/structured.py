@@ -88,8 +88,10 @@ class StructuredBrick:
 
 def build_structured(mesh: MeshData):
     """Build the lex view, or None when the mesh isn't a uniform
-    orthogonal brick."""
+    orthogonal brick with one scalar penalty per face."""
     if not (mesh.affine and mesh.orth and not mesh.orient_codes):
+        return None
+    if mesh.sigma_q is not None:
         return None
     forest = mesh.forest
     lv = np.asarray(forest.level)

@@ -1,26 +1,28 @@
 """Mesh-data builder: per-epoch precomputation of all geometric factors.
 
-Port of the affine subset of `disco4est_tpu/mesh/builder.py` (role of
-the reference's `d4est_mesh_update` + `d4est_mesh_data_compute`,
+Port of `disco4est_tpu/mesh/builder.py` (role of the reference's
+`d4est_mesh_update` + `d4est_mesh_data_compute`,
 `Mesh/d4est_mesh.c:2544-2791`).  After every mesh epoch the struct of
 element-major factor tensors is rebuilt once, on the requested device, in
 float64; kernels read them every solver iteration.
 
-What this subset covers: conforming and 2:1 hanging faces (the mortar
-tables, their coarse-side factors and the dense per-face hanging tables of
-the GEMM-form apply), identity face orientations, the scalar penalty modes
-(`volume_div_area`, `tree_h`, `j_div_sj_min_lobatto`) and the full
-per-point factor arrays the driver builds (`store_full=True` in the JAX
-package).  Non-identity orientations, the pointwise `j_div_sj_quad`
-penalty and compactified quadrature raise `NotImplementedError` naming the
-ROADMAP item that brings them.  On identity orientations the JAX mortar
-tables' node permutations (`hc_perm_*`, `hf_perm_*`) are the identity, so
-the port carries none.
+It covers affine and curved geometries (bricks, cubed spheres),
+conforming and 2:1 hanging faces with any face orientation (the neighbor
+node permutations `perm_*`, the mortar permutations `hc_perm_*` /
+`hf_perm_*` and the static set `orient_codes`), the four penalty modes of
+`[mesh_parameters] face_h_type` (the pointwise `j_div_sj_quad` mode as
+`sigma_q` and `hc_sigma_q`), the compactified radial volume quadrature
+(`compactified_k`: `rad_interp`, `rad_w` and the per-element volume
+factors), and the full per-point factor arrays the driver builds
+(`store_full=True` in the JAX package).  Geometric factors are torch on
+the mesh's device; the face tables, orientation codes and compactified
+rules are host numpy.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -30,6 +32,8 @@ from disco4est_tpu_torch.mesh.faces import (
     BOUNDARY,
     CONF,
     build_face_tables,
+    orientation_perm,
+    _orientation_code,
     _tangent_axes,
 )
 from disco4est_tpu_torch.mesh.tree import Forest, ROOT
@@ -42,8 +46,8 @@ F64 = torch.float64
 
 @dataclasses.dataclass
 class MeshData:
-    """Everything the solvers need for one mesh epoch (affine subset of
-    the JAX `MeshData`; field names and layouts are the same).
+    """Everything the solvers need for one mesh epoch (the JAX
+    `MeshData`; field names and layouts are the same).
 
     Host metadata: `dim`, `deg`, `deg_quad`, `quad`, `geom`, `forest`,
     `affine`, `orth`, `iso`, `orient_codes`.  Every other field is a torch
@@ -80,6 +84,11 @@ class MeshData:
     # --- neighbor tables ---
     nbr_elem: torch.Tensor  # [E, 2d] int32
     nbr_face: torch.Tensor  # [E, 2d] int32
+    # neighbor node permutations: my face node j is the neighbor's face
+    # node perm[j] (identity within a tree and across aligned trees)
+    perm_l: torch.Tensor  # [E, 2d, nfl_flat] int64, Lobatto nodes
+    perm_q: torch.Tensor  # [E, 2d, nfq_flat] int64, quadrature points
+    orient_code: torch.Tensor  # [E, 2d] int32 face orientation code
     bnd_mask: torch.Tensor  # [E, 2d] bool (True on physical boundary)
     conf_mask: torch.Tensor  # [E, 2d] bool (conforming or boundary)
     # --- hanging-face mortars (coarse-side rows [M], K = 2^{dim-1}) ---
@@ -90,14 +99,32 @@ class MeshData:
     hc_face: torch.Tensor  # [M] int32
     hc_fine: torch.Tensor  # [M, K] int32, mortar-subface order
     hc_fine_face: torch.Tensor  # [M, K] int32
+    hc_perm_l: torch.Tensor  # [M, K, nfl_flat] fine frame -> coarse frame
+    hc_perm_q: torch.Tensor  # [M, K, nfq_flat]
     hc_sj: torch.Tensor  # [M, K, nfq...]
     hc_n: torch.Tensor  # [M, K, dim, nfq...] outward from the coarse elem
     hc_drst_m: torch.Tensor  # [M, K, dim, dim, nfq...] coarse drst
     hc_sigma: torch.Tensor  # [M, K]
-    # --- dense per-face hanging tables (GEMM-form apply; None if M = 0) ---
+    # fine-side rows, flattened (m, b) -> row m*K + b
+    hf_perm_l: torch.Tensor  # [M*K, nfl_flat] coarse frame -> fine frame
+    hf_perm_q: torch.Tensor  # [M*K, nfq_flat]
+    # --- pointwise penalty (j_div_sj_quad only; None otherwise) ---
+    # h = J/sj at each face quadrature point, the neighbor's h point-aligned
+    # through perm_q (`d4est_mesh.c:650-661`,
+    # `d4est_laplacian_with_opt_flux_sipg.c:622-636`)
+    sigma_q: torch.Tensor | None = None  # [E, 2d, nfq...]
+    hc_sigma_q: torch.Tensor | None = None  # [M, K, nfq...] coarse frame
+    # --- dense per-face hanging tables (GEMM-form apply; None if M = 0 or
+    # a mortar is reoriented) ---
     hang_code: torch.Tensor | None = None  # [E, 2d] int32: 0, or subface
     #                                        b+1 on the FINE side
     hang_sigma: torch.Tensor | None = None  # [E, 2d] mortar penalty there
+    # --- per-element radial quadrature (compactified outer shells) ---
+    # (`d4est_quadrature_compactified.c` role: the radial direction of
+    # outer-shell elements integrates the rational weight exactly; plain
+    # Gauss rows elsewhere)
+    rad_interp: torch.Tensor | None = None  # [E, nq, nl] Lobatto -> points
+    rad_w: torch.Tensor | None = None  # [E, nq] radial weights
     # --- compact affine factors (None for curved geometries) ---
     j_c: torch.Tensor | None = None  # [E]
     drdx_c: torch.Tensor | None = None  # [E, dim(l), dim(d)]
@@ -150,9 +177,18 @@ class MeshData:
         (`d4est_mesh_init_field`, INIT_FIELD_ON_LOBATTO)."""
         return fcn(*[self.xyz_lobatto[:, d] for d in range(self.dim)])
 
+    def init_field_on_quad(self, fcn):
+        """fcn at the volume quadrature points -> [E, nq...]."""
+        return fcn(*[self.xyz_quad[:, d] for d in range(self.dim)])
+
     def boundary_values(self, fcn):
         """fcn at face Lobatto nodes -> [E, 2d, nfl...] (Dirichlet data)."""
         return fcn(*[self.face_xyz_lobatto[:, :, d] for d in range(self.dim)])
+
+    def boundary_values_quad(self, fcn):
+        """fcn at face quadrature points -> [E, 2d, nfq...] (Robin
+        coefficients, EVAL_BNDRY_FCN_ON_QUAD)."""
+        return fcn(*[self.face_xyz_quad[:, :, d] for d in range(self.dim)])
 
     def l2_norm_sqr(self, u):
         """∫ u² J dV per element -> [E] (`d4est_mesh_compute_l2_norm_sqr`)."""
@@ -164,19 +200,43 @@ class MeshData:
 
 def vol_interp(mesh: MeshData, v, transpose: bool = False):
     """Interpolate a volume field to (or Galerkin-transpose from) the
-    volume quadrature points."""
-    Vq = torch.as_tensor(
-        mesh.quad.interp(mesh.deg, mesh.deg_quad), dtype=v.dtype,
-        device=v.device,
-    )
-    return tensor.apply_iso(Vq.T if transpose else Vq, v, mesh.dim)
+    volume quadrature points, through the per-element radial rule
+    (`rad_interp`) where the mesh has one."""
+    Vq = _interp_on(mesh.deg, mesh.deg_quad, mesh.quad.kind, v.dtype,
+                    v.device)
+    A = Vq.T if transpose else Vq
+    if mesh.rad_interp is None:
+        return tensor.apply_iso(A, v, mesh.dim)
+    for d in range(mesh.dim - 1):  # tangential directions share Vq
+        v = tensor.apply_axis(A, v, d)
+    R = mesh.rad_interp.to(v.dtype)
+    if transpose:
+        R = R.transpose(-1, -2)
+    ax = v.ndim - mesh.dim  # radial = direction dim-1, the slowest axis
+    out = torch.einsum("eab,e...b->e...a", R, torch.movedim(v, ax, -1))
+    return torch.movedim(out, -1, ax)
+
+
+@functools.lru_cache(maxsize=64)
+def _interp_on(deg, deg_quad, quad_key, dtype, device):
+    """The Lobatto -> quadrature interpolation as a tensor on `device`,
+    uploaded once (a copy from pageable host memory per call would wait
+    for the device's queue every time)."""
+    return torch.as_tensor(Quadrature(quad_key).interp(deg, deg_quad),
+                           dtype=dtype, device=device)
 
 
 def vol_weights(mesh: MeshData, dtype):
-    """Tensor volume quadrature weights [nq]*dim."""
+    """Tensor volume quadrature weights: the shared [nq]*dim grid, or
+    [E, nq...] when the mesh has a per-element radial rule."""
     _, w1 = mesh.quad.nodes_weights(mesh.deg_quad)
-    return tensor.tensor_weights([w1] * mesh.dim, dtype=dtype,
-                                 device=mesh.device)
+    kw = dict(dtype=dtype, device=mesh.device)
+    if mesh.rad_w is None:
+        return tensor.tensor_weights([w1] * mesh.dim, **kw)
+    # the radial (slowest) axis takes each element's own weights
+    w_t = tensor.tensor_weights([w1] * (mesh.dim - 1), **kw)
+    rad = mesh.rad_w.to(dtype)
+    return rad.reshape(rad.shape + (1,) * (mesh.dim - 1)) * w_t[None, None]
 
 
 _NON_TENSOR = {
@@ -202,11 +262,6 @@ def mesh_from_numpy(arrays: dict, meta: dict, device) -> MeshData:
         fields[f.name] = None if a is None else torch.as_tensor(
             np.array(a), device=device
         )
-    if tuple(meta["orient_codes"]):
-        raise NotImplementedError(
-            "non-identity face orientations need the general apply "
-            "(ROADMAP A8)"
-        )
     return MeshData(
         dim=int(meta["dim"]), deg=int(meta["deg"]),
         deg_quad=int(meta["deg_quad"]), quad=quad, geom=meta["geom"],
@@ -214,6 +269,10 @@ def mesh_from_numpy(arrays: dict, meta: dict, device) -> MeshData:
         orth=bool(meta["orth"]), iso=bool(meta["iso"]),
         orient_codes=tuple(meta["orient_codes"]), **fields,
     )
+
+
+_FACE_H_TYPES = ("volume_div_area", "tree_h", "j_div_sj_min_lobatto",
+                 "j_div_sj_quad")
 
 
 def build_mesh(
@@ -231,18 +290,11 @@ def build_mesh(
     device,
 ) -> MeshData:
     """Build one mesh epoch on `device`.  `deg_e` (optional [E] int): true
-    per-element degrees (penalties use them); storage stays at `deg`."""
-    if compactified_k is not None:
-        raise NotImplementedError(
-            "compactified quadrature is not ported yet (ROADMAP A11)"
-        )
-    if face_h_type == "j_div_sj_quad":
-        raise NotImplementedError(
-            "the pointwise j_div_sj_quad penalty is not ported yet "
-            "(ROADMAP A11)"
-        )
-    if face_h_type not in ("volume_div_area", "tree_h",
-                           "j_div_sj_min_lobatto"):
+    per-element degrees (penalties use them); storage stays at `deg`.
+    `compactified_k`: the power k of the compactified outer shells' radial
+    weight (c1 + c2·t)^{-k}, whose per-element Gaussian rules then carry
+    the volume quadrature there (`quadrature/compactified.py`)."""
+    if face_h_type not in _FACE_H_TYPES:
         raise ValueError(f"unknown face_h_type {face_h_type!r}")
     device = torch.device(device)
     quad = quad or Quadrature("legendre")
@@ -250,6 +302,7 @@ def build_mesh(
     dim = forest.dim
     E = forest.n_elements
     nfaces = 2 * dim
+    nl, nq = deg + 1, deg_quad + 1
 
     if deg_e is None:
         deg_e = np.full(E, deg, np.int32)
@@ -259,12 +312,6 @@ def build_mesh(
             raise ValueError("deg_e exceeds storage degree")
 
     ft = build_face_tables(forest)
-    if ft.orient.any() or ft.hc_orient.any():
-        raise NotImplementedError(
-            "non-identity face orientations need the general apply "
-            "(ROADMAP A8)"
-        )
-    orient_codes = ()
     affine = bool(getattr(geom, "is_affine", False))
 
     kw = dict(dtype=F64, device=device)
@@ -291,15 +338,16 @@ def build_mesh(
         nbr_elem, nbr_face, deg_e_f,
     )
     face_h_lob = fac.pop("face_h_lob")
+    face_j = fac.pop("face_j")
 
     bnd = torch.as_tensor(ft.kind == BOUNDARY, device=device)
-    if face_h_type != "volume_div_area":
+    if face_h_type in ("tree_h", "j_div_sj_min_lobatto"):
         # recompute the penalty from the selected h
         # (`Mesh/d4est_mesh.c:650-800`); store it as face_h, which the
-        # estimator prefactors read
+        # estimator prefactors read.  j_div_sj_quad keeps volume/area as
+        # its scalar h and adds the pointwise sigma_q below.
         if face_h_type == "tree_h":
-            th = hfrac[:, None].expand(E, nfaces).contiguous()
-            h_m = th
+            h_m = hfrac[:, None].expand(E, nfaces).contiguous()
         else:
             h_m = face_h_lob
         h_p = torch.where(bnd, h_m, h_m[nbr_elem, nbr_face])
@@ -310,10 +358,38 @@ def build_mesh(
         )
         fac["face_h"] = h_m
 
+    # neighbor node permutations of every directed face (host tables)
+    perms_l, perms_q = _orientation_perms(dim, nl), _orientation_perms(dim, nq)
+    perm_q = torch.as_tensor(perms_q[ft.orient], device=device)
+
+    # pointwise penalty for FACE_H_EQ_J_DIV_SJ_QUAD: h(x) = J/sj at each
+    # face quadrature point; the neighbor's h is gathered and point-aligned
+    # with perm_q, so min(h_m, h_p) is taken at matched physical points
+    # (symmetric operator).  Boundary faces take h_m on both sides (the
+    # reference's dirichlet aux passes (deg_m, h_m, deg_m, h_m)).
+    sigma_q = h_q = None
+    if face_h_type == "j_div_sj_quad":
+        h_q = (face_j / fac["face_sj"]).reshape(E, nfaces, -1)
+        rows = nbr_elem * nfaces + nbr_face
+        h_p = torch.gather(h_q.reshape(E * nfaces, -1)[rows], -1, perm_q)
+        h_p = torch.where(bnd[:, :, None], h_q, h_p)
+        sigma_q = sigma_from_degrees(
+            penalty_fcn, float(penalty_prefactor), deg_e_f[:, None, None],
+            deg_e_f[nbr_elem][:, :, None], h_q, h_p,
+        ).reshape((E, nfaces) + (nq,) * (dim - 1))
+
     mortar = _mortar_tables(
         geom, ft, forest, deg_quad, quad, penalty, deg_e, fac["face_h"],
-        device,
+        (perms_l, perms_q), h_q, device,
     )
+
+    rad = {}
+    if compactified_k is not None:
+        rad = _compactified_volume(geom, forest, deg, deg_quad, quad,
+                                   int(compactified_k), tree, anchor, hfrac)
+        fac.update(rad.pop("factors"))
+
+    conf_codes = ft.orient[ft.kind == CONF]
     kind = torch.as_tensor(ft.kind.astype(np.int64), device=device)
     return MeshData(
         dim=dim,
@@ -325,29 +401,60 @@ def build_mesh(
         affine=affine,
         orth=affine and bool(getattr(geom, "is_orthogonal", False)),
         iso=affine and bool(getattr(geom, "is_isotropic", False)),
-        orient_codes=orient_codes,
+        # static set of the non-identity codes among conforming faces: the
+        # general apply unrolls one flip/swap transform per code
+        orient_codes=tuple(sorted(int(c) for c in np.unique(conf_codes)
+                                  if c != 0)),
         deg_e=torch.as_tensor(deg_e, dtype=torch.int32, device=device),
         nbr_elem=nbr_elem.to(torch.int32),
         nbr_face=nbr_face.to(torch.int32),
+        perm_l=torch.as_tensor(perms_l[ft.orient], device=device),
+        perm_q=perm_q,
+        orient_code=torch.as_tensor(ft.orient.astype(np.int32),
+                                    device=device),
         bnd_mask=bnd,
         conf_mask=(kind == CONF) | (kind == BOUNDARY),
+        sigma_q=sigma_q,
+        **rad,
         **mortar,
         **fac,
         **compact,
     )
 
 
+def _orientation_perms(dim: int, n: int) -> np.ndarray:
+    """[codes, n^{dim-1}] int64: `faces.orientation_perm` of every
+    orientation code, so that code arrays index it directly."""
+    n_codes = 8 if dim == 3 else 2
+    return np.stack([orientation_perm(dim, n, c)
+                     for c in range(n_codes)]).astype(np.int64)
+
+
+def _tree_face_codes(conn) -> np.ndarray:
+    """[T, 2d] orientation code of each tree face's transform (0 at
+    physical boundaries)."""
+    T, nf = conn.nbr_tree.shape
+    return np.array([[_orientation_code(conn, t, f)
+                      if conn.nbr_tree[t, f] >= 0 else 0
+                      for f in range(nf)] for t in range(T)], np.int64)
+
+
 def _mortar_tables(geom, ft, forest, deg_quad, quad, penalty, deg_e,
-                   face_h, device):
-    """Hanging-mortar rows and the dense per-face hanging tables
-    (JAX `build_mesh`, `builder.py:524-610`).  The mortar penalty takes
-    h_m = the coarse full face's h and h_p = the fine element's face h,
-    both of the selected face_h_type (`face_h`), and the true degrees."""
+                   face_h, perms, h_q, device):
+    """Hanging-mortar rows, their node permutations and the dense
+    per-face hanging tables (JAX `build_mesh`, `builder.py:524-623`,
+    `:709-730`).  The mortar penalty takes h_m = the coarse full face's h
+    and h_p = the fine element's face h, both of the selected face_h_type
+    (`face_h`), and the true degrees.  `perms` are the (Lobatto, quadrature)
+    tables of `_orientation_perms`; `h_q` [E, 2d, nfq_flat], the pointwise
+    J/sj, is given for j_div_sj_quad only and adds `hc_sigma_q`."""
     penalty_fcn, penalty_prefactor = penalty
+    perms_l, perms_q = perms
     dim = forest.dim
     E, nfaces = ft.kind.shape
     M = len(ft.hc_elem)
     K = 1 << (dim - 1)
+    nq = deg_quad + 1
     kw = dict(dtype=F64, device=device)
 
     def idx(a):
@@ -375,9 +482,43 @@ def _mortar_tables(geom, ft, forest, deg_quad, quad, penalty, deg_e,
     p_c = deg_t[ce][:, None].expand(M, K)
     hc_sigma = sigma_from_degrees(penalty_fcn, penalty_prefactor, p_c,
                                   deg_t[fe], h_c, h_f)
-    out.update(hc_sj=mfac["sj"], hc_n=mfac["n"], hc_drst_m=mfac["drst"],
-               hc_sigma=hc_sigma)
-    if M > 0:
+
+    # orientation codes per (m, b): identity within a tree, else the tree
+    # face's transform seen from the coarse side (fine frame -> coarse
+    # frame) and from the fine side (coarse frame -> fine frame)
+    t_c = forest.tree[ft.hc_elem].astype(np.int64)[:, None]
+    t_f = forest.tree[ft.hc_fine.reshape(M, K)].astype(np.int64)
+    codes = _tree_face_codes(forest.conn)
+    same = t_f == t_c
+    code_c = np.where(same, 0, codes[t_c, ft.hc_face.astype(np.int64)[:, None]])
+    code_f = np.where(same, 0, codes[t_f, ft.hc_fine_face.astype(np.int64)
+                                     .reshape(M, K)])
+    hc_perm_l = perms_l[code_c]
+    hf_perm_l = perms_l[code_f].reshape(M * K, perms_l.shape[1])
+    hc_perm_q = torch.as_tensor(perms_q[code_c], device=device)
+    out.update(
+        hc_perm_l=torch.as_tensor(hc_perm_l, device=device),
+        hc_perm_q=hc_perm_q,
+        hc_sj=mfac["sj"], hc_n=mfac["n"], hc_drst_m=mfac["drst"],
+        hc_sigma=hc_sigma,
+        hf_perm_l=torch.as_tensor(hf_perm_l, device=device),
+        hf_perm_q=torch.as_tensor(perms_q[code_f].reshape(M * K, perms_q.shape[1]),
+                                  device=device),
+    )
+    if h_q is not None and M > 0:
+        # h_m on the coarse side is J/sj of the MORTAR-sized quadrant,
+        # (1/2)·J_c/sj_c at the subface points (`d4est_mortars.c`
+        # mortar_dq halving); h_p is the fine element's own-face J/sj,
+        # reoriented into the coarse mortar frame (`d4est_mesh.c:1046-1070`)
+        h_p_q = torch.gather(h_q[fe, ff], -1, hc_perm_q)
+        out["hc_sigma_q"] = sigma_from_degrees(
+            penalty_fcn, penalty_prefactor, deg_t[ce][:, None, None],
+            deg_t[fe][:, :, None], mfac["j_div_sj"].reshape(h_p_q.shape), h_p_q,
+        ).reshape((M, K) + (nq,) * (dim - 1))
+    # dense per-face hanging tables (GEMM-form apply): identity mortar
+    # orientations only, as that pass applies no permutation
+    arange = np.arange(hc_perm_l.shape[-1])
+    if M > 0 and (hc_perm_l == arange).all() and (hf_perm_l == arange).all():
         b = torch.arange(1, K + 1, dtype=torch.int32, device=device)
         hang_code = torch.zeros((E, nfaces), dtype=torch.int32,
                                 device=device)
@@ -386,6 +527,96 @@ def _mortar_tables(geom, ft, forest, deg_quad, quad, penalty, deg_e,
         hang_sigma[fe, ff] = hc_sigma
         out.update(hang_code=hang_code, hang_sigma=hang_sigma)
     return out
+
+
+def _compactified_volume(geom, forest, deg, deg_quad, quad, k, tree, anchor,
+                         hfrac):
+    """Per-element radial quadrature of the compactified outer shells
+    (JAX `build_mesh`, `builder.py:630-678`): each outer-shell element's
+    radial direction (tree axis dim-1) gets the Gaussian rule of the
+    weight (c1 + c2·t)^{-k} of its radial extent, the other elements plain
+    Gauss rows; returns `rad_interp`, `rad_w` and, under "factors", the
+    volume factor arrays rebuilt at those points."""
+    from disco4est_tpu_torch.quadrature.compactified import rule, shell_c1_c2
+
+    n_outer = int(getattr(geom, "n_outer", 0))
+    if not (n_outer and getattr(geom, "compactify_outer", False)):
+        raise ValueError(
+            "compactified_k needs a compactified outer-shell geometry"
+        )
+    E, dim = forest.n_elements, forest.dim
+    nq = deg_quad + 1
+    xg, wg = quad.nodes_weights(deg_quad)
+    rad_t = np.tile(np.asarray(xg), (E, 1))
+    rad_w = np.tile(np.asarray(wg), (E, 1))
+    verts = np.asarray(geom.verts)
+    rules = {}  # elements of one radial extent share their rule
+    for e in np.where(forest.tree < n_outer)[0]:
+        t = int(forest.tree[e])
+        c0, c1v = float(verts[t, 0, 2]), float(verts[t, 4, 2])
+        frac = forest.anchor[e, 2] / ROOT
+        hfrac_e = 2.0 ** -float(forest.level[e])
+        cmin = c0 + frac * (c1v - c0)
+        cmax = c0 + (frac + hfrac_e) * (c1v - c0)
+        key = (cmin, cmax)
+        if key not in rules:
+            cc1, cc2 = shell_c1_c2(cmin, cmax, geom.R1, geom.R2)
+            rules[key] = rule(cc1, cc2, k, nq)
+        rad_t[e], rad_w[e] = rules[key]
+    xl = np.asarray(DB.ops(deg).lobatto_nodes, np.float64)
+    # Lagrange basis on the Lobatto nodes at each element's points
+    rad_interp = np.ones((E, nq, len(xl)))
+    for l in range(len(xl)):
+        for m in range(len(xl)):
+            if m != l:
+                rad_interp[:, :, l] *= (rad_t - xl[m]) / (xl[l] - xl[m])
+    kw = dict(dtype=F64, device=anchor.device)
+    rad_t_d = torch.as_tensor(rad_t, **kw)
+    rad_w_d = torch.as_tensor(rad_w, **kw)
+    return dict(
+        rad_interp=torch.as_tensor(rad_interp, **kw),
+        rad_w=rad_w_d,
+        factors=_compute_vol_factors_perelem(
+            geom, dim, quad, deg_quad, tree, anchor, hfrac, rad_t_d, rad_w_d
+        ),
+    )
+
+
+def _compute_vol_factors_perelem(geom, dim, quad, deg_quad, tree, anchor,
+                                 hfrac, rad_t, rad_w):
+    """Volume factor arrays at PER-ELEMENT quadrature grids: tangential
+    directions on the shared Gauss nodes, the radial direction (tree axis
+    dim-1) on each element's own abscissas `rad_t` [E, nq], with the own
+    weights `rad_w` baked into wjgg exactly as the shared path bakes w⊗w⊗w
+    (`d4est_quadrature_compactified_setup_storage` role)."""
+    E = tree.shape[0]
+    nq = deg_quad + 1
+    xq, wq = quad.nodes_weights(deg_quad)
+    kw = dict(dtype=F64, device=anchor.device)
+    gx = torch.as_tensor(np.asarray(xq), **kw)
+    wt = tensor.tensor_weights([wq] * (dim - 1), **kw)
+    # pts[e, (z,) y, x, :]: x (and y) on gx, the radial axis on rad_t[e]
+    pts = torch.zeros((E,) + (nq,) * dim + (dim,), **kw)
+    for d in range(dim - 1):
+        shape = [1] * (dim + 1)
+        shape[dim - d] = nq
+        pts[..., d] = gx.reshape(shape)
+    pts[..., dim - 1] = rad_t.reshape((E, nq) + (1,) * (dim - 1))
+    a = anchor.reshape((E,) + (1,) * dim + (dim,))
+    h = hfrac.reshape((E,) + (1,) * (dim + 1))
+    rst_tree = a + (pts + 1.0) * 0.5 * h
+    t = tree.reshape((E,) + (1,) * dim)
+    dx = geom.dx(t, rst_tree) * (0.5 * h[..., None])
+    J = _det(dx)
+    drdx = _inv(dx, J)
+    w3 = rad_w.reshape((E, nq) + (1,) * (dim - 1)) * wt[None, None]
+    gg = torch.einsum("...lk,...mk->...lm", drdx, drdx)
+    wjgg = (w3 * J)[..., None, None] * gg
+    return dict(
+        xyz_quad=torch.movedim(geom.x(t, rst_tree), -1, 1),
+        j_quad=J,
+        wjgg=torch.movedim(torch.movedim(wjgg, -1, 1), -1, 1),
+    )
 
 
 def sigma_from_degrees(penalty_fcn, pf, p_m, p_p, h_m, h_p):
@@ -431,12 +662,13 @@ def _compute_all_factors(geom, dim, deg, deg_quad, quad, penalty, tree,
     face_sj, face_n, face_drst, face_xyz_l, face_xyz_q, area = (
         [], [], [], [], [], []
     )
-    face_h_lob = []
+    face_h_lob, face_j = [], []
     for f in range(nfaces):
         pts_q = _face_points(xq, dim, f, dev)
         pts_l = _face_points(xl, dim, f, dev)
         fJ, fdrdx = _factors(geom, tree, anchor, hfrac, pts_q)
         sj, n = _surface_jacobian(fJ, fdrdx, f)
+        face_j.append(fJ)  # volume J at the face points
         # FACE_H_EQ_J_DIV_SJ_MIN_LOBATTO (`d4est_mesh.c:730-741`)
         lJ, ldrdx = _factors(geom, tree, anchor, hfrac, pts_l)
         lsj, _ = _surface_jacobian(lJ, ldrdx, f)
@@ -478,6 +710,7 @@ def _compute_all_factors(geom, dim, deg, deg_quad, quad, penalty, tree,
         area=area,
         sigma=sigma,
         face_h_lob=torch.stack(face_h_lob, dim=1),
+        face_j=torch.stack(face_j, dim=1),
     )
 
 
@@ -517,16 +750,19 @@ def _compute_mortar_factors(geom, dim, deg_quad, quad, K, tree, anchor,
     For each mortar row (a coarse element's hanging face `cf`) and each of
     its K subfaces: sj (including the subface parametrization factor
     (1/2)^{dim-1}), outward unit normal and ∂r/∂x of the COARSE element at
-    the subface quadrature points, as [M, K, ...] tensors.  The JAX
-    function's mortar-sized j/sj feeds only the pointwise penalty, which
-    comes with ROADMAP A11."""
+    the subface quadrature points, as [M, K, ...] tensors, and the
+    mortar-sized J/sj of the pointwise penalty (`j_div_sj`).  The
+    reference computes the coarse side's J/sj with the MORTAR-sized (half)
+    quadrant (`d4est_mortars_compute_qcoords_on_mortar` halves dq):
+    J_mortar = (1/2)^dim J, sj_mortar = (1/2)^{dim-1} sj, so J/sj on the
+    mortar is (1/2) J/sj of the coarse element (`d4est_mortars.c:255-257`)."""
     dev = anchor.device
     M = tree.shape[0]
     xq, _ = quad.nodes_weights(deg_quad)
     a0 = cf // 2
     sign = torch.where(cf % 2 == 0, -1.0, 1.0).to(F64)
     npts = dim - 1
-    sjs, ns, drsts = [], [], []
+    sjs, ns, drsts, jdivsjs = [], [], [], []
     for b in range(K):
         # [2d, nfq..., dim] points of subface b of every face, row-selected
         pts = torch.stack([_subface_points(xq, dim, f, b, dev)
@@ -545,12 +781,14 @@ def _compute_mortar_factors(geom, dim, deg_quad, quad, K, tree, anchor,
         sj = torch.sqrt(torch.sum(ntilde**2, dim=-1))
         n = ntilde / sj[..., None]
         sjs.append(sj * 0.5 ** (dim - 1))
+        jdivsjs.append(0.5 * J / sj)
         ns.append(torch.movedim(n, -1, 1))
         drsts.append(torch.movedim(torch.movedim(drdx, -1, 1), -1, 1))
     return {
         "sj": torch.stack(sjs, dim=1),
         "n": torch.stack(ns, dim=1),
         "drst": torch.stack(drsts, dim=1),
+        "j_div_sj": torch.stack(jdivsjs, dim=1),
     }
 
 

@@ -2,13 +2,17 @@
 
 From the root of a checkout:
 
-    python -m disco4est_tpu_torch.tools.profile_solve [--level 5] [--deg 3]
-        [--rounds 2] [--device cuda|cpu]
+    python -m disco4est_tpu_torch.tools.profile_solve [--geometry brick]
+        [--level 5] [--deg 3] [--rounds 2] [--device cuda|cpu]
 
 solves the reference sinx problem (the options of `chip_smoke.py`) on a
-uniform brick of that level and degree, through the structured kernel
-(`use_structured = auto`) and through the generic f32 apply
-(`use_structured = 0`), in alternating order.  Each (round, path): one
+uniform mesh of that level and degree, through the fast inner apply of
+the mesh (`use_structured = auto`: the structured kernel on the brick,
+the tree-structured curved apply on the sphere) and through the generic
+f32 apply (`use_structured = 0`), in alternating order.  `--geometry
+sphere7` takes the 7-tree sphere of `chip_smoke.py` phase 10 (b) (R0 = 1,
+R1 = 2, the pointwise penalty; default level 4, 1,835,008 DOF at deg 3);
+the brick's default level is 5 (2,097,152 DOF).  Each (round, path): one
 warm-up solve, three unprofiled solves (their solve wall,
 `SolveInfo.seconds`), then one solve under `torch.profiler` with the solve
 (`mixed_refine_solve`) wrapped in a `record_function("solve")` window.
@@ -42,7 +46,7 @@ min_level = {level}
 region0_deg = {deg}
 region0_deg_quad_inc = 0
 [mesh_parameters]
-face_h_type = FACE_H_EQ_VOLUME_DIV_AREA
+face_h_type = {face_h}
 volume_h_type = VOL_H_EQ_CUBE_APPROX
 max_degree = 7
 [flux]
@@ -54,7 +58,7 @@ sipg_penalty_fcn = maxp_sqr_over_minh
 scheme = uniform_p
 num_of_amr_steps = 0
 [geometry]
-name = brick
+{geometry}
 [d4est_solver_krylov_petsc]
 ksp_type = fcg
 ksp_atol = 5e-15
@@ -63,6 +67,11 @@ use_mixed_precision = 1
 [quadrature]
 name = legendre
 """
+GEOMETRIES = {  # name: ([geometry] section, face_h_type, default level)
+    "brick": ("name = brick", "FACE_H_EQ_VOLUME_DIV_AREA", 5),
+    "sphere7": ("name = cubed_sphere_7tree\nr0 = 1.0\nr1 = 2.0",
+                "FACE_H_EQ_J_DIV_SJ_QUAD", 4),
+}
 KERNEL = "sipg_gemm_kernel"
 WINDOW = "solve"
 
@@ -120,9 +129,11 @@ def _solve(opts, device):
     return res.solves[0]
 
 
-def run(level, deg, mode, device):
+def run(geometry, level, deg, mode, device):
+    section, face_h, _ = GEOMETRIES[geometry]
     opts = Options.load(OPTIONS.format(level=level, deg=deg,
-                                        use_structured=mode))
+                                        use_structured=mode,
+                                        geometry=section, face_h=face_h))
     _solve(opts, device)  # warm-up
     walls = sorted(_solve(opts, device).seconds for _ in range(3))
     acts = [ProfilerActivity.CPU]
@@ -153,19 +164,25 @@ def run(level, deg, mode, device):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--level", type=int, default=5)
+    ap.add_argument("--geometry", choices=sorted(GEOMETRIES),
+                    default="brick")
+    ap.add_argument("--level", type=int, default=None,
+                    help="default: 5 on the brick, 4 on the sphere")
     ap.add_argument("--deg", type=int, default=3)
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
+    level = (GEOMETRIES[args.geometry][2] if args.level is None
+             else args.level)
     device = driver.resolve_device(args.device).type
     name = (torch.cuda.get_device_name(0) if device == "cuda" else "cpu")
-    print(f"profile_solve level={args.level} deg={args.deg} device={name}")
+    print(f"profile_solve geometry={args.geometry} level={level} "
+          f"deg={args.deg} device={name}")
     for r in range(args.rounds):
         modes = ("auto", "0") if r % 2 == 0 else ("0", "auto")
         for mode in modes:
-            print(f"round {r}: " + run(args.level, args.deg, mode, device),
-                  flush=True)
+            line = run(args.geometry, level, args.deg, mode, device)
+            print(f"round {r}: {line}", flush=True)
     return 0
 
 

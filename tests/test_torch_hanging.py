@@ -8,8 +8,7 @@
 - The reference's own dense-assembled matrices
   (`tests/data/hm_*.txt.gz`, see `tests/test_hanging_oracle.py`) through
   the port, entry by entry to the 1e-13 that test asserts, for the three
-  scalar face_h_type variants; the pointwise J_DIV_SJ_QUAD variant raises,
-  naming ROADMAP A11.
+  scalar face_h_type variants and the pointwise J_DIV_SJ_QUAD one.
 - The f32 cast of a hanging mesh applies within 1e-6 of f64.
 """
 
@@ -91,7 +90,7 @@ def test_hanging_apply_matches_jax_dense_and_legacy(dim, level, deg):
     ref = np.asarray(japply(jm, jnp.asarray(u)))
     dense = fast.apply_sipg_fast(tm, torch.as_tensor(u)).numpy()
     legacy_mesh = dataclasses.replace(tm, hang_code=None, hang_sigma=None)
-    assert fast.fast_path_available(legacy_mesh)
+    assert fast.fast_path_available(legacy_mesh, "full", None)
     legacy = fast.apply_sipg_fast(legacy_mesh, torch.as_tensor(u)).numpy()
     assert _rel(dense, ref) <= 1e-12
     assert _rel(legacy, ref) <= 1e-12
@@ -122,8 +121,11 @@ def _oracle_mesh(face_h_type):
 
 @pytest.mark.parametrize("variant", sorted(SCALAR_VARIANTS))
 def test_hanging_matrix_matches_reference(variant):
+    _assert_matches_oracle(variant, *_oracle_mesh(SCALAR_VARIANTS[variant]))
+
+
+def _assert_matches_oracle(variant, forest, mesh):
     elems, A_ref = _load_oracle(variant)
-    forest, mesh = _oracle_mesh(SCALAR_VARIANTS[variant])
     # element correspondence by (tree, anchor); oracle anchors in
     # P4EST_ROOT units, ours in tree.ROOT units
     scale = P4EST_ROOT // ROOT
@@ -146,9 +148,14 @@ def test_hanging_matrix_matches_reference(variant):
 
 
 def test_pointwise_penalty_variant_raises():
+    """The pointwise J_DIV_SJ_QUAD variant, which the port refused until
+    ROADMAP A11, now builds: the reference's dense matrix through the
+    port, entry by entry to 1e-13 as `tests/test_hanging_oracle.py`
+    asserts, with the mortar-sized-quadrant penalty `hc_sigma_q`."""
     assert (DATA / "hm_J_DIV_SJ_QUAD.txt.gz").exists()
-    with pytest.raises(NotImplementedError, match="A11"):
-        _oracle_mesh("j_div_sj_quad")
+    forest, mesh = _oracle_mesh("j_div_sj_quad")
+    assert mesh.sigma_q is not None and mesh.hc_sigma_q is not None
+    _assert_matches_oracle("J_DIV_SJ_QUAD", forest, mesh)
 
 
 def test_f32_hanging_mesh_applies_within_1e6():

@@ -14,6 +14,10 @@
   deg 3 launches B1 in both epochs, and its L2 errors equal the same
   run's on the CPU to 1e-9 relative (both solves reach the f64 floor; the
   L2 is 6.2e-7 and 1.6e-8).
+- the curved path on the card: the mixed-curved solve of a 7-tree sphere
+  at level 2 equals the CPU run's L2 to 1e-9 relative, and the f32
+  tree-structured apply of a compactified 13-tree sphere equals the f64
+  general apply to 1e-5 relative.
 
 Needs a CUDA device and `nvcc`; every test skips without a device (the
 kernels have no CPU mode).  This file imports neither JAX nor the JAX
@@ -275,3 +279,63 @@ def test_uniform_h_amr_launches_b1_every_epoch(cuda_device):
     assert [r["num_quadrants"] for r in card.norms.rows] == [512, 4096]
     for a, b in zip(card.norms.rows, cpu.norms.rows):
         assert abs(a["L_2"] - b["L_2"]) <= 1e-9 * b["L_2"], (a, b)
+
+
+# the curved path on the card (torch operations, no hand-written kernel):
+# a one-level sinx run on the 7-tree sphere at level 2, deg 2, with the
+# pointwise penalty of the reference's sphere configurations
+SPHERE_OPTIONS = """
+[initial_mesh]
+min_level = 2
+region0_deg = 2
+[mesh_parameters]
+face_h_type = FACE_H_EQ_J_DIV_SJ_QUAD
+[amr]
+scheme = uniform_h
+num_of_amr_steps = 0
+[geometry]
+name = cubed_sphere_7tree
+r0 = 1.0
+r1 = 2.0
+[d4est_solver_krylov_petsc]
+ksp_type = fcg
+use_structured = 1
+"""
+
+
+@pytest.mark.gpu
+def test_curved_mixed_solve_on_the_card_matches_the_cpu(cuda_device):
+    from disco4est_tpu_torch import driver
+    from disco4est_tpu_torch.problems.poisson import SinxProblem
+    from disco4est_tpu_torch.util.config import Options
+
+    opts = Options.load(SPHERE_OPTIONS)
+    card = driver.run_poisson(opts, SinxProblem, device="cuda")
+    cpu = driver.run_poisson(opts, SinxProblem, device="cpu")
+    for res in (card, cpu):
+        assert [s.path for s in res.solves] == ["mixed-curved"]
+        assert not res.solves[0].fallback
+    assert card.norms.rows[0]["num_quadrants"] == 448
+    a, b = card.norms.rows[0]["L_2"], cpu.norms.rows[0]["L_2"]
+    assert abs(a - b) <= 1e-9 * b, (a, b)
+
+
+@pytest.mark.gpu
+def test_tree_structured_apply_on_the_card_matches_general(cuda_device):
+    from disco4est_tpu_torch.geometry.cubed_sphere import CubedSphereGeometry
+    from disco4est_tpu_torch.laplacian import curved
+    from disco4est_tpu_torch.laplacian.sipg import apply_sipg
+
+    geom = CubedSphereGeometry("13tree", R0=10.0, R1=20.0, R2=1000.0,
+                               compactify_outer_shell=True)
+    mesh = build_mesh(geom, Forest.uniform(geom.conn, 2), deg=3,
+                      face_h_type="j_div_sj_quad", device=cuda_device)
+    ts = curved.build_tree_structured(mesh)
+    lex32 = curved.permute_mesh_lex(ts, mesh).astype(torch.float32)
+    u = torch.as_tensor(np.random.default_rng(6).standard_normal(
+        (mesh.n_elements, 4, 4, 4)), device=cuda_device)
+    ref = apply_sipg(mesh, u)
+    got = curved.from_lex(ts, curved.apply_tree_structured(
+        ts.astype(torch.float32), lex32, curved.to_lex(ts, u.float())))
+    assert got.dtype == torch.float32
+    assert _rel(got, ref) <= 1e-5

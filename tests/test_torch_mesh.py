@@ -178,13 +178,22 @@ def test_base_dx_is_forward_autodiff():
 
 
 def test_unported_mesh_features_raise():
-    geom = TBrick(dim=3)
-    forest = TForest.uniform(geom.conn, 1)
-    with pytest.raises(NotImplementedError, match="A11"):
-        tbuild(geom, forest, deg=2, face_h_type="j_div_sj_quad",
+    """The two features this test once found refused (ROADMAP A11) are
+    ported: the pointwise j_div_sj_quad penalty on a brick equals the JAX
+    builder's (the sphere cases are in `tests/test_torch_sphere.py`), and
+    compactified quadrature on a brick raises the JAX builder's
+    ValueError, since a brick has no compactified shell."""
+    jg, tg = JBrick(x1=(1.0, 2.0, 4.0), dim=3), TBrick(x1=(1.0, 2.0, 4.0),
+                                                      dim=3)
+    jm = jbuild(jg, JForest.uniform(jg.conn, 1), deg=2,
+                face_h_type="j_div_sj_quad")
+    tm = tbuild(tg, TForest.uniform(tg.conn, 1), deg=2,
+                face_h_type="j_div_sj_quad", device="cpu")
+    _assert_mesh_matches(jm, tm)
+    assert _rel(tm.sigma_q.numpy(), jm.sigma_q) <= TOL
+    with pytest.raises(ValueError, match="compactified"):
+        tbuild(tg, TForest.uniform(tg.conn, 1), deg=2, compactified_k=2,
                device="cpu")
-    with pytest.raises(NotImplementedError, match="A11"):
-        tbuild(geom, forest, deg=2, compactified_k=2, device="cpu")
 
 
 def test_face_tables_past_16_trees_match_lattice_search():

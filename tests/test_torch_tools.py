@@ -117,3 +117,16 @@ def test_profile_solve_on_the_cpu(capsys):
     runs = [line for line in lines if line.startswith("round 0:")]
     assert len(runs) == 2 and all("not a device run" in r for r in runs)
     assert profile_solve._union([(0, 2), (1, 3), (5, 6)]) == 4
+
+
+def test_profile_solve_on_the_sphere_on_the_cpu(capsys):
+    """`--geometry sphere7` solves on the 7-tree sphere; on the CPU
+    `use_structured = auto` is off, so both runs take the generic mixed
+    solve (the card's curved path needs `auto` on a CUDA device)."""
+    assert profile_solve.main(["--geometry", "sphere7", "--level", "0",
+                               "--deg", "2", "--rounds", "1", "--device",
+                               "cpu"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0].startswith("profile_solve geometry=sphere7 level=0 ")
+    runs = [line for line in lines if line.startswith("round 0:")]
+    assert len(runs) == 2 and all("path=mixed " in r for r in runs)
