@@ -97,6 +97,33 @@ and `nvcc`.  Phases, one or more lines each; any failure exits non-zero:
        max_degree 4, two steps: forest digests, degree histograms and L2
        equal to the JAX driver's (hanging faces across reoriented tree
        faces, the estimator's permutations, a mixed-degree epoch).
+   The fixed-order sums (ROADMAP C10) on the card: two f32
+   tree-structured applies of (c), two generic f32 applies and two
+   estimates on (d)'s adapted epoch, each of one input, must be equal bit
+   for bit, and (b)'s level-3 solve, run again, must take the same inner
+   iteration count;
+11. the nonlinear Newton–Krylov path (f64 torch operations; the three
+   kernels' counts must stay 0), one line per level with the norm line,
+   Newton iterations, ‖F‖ history, Krylov iterations per Newton step,
+   Σ η², forest digest and the host seconds of mesh build, solve,
+   estimator and AMR step, beside the JAX pins of
+   `refcheck/nonlinear_smoke_pins.py` (CDS with ψ_analytic boundary
+   data, ROADMAP C11):
+   (a) the CDS regression through the CLI entry (brick, level 2, deg 2,
+       FACE_H_EQ_TREE_H, one smooth_pred step, CG, snes_atol 1e-12):
+       `64 1728 1728 9.6078621…e-06` and `288 7776 7776 3.7944365…e-06`,
+       within 1e-8 of the reference digits, the forests JAX's;
+   (b) CDS at deg 3, uniform_h from level 4 to 5 (2,097,152 DOF): each
+       L2 within 2e-12 of JAX's, level 5's at least 4x below level 4's,
+       ‖F‖ ≤ 1e-12, with the seconds per Newton step and per Krylov
+       iteration at level 5;
+   (c) TwoPunctures through the CLI entry (7-tree, R0 10, R1 1000,
+       compactified inner shell, level 1, deg 2, FCG, snes_atol 1e-10):
+       JAX's 5 Newton iterations, ‖F‖ ≤ 1e-10, Σ u within 1e-8 and Σ η²
+       within 1e-6 of JAX's (the FCG counts are printed, not pinned);
+   (d) the reference's TwoPunctures digit through the API (level 0, deg
+       1, 56 DOF, dense Jacobian solves): u(10, 0, 0) within 1e-12 of
+       0.0004250131568938.
 
 Then one JSON line of the kernels (`{"kernels": [...]}`; B1 and B2 once
 per timed size, each with the launches of a run at that size: phase 5
@@ -287,9 +314,107 @@ CURVED_RUNS = {
               geometry=SPHERE7, mixed=1),
     "b64": dict(level=4, deg=3, max_degree=3, scheme="uniform_h", steps=0,
                 geometry=SPHERE7, mixed=0),
+    # (b)'s first epoch again: the same inner iteration count (C10)
+    "b3": dict(level=3, deg=3, max_degree=3, scheme="uniform_h", steps=0,
+               geometry=SPHERE7, mixed=1),
     "d": dict(level=1, deg=2, max_degree=4, scheme="smooth_pred", steps=2,
               geometry=SPHERE7, mixed=1),
 }
+
+
+# phase 11, the nonlinear path: the options of
+# `refcheck/nonlinear_smoke_pins.py`, which prints the JAX pins (CPU,
+# numpy 2.0.2; CDS with ψ_analytic as its Dirichlet data, ROADMAP C11)
+NONLINEAR_OPTIONS = """
+[initial_mesh]
+min_level = {level}
+region0_deg = {deg}
+region0_deg_quad_inc = {dq_inc}
+
+[mesh_parameters]
+face_h_type = {face_h}
+volume_h_type = VOL_H_EQ_CUBE_APPROX
+
+[flux]
+name = sipg
+sipg_penalty_prefactor = 2.0
+sipg_penalty_fcn = maxp_sqr_over_minh
+
+[amr]
+scheme = {scheme}
+num_of_amr_steps = {steps}
+percentile = 25
+gamma_h = 0.25
+gamma_p = 0.1
+gamma_n = 1.0
+
+[geometry]
+{geometry}
+
+[d4est_solver_newton]
+snes_atol = {snes_atol}
+snes_max_it = 30
+
+[d4est_solver_krylov_petsc]
+ksp_type = {ksp}
+ksp_max_it = 10000
+
+[quadrature]
+name = legendre
+"""
+TP_SPHERE7 = """name = cubed_sphere_7tree
+r0 = 10.0
+r1 = 1000.0
+compactify_inner_shell = 1"""
+NONLINEAR_RUNS = {
+    "a": dict(level=2, deg=2, dq_inc=0, face_h="FACE_H_EQ_TREE_H",
+              scheme="smooth_pred", steps=1, geometry="name = brick",
+              snes_atol=1e-12, ksp="cg", problem="cds"),
+    "b": dict(level=4, deg=3, dq_inc=0, face_h="FACE_H_EQ_TREE_H",
+              scheme="uniform_h", steps=1, geometry="name = brick",
+              snes_atol=1e-12, ksp="cg", problem="cds"),
+    "c": dict(level=1, deg=2, dq_inc=1, face_h="FACE_H_EQ_VOLUME_DIV_AREA",
+              scheme="uniform_h", steps=0, geometry=TP_SPHERE7,
+              snes_atol=1e-10, ksp="fcg", problem="two_punctures"),
+}
+# per level: elements, DOF, L2 (TwoPunctures: ‖F‖), Newton iterations,
+# ‖F‖ history, Krylov iterations per Newton step, Σ η², forest digest
+NONLINEAR_PINS = {
+    "a": [(64, 1728, 9.607862107719673e-06, 3,
+           [6.81268929303232e-05, 3.8940890651101163e-07,
+            3.5962227976652317e-10, 3.547678086056019e-13],
+           [21, 36, 37], 3.2338214022128e-08, "8885996e5b8fc009"),
+          (288, 7776, 3.794436580597212e-06, 3,
+           [1.7121622401091096e-05, 6.805065777108538e-08,
+            5.7649344704701606e-11, 4.803896979331402e-14],
+           [56, 69, 71], 1.013509984181725e-09, "ca2e947d1cc819fc")],
+    "b": [(4096, 262144, 2.6366481099608364e-07, 3,
+           [8.897760365449851e-05, 7.671563549935214e-07,
+            7.111525719662918e-10, 6.989868214587535e-13],
+           [67, 129, 113], 2.4754219422011584e-11, "5998b6866d35963d"),
+          (32768, 2097152, 5.290594304889033e-08, 2,
+           [6.202972945650333e-07, 6.126882243820108e-10,
+            5.784883797972237e-13],
+           [237, 256], 4.0050242114901464e-12, "ae8908dee7501857")],
+    "c": [(56, 1512, 3.6922062900999323e-11, 5,
+           [0.043619579286959274, 0.008002791919654922,
+            0.0006132093532751641, 1.3378094705885977e-05,
+            4.5639365651741405e-08, 3.6922062900999323e-11],
+           [416, 703, 1503, 1599, 3083], 0.0062773454869856455,
+           "b5790d9fd145689c")],
+}
+# the reference's CDS digits (`tests/test_cds.py:86,119`): the level-2
+# L2 of `d4est_test_mpi.sh` and the converged CDS-AMR ground truth
+CDS_DIGITS = (9.607862111733e-06, 3.7944365819784e-06)
+CDS_DIGIT_REL = 1e-8
+CDS_L2_ABS = 2e-12  # (b): the Newton stop at ‖F‖ ≤ 1e-12 leaves ~1e-12 in u
+TP_SUM_U = 2.6393399389629097  # (c): Σ u over the nodes, JAX
+TP_SUM_U_REL = 1e-8
+TP_ETA2_REL = 1e-6
+# (d) u(10, 0, 0) of `d4est_test_twopunctures.sh:5` (refcheck ground
+# truth, `tests/test_regression_digits.py:65-128`)
+TP_DIGIT = 0.0004250131568938
+TP_DIGIT_ABS = 1e-12
 
 
 # the options of `refcheck/amr_smoke_pins.py`, with the solve settings
@@ -771,12 +896,14 @@ def forest_digest(forest):
 
 
 @contextlib.contextmanager
-def amr_probe(torch, np):
+def amr_probe(torch, np, keep_mesh=False):
     """Per-epoch records of a driver run.  Wraps the driver's mesh build,
-    estimator and AMR step, and inside them the face tables, the
-    refine + balance and the tree-structured view of the curved solve,
-    each with host clocks behind a device synchronize; one record per
-    mesh build, that is per epoch, with its forest's digest."""
+    estimator and AMR step (`amr_step_hp` in `run_poisson`; refine +
+    balance and the field transfer in `run_nonlinear`), and inside them
+    the face tables, the refine + balance and the tree-structured view of
+    the curved solve, each with host clocks behind a device synchronize;
+    one record per mesh build, that is per epoch, with its forest's
+    digest (and, with `keep_mesh`, the mesh)."""
     from disco4est_tpu_torch import driver
     from disco4est_tpu_torch.amr import amr
     from disco4est_tpu_torch.laplacian import curved
@@ -788,6 +915,8 @@ def amr_probe(torch, np):
              (curved, "build_tree_structured", "ts"),
              (driver, "estimate_bi", "estimate"),
              (driver, "amr_step_hp", "amr"),
+             (driver, "refine_and_balance", "amr"),
+             (driver, "transfer_field", "amr"),
              (amr, "refine_and_balance", "balance")]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in sites]
     epochs = []
@@ -811,6 +940,8 @@ def amr_probe(torch, np):
             rec[key] = rec.get(key, 0.0) + time.perf_counter() - t0
             if key == "mesh":
                 rec["hanging"] = int(out.hc_elem.shape[0])
+                if keep_mesh:
+                    rec["built"] = out
                 check(out.device.type == "cuda",
                       f"an epoch's mesh was built on {out.device}")
             return out
@@ -932,7 +1063,7 @@ def phase_amr(torch, np, card, level5_l2, b1_level5_ms):
               f"(d) level {k} residual {f['residual']} above {bound:.3e}")
 
 
-def curved_run(torch, np, key, problem="sinx"):
+def curved_run(torch, np, key, problem="sinx", keep_mesh=False):
     """One run of phase 10 through the CLI entry: one line per epoch with
     its norm line, degrees, hanging faces, solve path and iterations, and
     the host seconds of mesh build, tree-structured view, solve,
@@ -940,7 +1071,7 @@ def curved_run(torch, np, key, problem="sinx"):
     run = CURVED_RUNS[key]
     text = CURVED_OPTIONS.format(**run)
     t0 = time.perf_counter()
-    with amr_probe(torch, np) as epochs:
+    with amr_probe(torch, np, keep_mesh) as epochs:
         norms, _, fields, launches = run_cli(text, torch, problem)
     wall = time.perf_counter() - t0
     check(len(norms) == len(epochs) == run["steps"] + 1,
@@ -1048,6 +1179,12 @@ def curved_apply_timing(torch, np, card):
     check(rel64 <= CURVED_F64_TOL, f"(c) f64 applies disagree: {rel64}")
     check(max(rel32.values()) <= CURVED_F32_TOL,
           f"(c) f32 applies off f64: {rel32}")
+    # C10: the crossing faces sum in a fixed order, so two applies of one
+    # input are equal bit for bit
+    same = torch.equal(fns["tree-structured"](), fns["tree-structured"]())
+    print(f"[10] (c) two f32 tree-structured applies of one input equal bit "
+          f"for bit: {same}")
+    check(same, "(c) the f32 tree-structured apply is not repeatable")
     for fn in fns.values():
         fn()
     torch.cuda.synchronize()
@@ -1067,6 +1204,28 @@ def curved_apply_timing(torch, np, card):
         print(f"[10] (c) f32 {k} apply on {card}: {ms:.4f} ms; bytes bound "
               f"{bound:.4f} ms ({bound / ms:.1%} of it)")
     return t, bound
+
+
+def repeat_on_adapted_sphere(torch, np, mesh):
+    """C10 on (d)'s adapted epoch (hanging faces across reoriented tree
+    faces): two generic f32 applies of one input, and two estimates, must
+    be equal bit for bit (the mortar rows sum in a fixed order)."""
+    from disco4est_tpu_torch.estimators.bi import estimate_bi
+    from disco4est_tpu_torch.laplacian.sipg import apply_sipg
+
+    check(mesh.hc_elem.shape[0] > 0, "(d) epoch 1 has no hanging faces")
+    mesh32 = mesh.astype(torch.float32)
+    u = torch.as_tensor(np.random.default_rng(12).standard_normal(
+        (mesh.n_elements,) + (mesh.nl,) * 3), device="cuda")
+    res = 1e-3 * u.flip(0)
+    applies = torch.equal(apply_sipg(mesh32, u.float()),
+                          apply_sipg(mesh32, u.float()))
+    estimates = torch.equal(estimate_bi(mesh, u, res),
+                            estimate_bi(mesh, u, res))
+    print(f"[10] (d) adapted sphere ({mesh.n_elements} elements, "
+          f"{mesh.hc_elem.shape[0]} mortars): two generic f32 applies equal "
+          f"bit for bit: {applies}; two estimates: {estimates}")
+    check(applies and estimates, "(d) the mortar sums are not repeatable")
 
 
 def phase_curved(torch, np, card):
@@ -1111,12 +1270,23 @@ def phase_curved(torch, np, card):
     check(rel4 <= SPHERE_L4_REL, f"(b) level-4 L2 {b[1]['l2']} vs "
           f"{b64['l2']}")
     check(b[1]["l2"] * 8 <= b[0]["l2"], "(b) the error fell less than 8x")
+    # C10: level 3 again, from the same start: the same inner count
+    (b3,) = curved_run(torch, np, "b3")
+    its = [b[0]["fields"]["iterations"], b3["fields"]["iterations"]]
+    print(f"[10] (b) level-3 mixed-curved solve twice: inner iterations "
+          f"{its[0]} and {its[1]} (outer {b[0]['fields']['outer']} and "
+          f"{b3['fields']['outer']}), L2 {b[0]['l2']!r} and {b3['l2']!r}")
+    check(its[0] == its[1] and b[0]["l2"] == b3["l2"],
+          f"(b) the level-3 solve is not repeatable: {its}")
 
     # (c) the bench-row size: both applies against each other and timed
     timing = curved_apply_timing(torch, np, card)
 
     # (d) hp smooth_pred on the 7-tree sphere, held to the JAX forests
-    d = curved_run(torch, np, "d")
+    d = curved_run(torch, np, "d", keep_mesh=True)
+    repeat_on_adapted_sphere(torch, np, d[1].pop("built"))
+    for e in d:
+        e.pop("built", None)
     for k, (E, dof, hist, l2, digest) in enumerate(SPHERE_SMOOTH_PRED):
         rec = d[k]
         rel = abs(rec["l2"] - l2) / l2
@@ -1135,6 +1305,194 @@ def phase_curved(torch, np, card):
           f"runs torch operations only); phase wall "
           f"{time.perf_counter() - t_phase:.1f} s")
     return timing
+
+
+def nonlinear_run(torch, np, key):
+    """One run of phase 11 through the CLI entry: its per-level records
+    (norm line, Newton iterations, ‖F‖ history, Krylov iterations per
+    Newton step, Σ η², forest digest, host seconds of mesh build, solve,
+    estimator and AMR step) printed beside the JAX pins, and the
+    driver's result.  B1 must not run on this path."""
+    from disco4est_tpu_torch import __main__ as cli
+    from disco4est_tpu_torch.laplacian import structured as S
+
+    run = dict(NONLINEAR_RUNS[key])
+    problem = run.pop("problem")
+    text = NONLINEAR_OPTIONS.format(**run)
+    results = []
+    run_nonlinear = cli.run_nonlinear
+
+    def capture(*args, **kw):
+        results.append(run_nonlinear(*args, **kw))
+        return results[-1]
+
+    S.KERNEL_LAUNCHES = 0
+    buf = io.StringIO()
+    cli.run_nonlinear = capture
+    t0 = time.perf_counter()
+    try:
+        with amr_probe(torch, np) as epochs, contextlib.redirect_stdout(buf):
+            code = cli.main([text, f"--problem={problem}", "--device=cuda"])
+        torch.cuda.synchronize()
+    finally:
+        cli.run_nonlinear = run_nonlinear
+    wall = time.perf_counter() - t0
+    check(code == 0, f"({key}) CLI exit code {code}")
+    lines = buf.getvalue().splitlines()
+    n = run["steps"] + 1
+    check(len(results) == 1 and len(epochs) == n
+          and len(lines) == 2 * n + (n >= 2)
+          and all(len(line.split()) == 4 for line in lines[:n])
+          and all(line.startswith(f"newton level {k}:")
+                  for k, line in enumerate(lines[n:2 * n])),
+          f"({key}) unexpected CLI output {lines}")
+    result = results[0]
+    for k, (rec, line, info, row, pin) in enumerate(zip(
+            epochs, lines[:n], result.solves, result.norms.rows,
+            NONLINEAR_PINS[key])):
+        E, dof, _, value = line.split()
+        rec.update(E=int(E), dof=int(dof), value=float(value), line=line,
+                   its=info.iterations, fnorm=info.residual_norm,
+                   history=info.history, krylov=info.krylov,
+                   solve=info.seconds, eta2=row["eta2_sum"])
+        print(f"[11] ({key}) level {k}: {line}; Newton iterations "
+              f"{info.iterations} (JAX {pin[3]}), ||F|| history "
+              f"{['%.6e' % f for f in info.history]} (JAX "
+              f"{['%.6e' % f for f in pin[4]]}); Krylov iterations "
+              f"{info.krylov} (JAX {pin[5]}); sum eta2 {rec['eta2']!r} "
+              f"(JAX {pin[6]!r}); forest {rec['forest']} (JAX {pin[7]}); "
+              f"seconds: mesh {rec['mesh']:.3f}, solve {info.seconds:.3f}, "
+              f"estimate {rec.get('estimate', 0.0):.3f}, amr "
+              f"{rec.get('amr', 0.0):.3f}")
+        check((rec["E"], rec["dof"], rec["forest"]) == (pin[0], pin[1],
+                                                         pin[7]),
+              f"({key}) level {k}: {rec['E']} {rec['dof']} {rec['forest']}"
+              f", JAX {pin[0]} {pin[1]} {pin[7]}")
+        check(np.isfinite(rec["value"]) and np.isfinite(rec["eta2"]),
+              f"({key}) level {k}: {line}, eta2 {rec['eta2']}")
+    print(f"[11] ({key}) {problem}: CLI wall {wall:.2f} s, B1 launches "
+          f"{S.KERNEL_LAUNCHES}")
+    check(S.KERNEL_LAUNCHES == 0, f"({key}) B1 ran on the nonlinear path")
+    return epochs, result
+
+
+def two_punctures_digit(torch):
+    """(d) the reference's TwoPunctures point digit through the API on
+    the card: 7-tree, R0 10, R1 1000, compactified inner shell, level 0,
+    deg 1 (56 DOF), FACE_H_EQ_J_DIV_SJ_MIN_LOBATTO, Robin 1/r; the
+    Jacobian solved dense, as `tests/test_regression_digits.py:65-128`
+    does (the early Jacobian is indefinite)."""
+    from disco4est_tpu_torch.geometry.cubed_sphere import CubedSphereGeometry
+    from disco4est_tpu_torch.mesh.builder import build_mesh
+    from disco4est_tpu_torch.mesh.probe import interpolate_at_point
+    from disco4est_tpu_torch.mesh.tree import Forest
+    from disco4est_tpu_torch.problems import two_punctures as tp
+    from disco4est_tpu_torch.solvers.newton import NewtonParams, newton_solve
+
+    geom = CubedSphereGeometry("7tree", R0=10.0, R1=1000.0,
+                               compactify_inner_shell=True)
+    mesh = build_mesh(geom, Forest.uniform(geom.conn, 0), deg=1,
+                      face_h_type="j_div_sj_min_lobatto", device="cuda")
+    check(mesh.n_elements == 7 and mesh.local_nodes == 56, "(d) sizes")
+    params = tp.TwoPuncturesParams()
+    rc = mesh.boundary_values_quad(params.robin_coeff)
+    n, shape = mesh.local_nodes, (7, 2, 2, 2)
+    eye = torch.eye(n, dtype=torch.float64, device="cuda").reshape(
+        (n,) + shape)
+
+    def jac_solve(u0, rhs, rtol):
+        A = torch.stack([tp.jacobian_apply(mesh, u0, eye[i], params, rc)
+                         .reshape(-1) for i in range(n)], dim=1)
+        return torch.linalg.solve(A, rhs.reshape(-1)).reshape(shape)
+
+    res = newton_solve(
+        lambda u: tp.residual(mesh, u, params, rc), jac_solve,
+        mesh.init_field(params.initial_guess),
+        NewtonParams(atol=1e-14, max_iter=50, inner_rtol=1e-12))
+    check(res.residual_norm < 1e-13, f"(d) Newton stopped at "
+          f"{res.residual_norm}: {res.history}")
+    val, elem = interpolate_at_point(mesh, res.u, (10.0, 0.0, 0.0))
+    return val, elem, res
+
+
+def phase_nonlinear(torch, np, card):
+    """Phase 11: the nonlinear Newton–Krylov path on the card (f64 torch
+    operations; no hand-written kernel runs on it, and the three
+    kernels' counts, set to 0 before, must stay 0)."""
+    from disco4est_tpu_torch.laplacian import fused
+    from disco4est_tpu_torch.laplacian import structured as S
+    from disco4est_tpu_torch.tools import exp_kernel_design as X
+
+    print(f"[11] the nonlinear path on {card}")
+    t_phase = time.perf_counter()
+    S.KERNEL_LAUNCHES = fused.KERNEL_LAUNCHES = X.KERNEL_LAUNCHES = 0
+    launches = 0
+
+    # (a) the CDS regression: the reference's digits and JAX's forest
+    a, _ = nonlinear_run(torch, np, "a")
+    launches += S.KERNEL_LAUNCHES
+    for rec, digit, head in zip(a, CDS_DIGITS, ("64 1728 1728 9.6078621",
+                                                "288 7776 7776 3.7944365")):
+        rel = abs(rec["value"] - digit) / digit
+        print(f"[11] (a) {rec['line']}: rel to the reference digit "
+              f"{digit!r} {rel:.3e}")
+        check(rec["line"].startswith(head) and rel <= CDS_DIGIT_REL,
+              f"(a) line {rec['line']!r} vs the digit {digit!r}")
+        check(rec["fnorm"] <= 1e-12, f"(a) ||F|| {rec['fnorm']}")
+
+    # (b) the full width: CDS at deg 3 on the main path's brick
+    b, _ = nonlinear_run(torch, np, "b")
+    launches += S.KERNEL_LAUNCHES
+    check([e["E"] for e in b] == [4096, 32768]
+          and b[1]["dof"] == 2097152, "(b) sizes")
+    for k, (rec, pin) in enumerate(zip(b, NONLINEAR_PINS["b"])):
+        gap = abs(rec["value"] - pin[2])
+        print(f"[11] (b) level {k}: L2 {rec['value']!r}, JAX {pin[2]!r}, "
+              f"gap {gap:.3e} (bound {CDS_L2_ABS:.0e}); ||F|| "
+              f"{rec['fnorm']:.3e}")
+        check(gap <= CDS_L2_ABS, f"(b) level {k} L2 {rec['value']} vs JAX "
+              f"{pin[2]}")
+        check(rec["fnorm"] <= 1e-12, f"(b) level {k} ||F|| {rec['fnorm']}")
+    ratio = b[0]["value"] / b[1]["value"]
+    five = b[1]
+    print(f"[11] (b) level 4 / level 5 L2 {ratio:.2f}; level 5 on {card}: "
+          f"{five['solve'] / max(five['its'], 1):.4f} s per Newton step, "
+          f"{five['solve'] / max(sum(five['krylov']), 1) * 1e3:.3f} ms per "
+          f"Krylov iteration ({sum(five['krylov'])} iterations, "
+          f"{five['solve']:.3f} s)")
+    check(ratio >= 4.0, f"(b) the error fell {ratio:.2f}x, less than 4x")
+
+    # (c) TwoPunctures through the CLI: FCG counts printed, not pinned
+    (c,), res = nonlinear_run(torch, np, "c")
+    launches += S.KERNEL_LAUNCHES
+    pin = NONLINEAR_PINS["c"][0]
+    sum_u = float(res.u.sum())
+    rel_u = abs(sum_u - TP_SUM_U) / TP_SUM_U
+    rel_eta = abs(c["eta2"] - pin[6]) / pin[6]
+    print(f"[11] (c) Newton iterations {c['its']} (JAX {pin[3]}), ||F|| "
+          f"{c['fnorm']:.3e}; sum u {sum_u!r} (JAX {TP_SUM_U!r}, rel "
+          f"{rel_u:.3e}); sum eta2 rel to JAX {rel_eta:.3e}")
+    check(c["its"] == pin[3], f"(c) {c['its']} Newton iterations")
+    check(c["fnorm"] <= 1e-10, f"(c) ||F|| {c['fnorm']}")
+    check(rel_u <= TP_SUM_U_REL, f"(c) sum u {sum_u}")
+    check(rel_eta <= TP_ETA2_REL, f"(c) sum eta2 {c['eta2']}")
+
+    # (d) the reference's TwoPunctures point digit through the API
+    t0 = time.perf_counter()
+    val, elem, res = two_punctures_digit(torch)
+    gap = abs(val - TP_DIGIT)
+    print(f"[11] (d) 56 DOF, {res.iterations} Newton steps (||F|| "
+          f"{res.residual_norm:.3e}): u(10, 0, 0) = {val!r} from element "
+          f"{elem}, reference {TP_DIGIT!r}, gap {gap:.3e}; "
+          f"{time.perf_counter() - t0:.2f} s")
+    check(gap <= TP_DIGIT_ABS, f"(d) u(10, 0, 0) = {val}")
+
+    counts = dict(B1=launches, B2=fused.KERNEL_LAUNCHES,
+                  B3=X.KERNEL_LAUNCHES)
+    print(f"[11] kernel launches in phase 11: {counts} (the nonlinear path "
+          f"runs f64 torch operations only); phase wall "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    check(not any(counts.values()), f"a kernel ran in phase 11: {counts}")
 
 
 def main():
@@ -1158,6 +1516,7 @@ def main():
     tool_launches = phase_tools(torch)
     phase_amr(torch, np, card, level5_l2, b1[(3, 5)]["ms"])
     phase_curved(torch, np, card)
+    phase_nonlinear(torch, np, card)
 
     csrc = "disco4est_tpu_torch/csrc/"
     # B1 and B2 have one entry per timed size; each entry's launches are

@@ -12,9 +12,10 @@ prefactors from the Houston library (`d4est_estimator_bi.h:25-200`).
 R is the nodal residual Au−rhs, measured through the mass matrix exactly
 as `d4est_mesh_compute_l2_norm_sqr` does.  Conforming and boundary faces
 run as one batch over [E, 2d], the hanging mortars as one batch per
-subface.  The other side's data reach each face through the builder's
-node permutations (`perm_l`, `perm_q` for conforming faces, `hc_perm_*`
-for the mortars), so faces across reoriented trees line up point by point.
+subface, added into both sides' elements in a fixed order.  The other
+side's data reach each face through the builder's node permutations
+(`perm_l`, `perm_q` for conforming faces, `hc_perm_*` for the mortars), so
+faces across reoriented trees line up point by point.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from disco4est_tpu_torch.laplacian import sipg as _sipg
 from disco4est_tpu_torch.mesh.builder import MeshData
 from disco4est_tpu_torch.ops import tensor
 from disco4est_tpu_torch.ops.operators import DB
+from disco4est_tpu_torch.ops.rows import add_face_rows
 
 # elements per chunk of the pairwise-distance volume h (bounds the
 # [chunk, dim, n, n] temporary)
@@ -149,6 +151,7 @@ def _estimate_bi_impl(mesh: MeshData, u, residual, g, pf, vol_h):
     ce, cfc = mesh.hc_elem.long(), mesh.hc_face.long()
     uc, duc = u_f[ce, cfc], dudr_f[ce, cfc]
     h_c = mesh.face_h[ce, cfc]
+    contribs = []  # per subface b: [M]
     for b in range(K):
         u_m_sub, du_m_sub = uc, duc
         for t in range(dim - 1):
@@ -187,9 +190,13 @@ def _estimate_bi_impl(mesh: MeshData, u, residual, g, pf, vol_h):
              * (cg2 * jdu**2 + cu2 * ju**2)).reshape(M, -1),
             dim=1,
         )
-        # both sides accumulate the same mortar integral
-        eta2 = eta2.index_add(0, ce, contrib).index_add(0, fe, contrib)
-    return eta2
+        contribs.append(contrib)
+    # both sides accumulate the same mortar integral, each element's rows
+    # in the fixed order of their faces (`ops/rows.py`, ROADMAP C10)
+    contrib = torch.stack(contribs, dim=1)  # [M, K]
+    eta2 = add_face_rows(eta2, contrib.sum(1), ce, cfc, F)
+    return add_face_rows(eta2, contrib.reshape(-1), mesh.hc_fine.reshape(-1),
+                         mesh.hc_fine_face.reshape(-1), F)
 
 
 def estimate_bi(mesh: MeshData, u, residual, g=None, penalty_prefactor=2.0,

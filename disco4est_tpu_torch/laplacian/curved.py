@@ -18,9 +18,10 @@ elements in (tree, z, y, x) order:
 - the face math runs on [E, 2d, nfq] blocks, and the lift is ONE GEMM
   against a static matrix that folds VᵀW, the face placement and Dᵀ;
 - the directed faces that cross tree boundaries (domain boundaries are
-  handled in the sweep) are redone by one batch: two row gathers, the
-  static orientation transforms, the same lift GEMM, and one `index_add_`
-  of the rows into their elements.
+  handled in the sweep) are redone by one batch: two row gathers and the
+  static orientation transforms; each such face has one row, which is
+  written into its own (element, face) place of the face terms before
+  the lift, so nothing is accumulated out of order (ROADMAP C10).
 
 It is the apply of the f32 inner solve of the curved mixed solve
 (`make_inner_solve`), in torch operations as the JAX package runs it in
@@ -71,6 +72,8 @@ class TreeStructured:
     it_sj: torch.Tensor  # [RT, nfq_flat] own-side factors
     it_sigq: torch.Tensor  # [RT, nfq_flat]
     it_drstn: torch.Tensor  # [RT, dim, nfq_flat]
+    it_row: torch.Tensor  # [RT] own face row lex_elem·2d + face (E·2d for
+    #                       the padding row)
 
     @property
     def n_elements(self) -> int:
@@ -182,6 +185,7 @@ def build_tree_structured(mesh: MeshData):
         it_code=idx(it_code),
         it_sj=rows(sj, (nfq_flat,)), it_sigq=rows(sigq, (nfq_flat,)),
         it_drstn=rows(drstn, (dim, nfq_flat)),
+        it_row=idx(it_elem * nfaces + it_face),
     )
 
 
@@ -252,10 +256,11 @@ def apply_tree_structured(ts: TreeStructured, mesh: MeshData, u_lex):
     `mesh` supplies the volume factors: pass the lex-permuted mesh of
     `permute_mesh_lex`.
 
-    The crossing faces add into their elements with `index_add`, where
-    the JAX version multiplies by a one-hot [E, RT] matrix (a TPU
-    scatter-add lowers to a serial loop); the sum is the same, and in f32
-    its order of summation differs."""
+    The crossing faces' rows go into their own places of the face terms
+    before the one lift GEMM, where the JAX version lifts them apart and
+    adds them with a one-hot [E, RT] product (a TPU scatter-add lowers to
+    a serial loop): the sum is the same up to rounding, and the same on
+    every run."""
     dim, deg, deg_quad = ts.dim, ts.deg, ts.deg_quad
     nq = deg_quad + 1
     E = ts.n_elements
@@ -310,15 +315,13 @@ def apply_tree_structured(ts: TreeStructured, mesh: MeshData, u_lex):
     jump = (u_q - u_p) * m
     t13 = -0.5 * sj * (dn - dn_p) * m + sj * sigq * jump
     t2 = -0.5 * (c2 * sj * jump)[:, :, None] * drstn
-    Z = torch.cat([t13[:, :, None], t2], dim=2).reshape(E, -1)
-    Au = Au + Z @ ops["W"]
+    Z = torch.cat([t13[:, :, None], t2], dim=2)  # [E, 2d, 1+dim, nfq]
 
-    # ---- crossing faces: one batch, index_add accumulation -------------
+    # ---- crossing faces: one batch, written into their own face rows ---
     packed = torch.cat([packed, packed.new_zeros((1, 2 * nfq_flat))])
     RT = ts.n_crossing
     fshape_q = (nq,) * (dim - 1)
-    rows_c = torch.clamp(ts.it_elem, max=E - 1)
-    own = packed[rows_c * nfaces + ts.it_face]
+    own = packed[ts.it_row]
     nbr = packed[ts.it_nbr_row].reshape((RT, 2) + fshape_q)
     nbr = _sipg._apply_orient_codes(nbr, ts.it_code[:, None], ts.it_codes,
                                     dim)
@@ -332,10 +335,12 @@ def apply_tree_structured(ts: TreeStructured, mesh: MeshData, u_lex):
            + sj_r * ts.it_sigq.to(dtype) * jump)
     t2 = -0.5 * ts.it_drstn.to(dtype) * (sj_r * jump)[:, None]
     Zr = torch.cat([t13[:, None], t2], dim=1).reshape(RT, -1)
-    # place each row into its face's block of the lift GEMM's input
-    Zbig = torch.cat([Zr * (ts.it_face == f).to(dtype)[:, None]
-                      for f in range(nfaces)], dim=1)
-    Au = Au.index_add(0, rows_c, Zbig @ ops["W"])
+    # the sweep left these rows zero (masked); each (element, face) has one
+    # row, so writing them is order-free, and one GEMM lifts all faces
+    width = Zr.shape[1]
+    Z = torch.cat([Z.reshape(E * nfaces, width), Z.new_zeros((1, width))])
+    Z = Z.index_copy(0, ts.it_row, Zr)[:-1]
+    Au = Au + Z.reshape(E, -1) @ ops["W"]
     return Au.reshape(u_lex.shape)
 
 

@@ -43,6 +43,7 @@ from disco4est_tpu_torch.laplacian.fast import (
 from disco4est_tpu_torch.mesh.builder import MeshData, vol_interp, vol_weights
 from disco4est_tpu_torch.ops import tensor
 from disco4est_tpu_torch.ops.operators import DB
+from disco4est_tpu_torch.ops.rows import add_face_rows
 
 
 def apply_sipg(mesh: MeshData, u, g=None, neighbors: str = "full",
@@ -390,9 +391,10 @@ def _hanging_lift_mats(deg: int, dim: int):
 
 def _lift_rows(elems, faces, vt13, vt2, E, deg, dim, dtype):
     """Volume accumulation of dynamic-face mortar rows: per-face masked
-    GEMMs against the static lift matrices, then one `index_add_` onto the
-    element axis (the JAX version's one-hot matmul, which avoids TPU
-    scatters)."""
+    GEMMs against the static lift matrices, then each element's rows
+    summed in the fixed order of their faces (`ops.rows.add_face_rows`;
+    the JAX version's one-hot matmul, where an `index_add` would run as
+    atomics on CUDA, ROADMAP C10).  Each (element, face) has one row."""
     nl = deg + 1
     nfl = nl ** (dim - 1)
     nv = nl**dim
@@ -407,7 +409,7 @@ def _lift_rows(elems, faces, vt13, vt2, E, deg, dim, dtype):
         m = (faces == f).to(dtype)[:, None]
         vol = vol + (m * z13) @ W13[f] + (m * z2) @ W2[f]
     out = torch.zeros((E, nv), dtype=dtype, device=dev)
-    out.index_add_(0, elems.long(), vol)
+    out = add_face_rows(out, vol, elems, faces, 2 * dim)
     return out.reshape((E,) + (nl,) * dim)
 
 

@@ -37,7 +37,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile, record_function
 
 from disco4est_tpu_torch import driver
-from disco4est_tpu_torch.__main__ import LINEAR_PROBLEMS
+from disco4est_tpu_torch.problems.poisson import SinxProblem
 from disco4est_tpu_torch.util.config import Options
 
 OPTIONS = """
@@ -125,7 +125,7 @@ def device_summary(events):
 
 def _solve(opts, device):
     with contextlib.redirect_stdout(io.StringIO()):
-        res = driver.run_poisson(opts, LINEAR_PROBLEMS["sinx"], device=device)
+        res = driver.run_poisson(opts, SinxProblem, device=device)
     return res.solves[0]
 
 

@@ -17,7 +17,12 @@
 - the curved path on the card: the mixed-curved solve of a 7-tree sphere
   at level 2 equals the CPU run's L2 to 1e-9 relative, and the f32
   tree-structured apply of a compactified 13-tree sphere equals the f64
-  general apply to 1e-5 relative.
+  general apply to 1e-5 relative;
+- C10 on the card: two f32 tree-structured applies, two generic f32
+  applies on an adapted sphere and two estimates of one input are equal
+  bit for bit;
+- the nonlinear path on the card: the CDS regression's level-2 Newton
+  solve equals the CPU run's counts and L2.
 
 Needs a CUDA device and `nvcc`; every test skips without a device (the
 kernels have no CPU mode).  This file imports neither JAX nor the JAX
@@ -339,3 +344,74 @@ def test_tree_structured_apply_on_the_card_matches_general(cuda_device):
         ts.astype(torch.float32), lex32, curved.to_lex(ts, u.float())))
     assert got.dtype == torch.float32
     assert _rel(got, ref) <= 1e-5
+
+
+@pytest.mark.gpu
+def test_curved_sums_are_repeatable_on_the_card(cuda_device):
+    """ROADMAP C10: the crossing faces of the tree-structured apply, the
+    mortar rows of the general apply and the estimator's mortar terms sum
+    in a fixed order, so two calls on one input are equal bit for bit."""
+    from disco4est_tpu_torch.estimators.bi import estimate_bi
+    from disco4est_tpu_torch.geometry.cubed_sphere import CubedSphereGeometry
+    from disco4est_tpu_torch.laplacian import curved
+    from disco4est_tpu_torch.laplacian.sipg import apply_sipg
+
+    geom = CubedSphereGeometry("7tree", R0=1.0, R1=2.0)
+    forest = Forest.uniform(geom.conn, 2)
+    mesh = build_mesh(geom, forest, deg=3, face_h_type="j_div_sj_quad",
+                      device=cuda_device)
+    ts = curved.build_tree_structured(mesh)
+    ts32 = ts.astype(torch.float32)
+    lex32 = curved.permute_mesh_lex(ts, mesh).astype(torch.float32)
+    u = torch.as_tensor(np.random.default_rng(7).standard_normal(
+        (mesh.n_elements, 4, 4, 4)), dtype=torch.float32,
+        device=cuda_device)
+    assert torch.equal(curved.apply_tree_structured(ts32, lex32, u),
+                       curved.apply_tree_structured(ts32, lex32, u))
+
+    flags = np.zeros(forest.n_elements, bool)
+    flags[::7] = True
+    mesh = build_mesh(geom, forest.refine(flags).balance(), deg=2,
+                      face_h_type="j_div_sj_quad", device=cuda_device)
+    assert mesh.hc_elem.shape[0] > 0
+    mesh32 = mesh.astype(torch.float32)
+    u = torch.as_tensor(np.random.default_rng(8).standard_normal(
+        (mesh.n_elements, 3, 3, 3)), device=cuda_device)
+    assert torch.equal(apply_sipg(mesh32, u.float()),
+                       apply_sipg(mesh32, u.float()))
+    res = 1e-3 * u.flip(0)
+    assert torch.equal(estimate_bi(mesh, u, res), estimate_bi(mesh, u, res))
+
+
+@pytest.mark.gpu
+def test_nonlinear_cds_on_the_card_matches_the_cpu(cuda_device):
+    """The CDS regression's first level (brick, level 2, deg 2, Newton
+    with CG) on the card equals the CPU run: the same Newton and Krylov
+    counts, L2 to 1e-9 relative."""
+    from disco4est_tpu_torch import driver
+    from disco4est_tpu_torch.util.config import Options
+
+    text = """
+[initial_mesh]
+min_level = 2
+region0_deg = 2
+[mesh_parameters]
+face_h_type = FACE_H_EQ_TREE_H
+[amr]
+scheme = none
+[geometry]
+name = brick
+[d4est_solver_newton]
+snes_atol = 1e-12
+[d4est_solver_krylov_petsc]
+ksp_type = cg
+"""
+    runs = [driver.run_nonlinear(Options.load(text),
+                                 driver.CDSProblem(Options.load(text)),
+                                 device=d) for d in ("cuda", "cpu")]
+    card, cpu = runs
+    assert card.solves[0].iterations == cpu.solves[0].iterations == 3
+    assert card.solves[0].krylov == cpu.solves[0].krylov
+    a, b = card.norms.rows[0]["L_2"], cpu.norms.rows[0]["L_2"]
+    assert abs(a - b) <= 1e-9 * b, (a, b)
+    assert abs(a - 9.607862111733e-06) <= 1e-8 * 9.607862111733e-06
