@@ -123,7 +123,42 @@ and `nvcc`.  Phases, one or more lines each; any failure exits non-zero:
        within 1e-6 of JAX's (the FCG counts are printed, not pinned);
    (d) the reference's TwoPunctures digit through the API (level 0, deg
        1, 56 DOF, dense Jacobian solves): u(10, 0, 0) within 1e-12 of
-       0.0004250131568938.
+       0.0004250131568938;
+12. the preconditioners (f64 torch operations; the three kernels' counts
+   must stay 0), through the CLI entry, one line per level with the norm
+   and solve lines, the Krylov counts beside the JAX pins of
+   `refcheck/precond_smoke_pins.py` (within 25 % + 2: the solves stop at
+   the f64 floor or a Newton forcing term, `PRECOND_COUNT_SLACK`), the
+   forest digest, the CLI wall and the peak device memory:
+   (a) sinx, `pc_type = multigrid` (Chebyshev smoother, CG bottom, FCG),
+       deg 3, uniform_h from level 4 to 5 (2,097,152 DOF): the level-5 L2
+       within `LEVEL5_REL` of JAX, the set-up seconds (hierarchy,
+       mg_setup), the solve, the ms per V-cycle and the FCG count beside
+       phase 5's unpreconditioned one;
+   (b) `pc_type = cheby` and `schwarz` (num_nodes_overlap 1,
+       subdomain_iter 15) at level 4 (the replicated Schwarz mesh holds
+       110,592 elements; level 5's 884,736 would take the phase past its
+       budget, ROADMAP A13b), the L2 against phase 9 (a)'s JAX pin (JAX
+       gives no Schwarz count at this size: hours on the CPU), the ms
+       per Schwarz apply; then the multigrid plugins schwarz_overlap /
+       reuse_smoother, cheby / cheby, block Schwarz / cg (level 2, deg 2)
+       and none / cheby (one element) against JAX's L2;
+   (c) the reference's Schwarz regression trajectory through the API
+       (13-tree, deg 4, num_nodes_overlap 4, 400 subdomain iterations):
+       all 10 iterates within the bounds of
+       `tests/test_regression_digits.py:193-266`, the digit 0.15228638;
+   (d) hp smooth_pred with multigrid (phase 9 (c)'s configuration): JAX's
+       forests and L2, the mixed-degree epochs on the hp V-cycle;
+   (e) Newton-MG (the frozen-u0 blocks restricted through the hierarchy):
+       CDS at deg 3, level 4 -> 5, L2 within 2e-12 of phase 11 (b)'s pins;
+       TwoPunctures (phase 11 (c)'s options on the definite pointwise
+       penalty: with volume/area h its Jacobian is indefinite) from level
+       1 to 2, ||F|| <= 1e-10, Σ u within 1e-8 of the JAX driver's
+       unpreconditioned Newton (its Newton-MG diverges, ROADMAP C13), the
+       seconds beside phase 11 (c)'s;
+   (f) repeatability: two level-5 V-cycles, two hp V-cycles and two
+       Schwarz applies of one input are equal bit for bit (fixed-order
+       sums, C10).
 
 Then one JSON line of the kernels (`{"kernels": [...]}`; B1 and B2 once
 per timed size, each with the launches of a run at that size: phase 5
@@ -417,6 +452,97 @@ TP_DIGIT = 0.0004250131568938
 TP_DIGIT_ABS = 1e-12
 
 
+# phase 12, the preconditioners: the options of
+# `refcheck/precond_smoke_pins.py`, which prints the JAX pins (CPU)
+PRECOND_RUNS = {
+    # run: [initial_mesh] min_level, region0_deg, [mesh_parameters]
+    # max_degree, [amr] scheme, num_of_amr_steps, pc_type, [multigrid]
+    # plugins
+    "a": (4, 3, 3, "uniform_h", 1, "multigrid", "mg_smoother_cheby",
+          "mg_bottom_solver_cg"),
+    "cheby": (4, 3, 3, "uniform_h", 0, "cheby", "mg_smoother_cheby",
+              "mg_bottom_solver_cg"),
+    "schwarz": (4, 3, 3, "uniform_h", 0, "schwarz", "mg_smoother_cheby",
+                "mg_bottom_solver_cg"),
+    "mg_so_reuse": (2, 2, 2, "uniform_h", 0, "multigrid",
+                    "mg_smoother_schwarz", "mg_bottom_solver_reuse_smoother"),
+    "mg_none_cheby": (0, 3, 3, "uniform_h", 0, "multigrid",
+                      "mg_smoother_none", "mg_bottom_solver_cheby"),
+    "mg_cheby_cheby": (2, 2, 2, "uniform_h", 0, "multigrid",
+                       "mg_smoother_cheby", "mg_bottom_solver_cheby"),
+    "mg_block": (2, 2, 2, "uniform_h", 0, "multigrid", "schwarz",
+                 "mg_bottom_solver_cg"),
+    "d": (3, 2, 4, "smooth_pred", 3, "multigrid", "mg_smoother_cheby",
+          "mg_bottom_solver_cg"),
+}
+PRECOND_NONLINEAR_RUNS = {
+    "cds": dict(NONLINEAR_RUNS["b"], bottom="mg_bottom_solver_cg"),
+    # phase 11 (c)'s TwoPunctures from level 1 to 2 on the pointwise
+    # penalty FACE_H_EQ_J_DIV_SJ_QUAD.  With phase 11 (c)'s volume/area h
+    # and prefactor 2 the 7-tree Jacobian is indefinite (40-step Lanczos
+    # λmin −33 at level 1, −54 at level 2, CPU; +0.75 and +1.46 with the
+    # pointwise penalty), and multigrid FCG hits any cap from the second
+    # Newton step on (ROADMAP C13)
+    "tp_jq": dict(NONLINEAR_RUNS["c"], steps=1,
+                  face_h="FACE_H_EQ_J_DIV_SJ_QUAD",
+                  bottom="mg_bottom_solver_cg"),
+}
+# Σ u of "tp_jq"'s levels 1 and 2 from the JAX driver's unpreconditioned
+# Newton (`refcheck/precond_smoke_pins.py tp_jq`; its Newton-MG diverges,
+# C13): the same discrete solutions, to snes_atol
+TP_JQ_SUM_U = (2.638814952924732, 30.286447816946193)
+# that JAX run's FCG iterations per Newton step, levels 1 and 2
+TP_JQ_JAX_FCG = ([148, 162, 262, 311, 386], [834, 464, 961, 1234, 1297])
+# per level: elements, DOF, L2 (TwoPunctures: ‖F‖), Krylov iterations (one
+# per Newton step on the nonlinear runs), forest digest
+PRECOND_PINS = {
+    "a": [(4096, 262144, 1.6362252130761418e-08, [16], "5998b6866d35963d"),
+          (32768, 2097152, 4.4836489567434693e-10, [10],
+           "ae8908dee7501857")],
+    "cheby": [(4096, 262144, 1.636225211304714e-08, [38],
+               "5998b6866d35963d")],
+    "mg_so_reuse": [(64, 1728, 0.0019464036376919606, [14],
+                     "8885996e5b8fc009")],
+    "mg_none_cheby": [(1, 64, 0.015802814670054347, [4],
+                       "2c34ce1df23b838c")],
+    "mg_cheby_cheby": [(64, 1728, 0.00194640363769212, [16],
+                        "8885996e5b8fc009")],
+    "mg_block": [(64, 1728, 0.0019464036376921168, [14],
+                  "8885996e5b8fc009")],
+    "d": [(512, 13824, 0.0002051858857341537, [133], "f7a6b09c773b2f8f"),
+          (1520, 41040, 0.00010726299926582452, [17], "2079ff7c8709a510"),
+          (4040, 258560, 1.807130544341783e-05, [45], "d8ca7162cc7144ae"),
+          (4096, 262144, 1.3531952590494491e-05, [15], "5998b6866d35963d")],
+    "cds": [(4096, 262144, 2.636641425114692e-07, [2, 4, 4],
+             "5998b6866d35963d"),
+            (32768, 2097152, 5.29062285606966e-08, [3, 4],
+             "ae8908dee7501857")],
+}
+# the linear runs' L2 against JAX's: solves to the atol 5e-15 floor by
+# different paths spread by ~1e-9 relative at level 4 (cheby against
+# multigrid, JAX)
+PRECOND_L2_REL = 1e-8
+# Krylov counts against JAX's: the solves stop at the f64 floor or a
+# Newton forcing term, and where the 10-step Lanczos λmax falls short of
+# the true one (by 10 % on (d)'s level-3 brick at deg 2) the Chebyshev
+# smoother amplifies the top modes and the count moves with rounding
+# (JAX 133, the port on the CPU 114)
+PRECOND_COUNT_SLACK = 0.25
+TP_PHASE11_SECONDS = 26.45  # phase 11 (c)'s solve as PERF.md §5 records it
+SCHWARZ_DIGIT_REF = [  # `tests/test_regression_digits.py:193-266`
+    (11.029811440762897, 0.152286388792538),
+    (8.478311301990601, 0.030824293450190),
+    (2.004390543675700, 0.006973281993397),
+    (0.389316550646736, 0.001661047758643),
+    (0.076353915252118, 0.000406316495572),
+    (0.015850377445150, 0.000101033279923),
+    (0.003495337566975, 0.000025513862237),
+    (0.000810831051224, 0.000006726003428),
+    (0.000195525821702, 0.000002099298702),
+    (0.000048528414143, 0.000000952418865),
+]
+
+
 # the options of `refcheck/amr_smoke_pins.py`, with the solve settings
 # above
 AMR_OPTIONS = SINX_OPTIONS.replace(
@@ -425,6 +551,16 @@ AMR_OPTIONS = SINX_OPTIONS.replace(
     "scheme = {scheme}\nnum_of_amr_steps = {steps}\npercentile = 25\n"
     "gamma_h = 10.0\ngamma_p = 0.1\ngamma_n = 1.0")
 assert AMR_OPTIONS.count("{scheme}") == 1
+PRECOND_OPTIONS = AMR_OPTIONS.replace(
+    "use_mixed_precision = {mixed}",
+    "use_mixed_precision = {mixed}\npc_type = {pc}\n\n[multigrid]\n"
+    "smoother_name = {smoother}\nbottom_solver_name = {bottom}\n\n"
+    "[d4est_solver_schwarz]\nnum_nodes_overlap = 1\nsubdomain_iter = 15")
+# a Krylov cap of 1000 a Jacobian solve: a working multigrid takes
+# 2-40 FCG iterations there, and a diverging one ends inside the phase
+PRECOND_NONLINEAR_OPTIONS = NONLINEAR_OPTIONS.replace(
+    "ksp_max_it = 10000", "ksp_max_it = 1000\npc_type = multigrid\n\n"
+    "[multigrid]\nbottom_solver_name = {bottom}")
 
 
 def fail(msg):
@@ -712,7 +848,8 @@ def phase_real_size(torch):
           f"{LEVEL5_INNER} +- {LEVEL5_INNER_REL:.0%} expected")
     check(runs[("0", 1)][1] == 0 and runs[("0", 0)][1] == 0,
           "use_structured = 0 launched the kernel")
-    return launches, runs[("auto", 1)][2]
+    return (launches, runs[("auto", 1)][2],
+            int(runs[("0", 0)][0]["iterations"]))
 
 
 def phase_fused(torch, np, card):
@@ -1493,6 +1630,269 @@ def phase_nonlinear(torch, np, card):
           f"runs f64 torch operations only); phase wall "
           f"{time.perf_counter() - t_phase:.1f} s")
     check(not any(counts.values()), f"a kernel ran in phase 11: {counts}")
+    return c["krylov"], c["solve"]
+
+
+def precond_run(torch, np, key, nonlinear=False):
+    """One run of phase 12 through the CLI entry: its per-level records
+    (norm line, solve or Newton line, Krylov iterations, forest digest,
+    mesh seconds) printed beside the JAX pins of
+    `refcheck/precond_smoke_pins.py`, the CLI wall and the peak device
+    memory.  Returns the records, the driver's result and the Σ u of
+    each level's solution."""
+    from disco4est_tpu_torch import __main__ as cli
+    from disco4est_tpu_torch import driver
+
+    if nonlinear:
+        run = dict(PRECOND_NONLINEAR_RUNS[key])
+        problem = run.pop("problem")
+        text = PRECOND_NONLINEAR_OPTIONS.format(**run)
+        name = "run_nonlinear"
+    else:
+        level, deg, maxd, scheme, steps, pc, sm, bt = PRECOND_RUNS[key]
+        text = PRECOND_OPTIONS.format(
+            level=level, deg=deg, max_degree=maxd, scheme=scheme,
+            steps=steps, pc=pc, smoother=sm, bottom=bt,
+            use_structured="auto", mixed=1)
+        problem, name = "sinx", "run_poisson"
+    results, sums = [], []
+    run_fn, newton = getattr(cli, name), driver.newton_solve
+
+    def capture(*args, **kw):
+        results.append(run_fn(*args, **kw))
+        return results[-1]
+
+    def summing_newton(*args, **kw):
+        res = newton(*args, **kw)
+        sums.append(float(res.u.sum()))
+        return res
+
+    buf = io.StringIO()
+    setattr(cli, name, capture)
+    driver.newton_solve = summing_newton
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        with amr_probe(torch, np) as epochs, contextlib.redirect_stdout(buf):
+            code = cli.main([text, f"--problem={problem}", "--device=cuda"])
+        torch.cuda.synchronize()
+    finally:
+        setattr(cli, name, run_fn)
+        driver.newton_solve = newton
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(code == 0, f"({key}) CLI exit code {code}")
+    lines = buf.getvalue().splitlines()
+    result = results[0]
+    n = len(result.solves)
+    check(len(epochs) == n and len(lines) == 2 * n + (n >= 2)
+          and all(len(line.split()) == 4 for line in lines[:n]),
+          f"({key}) unexpected CLI output {lines}")
+    pins = PRECOND_PINS.get(key, [])
+    for k, (rec, line, info) in enumerate(zip(epochs, lines[:n],
+                                              result.solves)):
+        E, dof, _, value = line.split()
+        counts = info.krylov if nonlinear else [info.iterations]
+        rec.update(E=int(E), dof=int(dof), value=float(value), line=line,
+                   counts=counts, info=info)
+        pin = pins[k] if k < len(pins) else None
+        print(f"[12] ({key}) level {k}: {line}; {lines[n + k]}; Krylov "
+              f"{counts} (JAX {pin[3] if pin else 'no pin'}); forest "
+              f"{rec['forest']}; mesh {rec['mesh']:.3f} s")
+        check(np.isfinite(rec["value"]), f"({key}) level {k}: {line}")
+        if pin is not None:
+            check((rec["E"], rec["dof"], rec["forest"])
+                  == (pin[0], pin[1], pin[4]),
+                  f"({key}) level {k}: {rec['E']} {rec['dof']} "
+                  f"{rec['forest']}, JAX {pin[0]} {pin[1]} {pin[4]}")
+            check(len(counts) == len(pin[3]) and all(
+                abs(a - b) <= PRECOND_COUNT_SLACK * b + 2
+                for a, b in zip(counts, pin[3])),
+                f"({key}) level {k}: Krylov {counts}, JAX {pin[3]}")
+        if not nonlinear:
+            check(info.residual_norm <= 5e-15 and not info.fallback,
+                  f"({key}) level {k}: {lines[n + k]}")
+    print(f"[12] ({key}) CLI wall {wall:.2f} s, peak device memory "
+          f"{peak:.2f} GiB")
+    return epochs, result, sums
+
+
+def schwarz_digit(torch):
+    """(c) the reference's Schwarz trajectory through the API on the card:
+    13-tree sphere R0 1/3, R1 2/3, R2 1, level 0, deg 4,
+    FACE_H_EQ_J_DIV_SJ_QUAD, num_nodes_overlap 4, 400 subdomain CG
+    iterations; 10 iterates u ← u + M(b − A u) held to the reference's
+    ‖r‖² and L2 (`tests/test_regression_digits.py:193-266`)."""
+    from disco4est_tpu_torch.geometry.cubed_sphere import CubedSphereGeometry
+    from disco4est_tpu_torch.laplacian.sipg import (
+        apply_sipg,
+        build_rhs_with_strong_bc,
+    )
+    from disco4est_tpu_torch.mesh.builder import build_mesh
+    from disco4est_tpu_torch.mesh.tree import Forest
+    from disco4est_tpu_torch.solvers.schwarz_overlap import (
+        build_overlapping_schwarz,
+    )
+
+    geom = CubedSphereGeometry("13tree", R0=1.0 / 3.0, R1=2.0 / 3.0, R2=1.0)
+    mesh = build_mesh(geom, Forest.uniform(geom.conn, 0), deg=4, deg_quad=4,
+                      face_h_type="j_div_sj_quad", device="cuda")
+    poly = lambda x, y, z: torch.exp(x + y + z) * (x * x + y * y + z * z - 1)
+    neglap = lambda x, y, z: -torch.exp(x + y + z) * (
+        3.0 + x * (4.0 + 3.0 * x) + y * (4.0 + 3.0 * y) + z * (4.0 + 3.0 * z))
+    rhs = build_rhs_with_strong_bc(mesh, mesh.init_field(neglap),
+                                   mesh.boundary_values(poly))
+    sol = mesh.init_field(poly)
+    M = build_overlapping_schwarz(mesh, num_nodes_overlap=4, iterations=400)
+    u = torch.zeros_like(rhs)
+    out = []
+    for i, (r2_ref, l2_ref) in enumerate(SCHWARZ_DIGIT_REF):
+        r = rhs - apply_sipg(mesh, u)
+        r2 = float(torch.sum(r * r))
+        u = u + M(r)
+        l2 = float(torch.sum(mesh.l2_norm_sqr(torch.abs(sol - u))))
+        out.append((r2, l2))
+        check(abs(r2 - r2_ref) < max(1e-11 * r2_ref, 2e-15)
+              and abs(l2 - l2_ref) < max(1e-9 * l2_ref, 2e-15),
+              f"(c) iterate {i}: |r|^2 {r2!r} (ref {r2_ref!r}), L2 {l2!r} "
+              f"(ref {l2_ref!r})")
+    return out
+
+
+def _wall_ms(torch, fn, n):
+    """Host wall milliseconds per call of `n` calls behind a device
+    synchronize (a V-cycle is thousands of launches: host-bound)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def phase_precond(torch, np, card, fcg5, tp11):
+    """Phase 12: the preconditioners on the card through the CLI entry
+    (f64 torch operations; B1, B2 and B3 must not launch)."""
+    from disco4est_tpu_torch.laplacian import fused
+    from disco4est_tpu_torch.laplacian import structured as S
+    from disco4est_tpu_torch.laplacian.hp import apply_sipg_hp, own_mask
+    from disco4est_tpu_torch.laplacian.sipg import apply_sipg
+    from disco4est_tpu_torch.solvers import multigrid as mg
+    from disco4est_tpu_torch.tools import exp_kernel_design as X
+
+    print(f"[12] the preconditioners on {card}")
+    t_phase = time.perf_counter()
+    S.KERNEL_LAUNCHES = fused.KERNEL_LAUNCHES = X.KERNEL_LAUNCHES = 0
+
+    # (a) sinx with multigrid, level 4 -> 5 at deg 3
+    a, res_a, _ = precond_run(torch, np, "a")
+    l2 = a[1]["value"]
+    rel = abs(l2 - LEVEL5_L2) / LEVEL5_L2
+    hier = res_a.precond
+    info = a[1]["info"]
+    r = hier.meshes[0].init_field(
+        lambda *c: sum(torch.sin(3 * x) for x in c))
+    zero = torch.zeros_like(r)
+    vms = _wall_ms(torch, lambda: mg.v_cycle(hier, apply_sipg, r, zero), 5)
+    print(f"[12] (a) level 5: L2 {l2!r} (rel to JAX {rel:.3e}); "
+          f"{hier.n_levels} levels; set-up {info.setup}; solve "
+          f"{info.seconds:.3f} s, {info.iterations} FCG iterations (phase 5's "
+          f"unpreconditioned f64 FCG: {fcg5}); {vms:.2f} ms per V-cycle")
+    check(rel <= LEVEL5_REL, f"(a) level-5 L2 {l2} vs JAX {LEVEL5_L2}")
+    check(all(e["info"].path == "fcg-mg" for e in a), "(a) path")
+    v1 = mg.v_cycle(hier, apply_sipg, r, zero)
+    check(torch.equal(v1, mg.v_cycle(hier, apply_sipg, r, zero)),
+          "(f) two level-5 V-cycles differ")
+
+    # (b) Chebyshev and Schwarz at level 4, then the MG plugins
+    b_cheby, _, _ = precond_run(torch, np, "cheby")
+    b_sw, res_sw, _ = precond_run(torch, np, "schwarz")
+    level4 = AMR_PINS["a"][0][3]
+    for name, rec in (("cheby", b_cheby[0]), ("schwarz", b_sw[0])):
+        rel = abs(rec["value"] - level4) / level4
+        print(f"[12] (b) {name}: L2 rel to JAX {rel:.3e}, "
+              f"{rec['counts']} iterations, solve {rec['info'].seconds:.3f} "
+              f"s, set-up {rec['info'].setup}")
+        check(rel <= AMR_REL, f"(b) {name} level-4 L2 {rec['value']}")
+    M = res_sw.precond
+    rr = torch.sin(torch.arange(M.shape[0] * 64, dtype=torch.float64,
+                                device="cuda")).reshape(M.shape)
+    sms = _wall_ms(torch, lambda: M(rr), 3)
+    print(f"[12] (b) one Schwarz apply at level 4: {sms:.2f} ms "
+          f"({M.rep_mesh.n_elements} replicated elements, "
+          f"{M.iterations} subdomain CG iterations)")
+    check(torch.equal(M(rr), M(rr)), "(f) two Schwarz applies differ")
+    for key in ("mg_so_reuse", "mg_none_cheby", "mg_cheby_cheby",
+                "mg_block"):
+        (rec,), _, _ = precond_run(torch, np, key)
+        pin = PRECOND_PINS[key][0]
+        rel = abs(rec["value"] - pin[2]) / pin[2]
+        check(rel <= PRECOND_L2_REL, f"({key}) L2 {rec['value']} vs JAX "
+              f"{pin[2]} (rel {rel})")
+
+    # (c) the Schwarz regression digit on the card
+    t0 = time.perf_counter()
+    traj = schwarz_digit(torch)
+    print(f"[12] (c) Schwarz digit: first L2 {traj[0][1]:.15f} (reference "
+          f"0.152286388792538), last |r|^2 {traj[-1][0]!r}; 10 iterates "
+          f"within the bounds, {time.perf_counter() - t0:.2f} s")
+    check("0.15228638" in f"{traj[0][1]:.15f}", "(c) the digit")
+
+    # (d) hp smooth_pred with multigrid (phase 9 (c)'s configuration)
+    d, res_d, _ = precond_run(torch, np, "d")
+    check(any(e["info"].path == "fcg-mg-hp" for e in d),
+          "(d) no mixed-degree epoch ran the hp V-cycle")
+    for k, (rec, pin) in enumerate(zip(d, PRECOND_PINS["d"])):
+        rel = abs(rec["value"] - pin[2]) / pin[2]
+        check(rel <= PRECOND_L2_REL, f"(d) level {k} L2 {rec['value']} vs "
+              f"JAX {pin[2]}")
+    hh = res_d.precond
+    check(hh.hp, "(d) the last hierarchy is not hp")
+    m0 = hh.meshes[0]
+    rh = m0.init_field(lambda *c: sum(torch.sin(3 * x) for x in c)) \
+        * own_mask(m0)
+    zh = torch.zeros_like(rh)
+    check(torch.equal(mg.v_cycle(hh, apply_sipg_hp, rh, zh),
+                      mg.v_cycle(hh, apply_sipg_hp, rh, zh)),
+          "(f) two hp V-cycles differ")
+
+    # (e) Newton-MG: CDS at deg 3, level 4 -> 5; TwoPunctures level 1 -> 2
+    cds, _, _ = precond_run(torch, np, "cds", nonlinear=True)
+    for k, (rec, pin) in enumerate(zip(cds, NONLINEAR_PINS["b"])):
+        gap = abs(rec["value"] - pin[2])
+        info = rec["info"]
+        print(f"[12] (e) CDS level {k}: L2 gap to phase 11 (b)'s JAX pin "
+              f"{gap:.3e} (bound {CDS_L2_ABS:.0e}); Newton {info.iterations} "
+              f"(JAX {pin[3]}), FCG {info.krylov} (unpreconditioned CG in "
+              f"phase 11: {pin[5]}), {info.seconds:.3f} s")
+        check(gap <= CDS_L2_ABS, f"(e) CDS level {k} L2 {rec['value']}")
+        check(info.residual_norm <= 1e-12, f"(e) CDS level {k} ||F||")
+    tq, _, sums = precond_run(torch, np, "tp_jq", nonlinear=True)
+    check(len(tq) == 2, "(e) TwoPunctures: two levels expected")
+    for k, (rec, pin_u, jax_fcg) in enumerate(zip(tq, TP_JQ_SUM_U,
+                                                  TP_JQ_JAX_FCG)):
+        info = rec["info"]
+        rel_u = abs(sums[k] - pin_u) / abs(pin_u)
+        print(f"[12] (e) TwoPunctures, pointwise penalty, level {k + 1}: "
+              f"{info.iterations} Newton steps, ||F|| "
+              f"{info.residual_norm:.3e}, FCG {info.krylov} (JAX "
+              f"unpreconditioned {jax_fcg}), sum u {sums[k]!r} (JAX "
+              f"{pin_u!r}, rel {rel_u:.3e}), {info.seconds:.2f} s (phase "
+              f"11 (c), volume/area h, level 1 unpreconditioned: FCG "
+              f"{tp11[0]}, {tp11[1]:.2f} s; PERF.md: {TP_PHASE11_SECONDS} s)")
+        check(info.residual_norm <= 1e-10, f"(e) TP level {k + 1} ||F|| "
+              f"{info.residual_norm}")
+        check(rel_u <= TP_SUM_U_REL,
+              f"(e) TP level {k + 1} sum u {sums[k]} vs JAX {pin_u}")
+
+    counts = dict(B1=S.KERNEL_LAUNCHES, B2=fused.KERNEL_LAUNCHES,
+                  B3=X.KERNEL_LAUNCHES)
+    print(f"[12] kernel launches in phase 12: {counts} (the preconditioned "
+          f"paths run f64 torch operations only); phase wall "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    check(not any(counts.values()), f"a kernel ran in phase 12: {counts}")
 
 
 def main():
@@ -1510,13 +1910,14 @@ def main():
     phase_build()
     b1_abs, b1 = phase_kernel(torch, np, card)
     phase_regression(torch)
-    b1_launches, level5_l2 = phase_real_size(torch)
+    b1_launches, level5_l2, fcg5 = phase_real_size(torch)
     b2_abs, b2 = phase_fused(torch, np, card)
     b3_abs, b3 = phase_axis(torch, np, card)
     tool_launches = phase_tools(torch)
     phase_amr(torch, np, card, level5_l2, b1[(3, 5)]["ms"])
     phase_curved(torch, np, card)
-    phase_nonlinear(torch, np, card)
+    tp11 = phase_nonlinear(torch, np, card)
+    phase_precond(torch, np, card, fcg5, tp11)
 
     csrc = "disco4est_tpu_torch/csrc/"
     # B1 and B2 have one entry per timed size; each entry's launches are

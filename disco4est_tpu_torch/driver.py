@@ -3,7 +3,7 @@
 Port of `disco4est_tpu/driver.py` (`geometry_from_options`,
 `run_poisson`, and for the nonlinear problems `run_nonlinear` with
 `CDSProblem`, `OkendonProblem` and `TwoPuncturesProblem`, below) for
-`pc_type = none` on bricks
+every `pc_type` on bricks
 and cubed spheres (7-tree and 13-tree, compactified shells included): the
 AMR loop of the reference's problem drivers
 (`Problems/Poisson/poisson_sinx_uniform.c:142`),
@@ -27,7 +27,12 @@ solve takes one of these paths, as in the JAX driver:
   hanging faces, curved adapted meshes);
 - if that solve stagnates above the refinement floor, the plain f64
   solver (the "f64 fallback");
-- mixed precision off: plain f64 CG or FCG (`ksp_type`).
+- mixed precision off: plain f64 CG or FCG (`ksp_type`);
+- a preconditioner (`[d4est_solver_krylov_petsc] pc_type`, rebuilt each
+  epoch; on mixed-degree epochs on the hp operator): f64 FCG with one
+  multigrid V-cycle (`fcg-mg`, the `[multigrid]` smoother and bottom
+  plugins) or one overlapping Schwarz apply (`fcg-schwarz`), or f64 CG
+  with 8 Chebyshev steps (`cg-cheby`).
 
 `use_structured = auto` means "on when the device is CUDA" (the JAX
 driver: "on when the backend is a TPU").  Everything runs on the device
@@ -69,6 +74,7 @@ from disco4est_tpu_torch.laplacian.hp import (
 )
 from disco4est_tpu_torch.laplacian.nonlinear import (
     apply_mass_coeff,
+    assemble_fof_blocks,
     fof_lin_coeff,
 )
 from disco4est_tpu_torch.laplacian.sipg import (
@@ -84,9 +90,23 @@ from disco4est_tpu_torch.problems import (
 )
 from disco4est_tpu_torch.quadrature.quadrature import Quadrature
 from disco4est_tpu_torch.solvers.cg import cg_solve
+from disco4est_tpu_torch.solvers.cheby import cheby_smooth
+from disco4est_tpu_torch.solvers.eigs import cg_eigs
 from disco4est_tpu_torch.solvers.fcg import fcg_solve
 from disco4est_tpu_torch.solvers.mixed import mixed_refine_solve
+from disco4est_tpu_torch.solvers.multigrid import (
+    BOTTOMS,
+    SMOOTHERS,
+    MGParams,
+    build_hierarchy,
+    mg_setup,
+    set_matrix_operator,
+    v_cycle,
+)
 from disco4est_tpu_torch.solvers.newton import NewtonParams, newton_solve
+from disco4est_tpu_torch.solvers.schwarz_overlap import (
+    build_overlapping_schwarz,
+)
 from disco4est_tpu_torch.util.config import Options
 
 _ON = ("1", "true", "yes", "on")
@@ -168,21 +188,72 @@ def vol_h_from_options(opts: Options) -> str:
     return table[name]
 
 
+_SMOOTHER_MAP = {
+    "mg_smoother_cheby": "cheby",
+    "mg_smoother_schwarz": "schwarz_overlap",
+    "mg_smoother_none": "none",
+}
+_BOTTOM_MAP = {
+    "mg_bottom_solver_cg": "cg",
+    "mg_bottom_solver_cheby": "cheby",
+    "mg_bottom_solver_reuse_smoother": "reuse_smoother",
+}
+
+
+def mg_plugin_names(opts: Options):
+    """[multigrid] smoother/bottom plugins, in the short names or the
+    reference's `smoother_name = mg_smoother_*` vocabulary
+    (`d4est_solver_multigrid.c` factories); an unknown name raises."""
+    sm = opts.get("multigrid", "smoother_name",
+                  opts.get("multigrid", "smoother", "cheby"))
+    bt = opts.get("multigrid", "bottom_solver_name",
+                  opts.get("multigrid", "bottom_solver", "cg"))
+    sm = _SMOOTHER_MAP.get(sm, sm)
+    bt = _BOTTOM_MAP.get(bt, bt)
+    if sm not in SMOOTHERS:
+        raise ValueError(f"unknown [multigrid] smoother {sm!r}")
+    if bt not in BOTTOMS:
+        raise ValueError(f"unknown [multigrid] bottom solver {bt!r}")
+    return sm, bt
+
+
+def mg_params_from_options(opts: Options) -> MGParams:
+    """The `[mg_smoother_cheby]` bounds options and the plugins."""
+    sm, bt = mg_plugin_names(opts)
+    return MGParams(
+        n_smooth=opts.get_int("mg_smoother_cheby", "cheby_imax", 8),
+        eigs_cg_iters=opts.get_int("mg_smoother_cheby",
+                                   "cheby_eigs_cg_imax", 10),
+        lmax_lmin_ratio=opts.get_float(
+            "mg_smoother_cheby", "cheby_eigs_lmax_lmin_ratio", 30.0),
+        smoother=sm, bottom=bt,
+    )
+
+
+def _sin3_seed(mesh: MeshData):
+    """The Lanczos start vector of the bounds estimates: Σ_d sin(3 x_d)."""
+    return mesh.init_field(lambda *c: sum(torch.sin(3 * x) for x in c))
+
+
 @dataclasses.dataclass
 class SolveInfo:
     """What one level's linear solve did."""
 
     path: str  # "mixed-structured" | "mixed-curved" | "mixed" | "cg" |
-    #            "fcg" | "cg-hp"
+    #            "fcg" | "cg-hp" | "fcg-mg" | "fcg-schwarz" | "cg-cheby"
+    #            (preconditioned paths: "-hp" on mixed-degree epochs)
     outer_iterations: int  # refinement steps (0 for a plain Krylov solve)
     iterations: int  # inner f32 iterations, or the plain solve's
     residual_norm: float
     rhs_norm: float  # ‖b‖, the scale of the fallback test 1e-10·(1 + ‖b‖)
     fallback: bool  # True when the f64 fallback solve ran
-    seconds: float
+    seconds: float  # the solve, preconditioner set-up excluded
+    setup: dict = dataclasses.field(default_factory=dict)
+    #              preconditioner set-up seconds by step (hierarchy,
+    #              mg_setup, schwarz, eigs); empty without one
 
     def line(self, level: int) -> str:
-        return (
+        out = (
             f"solve level {level}: path={self.path} "
             f"outer={self.outer_iterations} iterations={self.iterations} "
             f"residual={self.residual_norm:.3e} "
@@ -190,6 +261,10 @@ class SolveInfo:
             f"fallback={'yes' if self.fallback else 'no'} "
             f"seconds={self.seconds:.3f}"
         )
+        if self.setup:
+            out += " setup=" + ",".join(f"{k}:{v:.3f}"
+                                        for k, v in self.setup.items())
+        return out
 
 
 @dataclasses.dataclass
@@ -200,6 +275,8 @@ class DriverResult:
     solves: list  # [SolveInfo] per level
     eta2_history: list = dataclasses.field(default_factory=list)
     #                    [np.ndarray η² per element] per smooth_pred marking
+    precond: object = None  # the last epoch's preconditioner state
+    #     (`MGHierarchy`, `OverlappingSchwarz` or the Chebyshev bounds)
 
 
 def _refuse_unported(opts: Options):
@@ -207,11 +284,14 @@ def _refuse_unported(opts: Options):
     pc_type = opts.get("d4est_solver_krylov_petsc", "pc_type", "none")
     if pc_type not in ("none", "schwarz", "multigrid", "cheby"):
         raise ValueError(f"unknown pc_type: {pc_type!r}")
-    if pc_type != "none":
+    if (pc_type == "schwarz"
+            and opts.get_int("d4est_solver_schwarz", "subdomain_chunk", 0) > 0):
         raise NotImplementedError(
-            f"pc_type = {pc_type}: preconditioners are not ported yet "
-            "(ROADMAP A13)"
+            "[d4est_solver_schwarz] subdomain_chunk > 0: the K-slot "
+            "Schwarz variant is not ported yet (ROADMAP A13b)"
         )
+    # with any pc_type: the JAX driver drops to one device where it cannot
+    # distribute (ROADMAP C6); the port refuses instead
     enable = str(opts.get("parallelism", "enable", "auto")).lower()
     if enable in _ON or opts.get_int("parallelism", "n_devices", 1) > 1:
         raise NotImplementedError(
@@ -288,6 +368,23 @@ def run_poisson(opts: Options, problem, *, device) -> DriverResult:
         use_structured == "auto" and device.type == "cuda"
     )
     face_h_type = face_h_from_options(opts)
+    pc_type = opts.get("d4est_solver_krylov_petsc", "pc_type", "none")
+    pc_opts = dict(
+        pc_type=pc_type,
+        mg_params=(mg_params_from_options(opts) if pc_type == "multigrid"
+                   else None),
+        # the coarse levels take the fine mesh's penalty options (C12)
+        mesh_kwargs=dict(penalty_prefactor=prefactor,
+                         penalty_fcn=penalty_fcn, face_h_type=face_h_type),
+        overlap=opts.get_int("d4est_solver_schwarz", "num_nodes_overlap", 1),
+        subdomain_iter=opts.get_int("d4est_solver_schwarz", "subdomain_iter",
+                                    15),
+        eigs_iters=opts.get_int("mg_smoother_cheby", "cheby_eigs_cg_imax",
+                                10),
+        ratio=opts.get_float("mg_smoother_cheby",
+                             "cheby_eigs_lmax_lmin_ratio", 30.0),
+    )
+    precond = None
 
     forest = Forest.uniform(geom.conn, level)
     # hp state: per-element degrees and the storage degree (grows as
@@ -311,7 +408,9 @@ def run_poisson(opts: Options, problem, *, device) -> DriverResult:
         rhs = adjoint_to_own(mesh, rhs_max) if mixed else rhs_max
         # the transferred field starts the solve when the shapes match
         x0 = torch.zeros_like(f) if u is None or u.shape != f.shape else u
-        if mixed:
+        if pc_type != "none":
+            info, u, precond = _solve_pc(mesh, rhs, x0, hp=mixed, **pc_opts)
+        elif mixed:
             info, u = _solve_hp(mesh, rhs, x0)
         else:
             info, u = _solve(mesh, rhs, x0, use_mixed=use_mixed,
@@ -366,7 +465,7 @@ def run_poisson(opts: Options, problem, *, device) -> DriverResult:
         forest, deg_e, storage = new_forest, new_deg_e, new_storage
 
     return DriverResult(mesh=mesh, u=u, norms=norms, solves=solves,
-                        eta2_history=eta2_hist)
+                        eta2_history=eta2_hist, precond=precond)
 
 
 def _sync(device):
@@ -389,6 +488,56 @@ def _solve_hp(mesh: MeshData, rhs, x0):
         seconds=time.perf_counter() - t0,
     )
     return info, res.x
+
+
+def _solve_pc(mesh: MeshData, rhs, x0, *, hp, pc_type, mg_params,
+              mesh_kwargs, overlap, subdomain_iter, eigs_iters, ratio):
+    """A preconditioned epoch (JAX `_linear_solve_fcg_mg(_hp)`,
+    `_linear_solve_fcg_schwarz(_hp)`, `_linear_solve_cg_cheby(_hp)`): the
+    preconditioner is set up on this epoch's mesh, then f64 FCG (multigrid,
+    Schwarz) or CG (Chebyshev) runs on the operator, the hp one on
+    mixed-degree epochs.  Returns (info, x, preconditioner state)."""
+    op = apply_sipg_hp if hp else apply_sipg
+    A = lambda v: op(mesh, v)
+    setup = {}
+
+    def step(name, fn):
+        _sync(mesh.device)
+        t = time.perf_counter()
+        out = fn()
+        _sync(mesh.device)
+        setup[name] = time.perf_counter() - t
+        return out
+
+    if pc_type == "multigrid":
+        state = step("hierarchy", lambda: build_hierarchy(
+            mesh, mg_params, mesh_kwargs=mesh_kwargs))
+        step("mg_setup", lambda: mg_setup(state, op, _sin3_seed))
+        M = lambda r: v_cycle(state, op, r, torch.zeros_like(r))
+        solver, path = fcg_solve, "fcg-mg"
+    elif pc_type == "schwarz":
+        state = M = step("schwarz", lambda: build_overlapping_schwarz(
+            mesh, num_nodes_overlap=overlap, iterations=subdomain_iter,
+            hp=hp))
+        solver, path = fcg_solve, "fcg-schwarz"
+    else:  # cheby: bounds from CG-Lanczos on the rhs, 8 steps per apply
+        lmax = step("eigs", lambda: cg_eigs(A, rhs, eigs_iters))[1]
+        state = (lmax / ratio, lmax)
+        M = lambda r: cheby_smooth(A, r, torch.zeros_like(r), state[0],
+                                   state[1], 8)
+        solver, path = cg_solve, "cg-cheby"
+    _sync(mesh.device)
+    t0 = time.perf_counter()
+    res = solver(A, rhs, x0=x0, M=M, atol=5e-15, rtol=1e-20,
+                 max_iter=10000)
+    _sync(mesh.device)
+    info = SolveInfo(
+        path=path + ("-hp" if hp else ""), outer_iterations=0,
+        iterations=res.iterations, residual_norm=res.residual_norm,
+        rhs_norm=float(torch.linalg.norm(rhs.reshape(-1))), fallback=False,
+        seconds=time.perf_counter() - t0, setup=setup,
+    )
+    return info, res.x, state
 
 
 def _solve(mesh: MeshData, rhs, x0, *, use_mixed, structured_on, ksp,
@@ -586,6 +735,17 @@ class TwoPuncturesProblem:
         return apply_sipg(mesh, v, robin_coeff=bc)
 
 
+def _level_operators(problem, hier, bc):
+    """`A(mesh, v)` for every level of `hier`: the problem's linear part
+    with its boundary data evaluated on that level's mesh (Robin
+    coefficients; the Dirichlet problems' operator takes none)."""
+    if problem.bc_type != "robin":
+        return lambda m, v: problem.linear_apply(m, v, bc)
+    coeff = {id(m): problem.robin_coeff_values(m) for m in hier.meshes}
+    coeff[id(hier.meshes[0])] = bc
+    return lambda m, v: problem.linear_apply(m, v, coeff[id(m)])
+
+
 @dataclasses.dataclass
 class NewtonInfo:
     """What one level's Newton solve did."""
@@ -649,9 +809,11 @@ def run_nonlinear(opts: Options, problem, *, device) -> DriverResult:
         max_degree=deg,  # h-only marking in the nonlinear driver
         initial_pred=opts.get_float("amr", "initial_pred", 0.0),
     )
-    krylov = fcg_solve if ksp == "fcg" else cg_solve
+    pc_type = opts.get("d4est_solver_krylov_petsc", "pc_type", "none")
+    mg_params = mg_params_from_options(opts)
     face_h_type = face_h_from_options(opts)
     robin = problem.bc_type == "robin"
+    precond = None
 
     forest = Forest.uniform(geom.conn, level)
     norms = NormLog()
@@ -675,6 +837,32 @@ def run_nonlinear(opts: Options, problem, *, device) -> DriverResult:
             u = mesh.init_field(problem.initial_guess)
 
         krylov_its = []
+        # the preconditioner of this level (JAX `driver.py:1399-1439`):
+        # multigrid takes its frozen-u0 blocks, bounds and smoother state
+        # in each Jacobian solve; Schwarz and Chebyshev act on the linear
+        # part alone.  The multigrid levels and the Chebyshev bounds take
+        # the problem's own linear operator, Robin data included; the JAX
+        # driver uses the Dirichlet `apply_sipg` there, and its Newton-MG
+        # FCG diverges on TwoPunctures (ROADMAP C13)
+        hier = schwarz_M = cheby_bounds = None
+        linear = lambda m, v: problem.linear_apply(m, v, bc)
+        if pc_type == "multigrid":
+            hier = build_hierarchy(mesh, mg_params, mesh_kwargs=dict(
+                penalty_prefactor=prefactor, penalty_fcn=penalty_fcn,
+                face_h_type=face_h_type))
+            linear = _level_operators(problem, hier, bc)
+            precond = hier
+        elif pc_type == "schwarz":
+            precond = schwarz_M = build_overlapping_schwarz(
+                mesh,
+                num_nodes_overlap=opts.get_int("d4est_solver_schwarz",
+                                               "num_nodes_overlap", 1),
+                iterations=opts.get_int("d4est_solver_schwarz",
+                                        "subdomain_iter", 15))
+        elif pc_type == "cheby":
+            _, lmax = cg_eigs(lambda w: linear(mesh, w), _sin3_seed(mesh),
+                              10)
+            precond = cheby_bounds = (lmax / 30.0, lmax)
 
         def jac_solve(u0, rhs, rtol):
             # J(u0) v = A v + M[f'(u0) ⊙ v], the frozen coefficient
@@ -686,7 +874,24 @@ def run_nonlinear(opts: Options, problem, *, device) -> DriverResult:
                 return (problem.linear_apply(mesh, v, bc)
                         + apply_mass_coeff(mesh, coeff, v))
 
-            res = krylov(J, rhs, atol=0.0, rtol=rtol, max_iter=ksp_iters)
+            M, krylov = None, fcg_solve if ksp == "fcg" else cg_solve
+            if pc_type == "multigrid":
+                # Newton-MG: the frozen-u0 blocks Galerkin-restricted
+                # through the hierarchy, then the bounds re-estimated with
+                # them in the level operators
+                set_matrix_operator(
+                    hier, assemble_fof_blocks(mesh, u0, problem.dfof()))
+                mg_setup(hier, linear, _sin3_seed)
+                M = lambda r: v_cycle(hier, linear, r, torch.zeros_like(r))
+                krylov = fcg_solve
+            elif pc_type == "schwarz":
+                M, krylov = schwarz_M, fcg_solve
+            elif pc_type == "cheby":
+                M = lambda r: cheby_smooth(
+                    lambda v: linear(mesh, v), r, torch.zeros_like(r),
+                    cheby_bounds[0], cheby_bounds[1], 8)
+            res = krylov(J, rhs, M=M, atol=0.0, rtol=rtol,
+                         max_iter=ksp_iters)
             krylov_its.append(res.iterations)
             return res.x
 
@@ -734,4 +939,4 @@ def run_nonlinear(opts: Options, problem, *, device) -> DriverResult:
         forest = new_forest
 
     return DriverResult(mesh=mesh, u=u, norms=norms, solves=solves,
-                        eta2_history=eta2_hist)
+                        eta2_history=eta2_hist, precond=precond)

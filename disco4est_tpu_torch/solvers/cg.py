@@ -28,18 +28,19 @@ def cg_solve(
     b,
     x0=None,
     *,
+    M: Callable | None = None,
     atol: float = 1e-15,
     rtol: float = 1e-15,
     max_iter: int = 10000,
 ) -> CGResult:
-    """Solve A x = b.  `A` is a matrix-free callable on tensors shaped
-    like `b`.  Unpreconditioned: the JAX solver's `M` comes with the
-    preconditioners (ROADMAP A13)."""
+    """Solve A x = b.  `A` and the optional preconditioner `M` are
+    matrix-free callables on tensors shaped like `b`."""
     x = torch.zeros_like(b) if x0 is None else x0
 
     r = b - A(x)
-    p = r
-    rz = _dot(r, r)
+    z = r if M is None else M(r)
+    p = z
+    rz = _dot(r, z)
     bnorm = float(torch.sqrt(_dot(b, b)))
     tol2 = max(atol, rtol * bnorm) ** 2
 
@@ -49,9 +50,10 @@ def cg_solve(
         alpha = rz / _dot(p, Ap)
         x = x + alpha * p
         r = r - alpha * Ap
-        rz_new = _dot(r, r)
+        z = r if M is None else M(r)
+        rz_new = _dot(r, z)
         beta = rz_new / rz
-        p = r + beta * p
+        p = z + beta * p
         rz = rz_new
         k += 1
     return CGResult(x=x, iterations=k,

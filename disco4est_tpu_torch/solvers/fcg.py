@@ -29,20 +29,21 @@ def fcg_solve(
     b,
     x0=None,
     *,
+    M: Callable | None = None,
     atol: float = 1e-15,
     rtol: float = 1e-20,
     max_iter: int = 1000,
 ) -> FCGResult:
-    """Flexible CG (Notay variant, one-direction truncation).
-    Unpreconditioned: the JAX solver's `M` comes with the preconditioners
-    (ROADMAP A13)."""
+    """Flexible CG (Notay variant, one-direction truncation) with the
+    optional, possibly variable, preconditioner `M`."""
     x = torch.zeros_like(b) if x0 is None else x0
+    M = M or (lambda v: v)
 
     bnorm = float(torch.sqrt(_dot(b, b)))
     tol2 = max(atol, rtol * bnorm) ** 2
 
     r = b - A(x)
-    p = r
+    p = M(r)
     Ap = A(p)
     k = 0
     while k < max_iter and float(_dot(r, r)) > tol2:
@@ -50,11 +51,12 @@ def fcg_solve(
         alpha = _dot(r, p) / pAp
         x = x + alpha * p
         r = r - alpha * Ap
+        z = M(r)
         # flexible step: orthogonalize against the previous direction
-        Ar = A(r)
-        beta = -_dot(Ar, p) / pAp
-        p = r + beta * p
-        Ap = Ar + beta * Ap
+        Az = A(z)
+        beta = -_dot(Az, p) / pAp
+        p = z + beta * p
+        Ap = Az + beta * Ap
         k += 1
     return FCGResult(x=x, iterations=k,
                      residual_norm=float(torch.sqrt(_dot(r, r))))

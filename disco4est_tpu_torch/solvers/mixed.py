@@ -48,6 +48,7 @@ def mixed_refine_solve(
     *,
     inner_solve: Callable | None = None,
     A32: Callable | None = None,
+    M32: Callable | None = None,
     inner_rtol: float = 1e-5,
     inner_max_iter: int = 2000,
     atol: float = 5e-15,
@@ -59,14 +60,15 @@ def mixed_refine_solve(
     `A` is the f64 matrix-free operator.  The inner correction solve is
     either `inner_solve(r32) -> (d32, iterations)`
     (`structured.make_inner_solve` has this shape) or, by default, CG on
-    `A32` (defaults to `A` evaluated on f32 inputs)."""
+    `A32` (defaults to `A` evaluated on f32 inputs), preconditioned by
+    `M32` if given."""
     x = torch.zeros_like(b) if x0 is None else x0
     if inner_solve is None:
         A32_ = A32 or (lambda v: A(v.to(b.dtype)).to(F32))
 
         def inner_solve(r32):
             res = cg_solve(
-                A32_, r32, atol=0.0, rtol=inner_rtol,
+                A32_, r32, M=M32, atol=0.0, rtol=inner_rtol,
                 max_iter=inner_max_iter,
             )
             return res.x, res.iterations

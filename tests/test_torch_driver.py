@@ -316,10 +316,14 @@ def test_cli_cuda_without_card_raises(capsys):
 # The cubed spheres and the pointwise J_DIV_SJ_QUAD penalty, which the
 # first and third cases refused until ROADMAP A11, now run: they are held
 # to the JAX driver in `tests/test_torch_curved_driver.py`.  Those cases
-# now refuse the geometries left for ROADMAP A11b.
+# now refuse the geometries left for ROADMAP A11b.  The preconditioners,
+# which the second case refused until A13, run too
+# (`tests/test_torch_precond_driver.py`); it now refuses the K-slot
+# Schwarz variant left for A13b.
 @pytest.mark.parametrize("edit,item", [
     (("name = brick", "name = disk"), "A11"),
-    (("ksp_atol = 5e-15", "ksp_atol = 5e-15\npc_type = multigrid"), "A13"),
+    (("ksp_atol = 5e-15", "ksp_atol = 5e-15\npc_type = schwarz\n"
+      "[d4est_solver_schwarz]\nsubdomain_chunk = 4"), "A13"),
     (("name = brick", "name = hole_in_a_box"), "A11"),
     (("[quadrature]", "[parallelism]\nenable = 1\n[quadrature]"), "A15"),
     (("[quadrature]", "[checkpoint]\nprefix = ck\n[quadrature]"), "A14"),
@@ -364,6 +368,10 @@ def test_port_never_imports_jax():
                  ("quadrature", "compactified.py"),
                  ("laplacian", "nonlinear.py"), ("solvers", "newton.py"),
                  ("mesh", "probe.py"), ("ops", "rows.py"),
+                 ("solvers", "eigs.py"), ("solvers", "cheby.py"),
+                 ("solvers", "schwarz.py"), ("solvers", "multigrid.py"),
+                 ("solvers", "schwarz_overlap.py"), ("solvers", "gmres.py"),
+                 ("solvers", "diagnostics.py"),
                  ("problems", "constant_density_star.py"),
                  ("problems", "okendon.py"), ("problems", "two_punctures.py"),
                  ("problems", "multi_puncture.py"),

@@ -22,7 +22,11 @@
   applies on an adapted sphere and two estimates of one input are equal
   bit for bit;
 - the nonlinear path on the card: the CDS regression's level-2 Newton
-  solve equals the CPU run's counts and L2.
+  solve equals the CPU run's counts and L2;
+- the preconditioners on the card (fixed-order sums, no `index_add`): two
+  V-cycles (h and hp hierarchies) and two overlapping Schwarz applies of
+  one input are equal bit for bit, and a `pc_type = multigrid` sinx solve
+  equals the CPU run's L2 to 1e-9 relative.
 
 Needs a CUDA device and `nvcc`; every test skips without a device (the
 kernels have no CPU mode).  This file imports neither JAX nor the JAX
@@ -415,3 +419,73 @@ ksp_type = cg
     a, b = card.norms.rows[0]["L_2"], cpu.norms.rows[0]["L_2"]
     assert abs(a - b) <= 1e-9 * b, (a, b)
     assert abs(a - 9.607862111733e-06) <= 1e-8 * 9.607862111733e-06
+
+
+def _sin_seed(m):
+    return m.init_field(lambda *c: sum(torch.sin(3 * x) for x in c))
+
+
+@pytest.mark.gpu
+def test_preconditioners_repeat_bit_for_bit_on_the_card(cuda_device):
+    """Two V-cycles (an h and an hp hierarchy) and two overlapping Schwarz
+    applies of one input are equal bit for bit on the card: the coarse
+    sums and the Schwarz combine run in a fixed slot order."""
+    from disco4est_tpu_torch.laplacian.hp import apply_sipg_hp, own_mask
+    from disco4est_tpu_torch.laplacian.sipg import apply_sipg
+    from disco4est_tpu_torch.solvers import multigrid as mg
+    from disco4est_tpu_torch.solvers.schwarz_overlap import (
+        build_overlapping_schwarz,
+    )
+
+    geom = BrickGeometry(dim=3)
+    forest = Forest.uniform(geom.conn, 2)
+    flags = np.zeros(forest.n_elements, bool)
+    flags[:8] = True
+    hanging = forest.refine(flags).balance()
+    deg_e = np.where(np.arange(hanging.n_elements) % 3 == 0, 3, 2)
+    for mesh, op in (
+        (build_mesh(geom, forest, deg=3, device="cuda"), apply_sipg),
+        (build_mesh(geom, hanging, deg=3, deg_e=deg_e, device="cuda"),
+         apply_sipg_hp),
+    ):
+        h = mg.build_hierarchy(mesh)
+        mg.mg_setup(h, op, _sin_seed)
+        r = torch.randn((mesh.n_elements, 4, 4, 4), dtype=torch.float64,
+                        device="cuda", generator=torch.Generator(
+                            "cuda").manual_seed(0)) * own_mask(mesh)
+        zero = torch.zeros_like(r)
+        assert torch.equal(mg.v_cycle(h, op, r, zero),
+                           mg.v_cycle(h, op, r, zero))
+    M = build_overlapping_schwarz(mesh, num_nodes_overlap=1, iterations=15)
+    assert torch.equal(M(r), M(r))
+
+
+@pytest.mark.gpu
+def test_multigrid_solve_on_the_card_matches_the_cpu(cuda_device):
+    """sinx at level 3, deg 3, `pc_type = multigrid` (FCG with one V-cycle)
+    on the card equals the CPU run: the same FCG count, L2 to 1e-9.  (At
+    deg 2 from level 3 the 10-step Lanczos λmax falls 10 % short, the
+    Chebyshev smoother amplifies the top modes and the count moves with
+    rounding: 131 on the card against 114 on the CPU.)"""
+    from disco4est_tpu_torch import driver
+    from disco4est_tpu_torch.problems.poisson import SinxProblem
+    from disco4est_tpu_torch.util.config import Options
+
+    text = """
+[initial_mesh]
+min_level = 3
+region0_deg = 3
+[amr]
+scheme = uniform_h
+[geometry]
+name = brick
+[d4est_solver_krylov_petsc]
+ksp_type = fcg
+pc_type = multigrid
+"""
+    card, cpu = (driver.run_poisson(Options.load(text), SinxProblem,
+                                    device=d) for d in ("cuda", "cpu"))
+    assert card.solves[0].path == cpu.solves[0].path == "fcg-mg"
+    assert card.solves[0].iterations == cpu.solves[0].iterations
+    a, b = card.norms.rows[0]["L_2"], cpu.norms.rows[0]["L_2"]
+    assert abs(a - b) <= 1e-9 * b, (a, b)

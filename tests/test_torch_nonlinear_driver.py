@@ -17,7 +17,7 @@ package's tests pin (f64, CPU), without rerunning the JAX trajectories:
 - BoyenYork and MultiPuncture as `tests/test_breadth.py:68-113`;
 - TwoPunctures, Okendon and Stamm through the port's CLI;
 - the options the nonlinear path does not port raise, naming their
-  ROADMAP item (A13, A14, A15).
+  ROADMAP item (A13b, A14, A15).
 """
 
 import contextlib
@@ -510,11 +510,15 @@ NONLINEAR_OPTIONS = CDS_OPTIONS.replace("num_of_amr_steps = 1",
                                         "num_of_amr_steps = 0")
 
 
+# The preconditioners run since ROADMAP A13 (held to the JAX driver in
+# `tests/test_torch_precond_driver.py`); the first two cases now refuse the
+# K-slot Schwarz variant left for A13b.
 @pytest.mark.parametrize("edit,item", [
-    (("ksp_max_it = 10000", "ksp_max_it = 10000\npc_type = multigrid"),
-     "A13"),
-    (("ksp_max_it = 10000", "ksp_max_it = 10000\npc_type = schwarz"),
-     "A13"),
+    (("ksp_max_it = 10000", "ksp_max_it = 10000\npc_type = schwarz\n"
+      "[d4est_solver_schwarz]\nsubdomain_chunk = 4"), "A13"),
+    (("ksp_max_it = 10000", "ksp_max_it = 10000\npc_type = schwarz\n"
+      "[d4est_solver_schwarz]\nsubdomain_chunk = 64\n"
+      "num_nodes_overlap = 2"), "A13"),
     (("[quadrature]", "[parallelism]\nenable = 1\n[quadrature]"), "A15"),
     (("[quadrature]", "[checkpoint]\nprefix = ck\n[quadrature]"), "A14"),
     (("[quadrature]", "[checkpoint]\ncheckpoint_every_n_krylov_its = 5\n"
