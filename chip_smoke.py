@@ -158,7 +158,50 @@ and `nvcc`.  Phases, one or more lines each; any failure exits non-zero:
        seconds beside phase 11 (c)'s;
    (f) repeatability: two level-5 V-cycles, two hp V-cycles and two
        Schwarz applies of one input are equal bit for bit (fixed-order
-       sums, C10).
+       sums, C10);
+13. the disk and misc geometries, the derivatives and the K-slot Schwarz
+   (torch operations; the three kernels' counts must stay 0), through the
+   CLI entry, one line per epoch with its norm line, solve path, outer and
+   inner iterations, fallback, host seconds of mesh build and solve, ms
+   per iteration and peak device memory, beside the JAX pins of
+   `refcheck/geometry_smoke_pins.py`:
+   (a) sinx on the 5-tree disk at full width (deg 3,
+       FACE_H_EQ_J_DIV_SJ_QUAD), uniform_h from level 5 to 6 (5,120 ->
+       20,480 elements, 81,920 -> 327,680 DOF; cut in depth from level 7,
+       1,310,720 DOF: that epoch and a plain f64 FCG solve of it took 83 s
+       of the phase's ~150 s budget on an H100): every epoch through
+       `mixed-curved` with no fallback, both levels within `LEVEL5_REL`
+       of JAX, the L2 falling at least 8x; level 6 as a plain f64 FCG
+       solve, held to JAX too and printed with its true residual (the
+       plain solve stops on its recursive residual, which drifts below
+       the true one); level 6 once more with the JAX driver's
+       400-iteration inner cap, printed (ROADMAP C14); then the JAX CLI's
+       uniform_p disk (level 3, deg 3 -> 5) line by line;
+   (b) the trapezoid and the pizza-half at level 4, uniform_p from deg 2
+       to 4: JAX's counts and L2, the deg-4 error below 0.1x the deg-2 one;
+   (c) the Lorentzian on the hole-in-a-box, deg 3, level 1 -> 3 (393,216
+       DOF): every level within `LEVEL5_REL` of JAX, the L2 falling every
+       level; level 3 as a plain f64 FCG solve, as in (a);
+   (d) `gradient` and `hessian_trace` on the level-5 disk and a level-2
+       7-tree sphere, equal to the port's CPU run to 1e-12 (the hessian to
+       the larger of 1e-12 and its own rounding: the CPU's change under a
+       2^-52 relative perturbation of u, 1.1e-11 on the level-5 disk, as
+       the second differences amplify rounding ~1/h²); the hessian
+       trace of sinx's deg-3 interpolant against −2π²u on the level-5 and
+       level-6 disks, its error falling at least 3x;
+   (e) the K-slot Schwarz: (i) phase 12 (b)'s run with `subdomain_chunk =
+       1024`: its FCG count within 1 of phase 12 (b)'s, the L2 within
+       `LEVEL5_REL`, the ms per apply and peak memory beside it; (ii) one
+       K-slot apply (chunk 4096) against one materialized apply (884,736
+       replicated elements) on the level-5 brick at deg 3, to 1e-12, with
+       build seconds, apply ms and the peak memory of each, the K-slot one
+       the lower; (iii) the CDS regression with `pc_type = schwarz`,
+       materialized and K-slot (chunk 16), cut in depth to its level 2
+       (the K-slot run of its adapted level 1, 288 elements in 18 chunks,
+       took 161 s on an H100, launch-bound): equal norm lines, Newton and
+       Krylov counts (both variants sum the subdomain dots as one
+       pairwise tree and the corrections slot by slot in one order);
+       (iv) two K-slot applies of one input bit-equal.
 
 Then one JSON line of the kernels (`{"kernels": [...]}`; B1 and B2 once
 per timed size, each with the launches of a run at that size: phase 5
@@ -541,6 +584,92 @@ SCHWARZ_DIGIT_REF = [  # `tests/test_regression_digits.py:193-266`
     (0.000195525821702, 0.000002099298702),
     (0.000048528414143, 0.000000952418865),
 ]
+
+# phase 13: the disk and misc geometries (the options of
+# `refcheck/geometry_smoke_pins.py`, whose JAX runs print the pins: CPU,
+# numpy 2.0.2)
+GEOMETRY_OPTIONS = """
+[initial_mesh]
+min_level = {level}
+region0_deg = {deg}
+region0_deg_quad_inc = 0
+
+[mesh_parameters]
+face_h_type = {face_h}
+max_degree = {max_degree}
+
+[flux]
+name = sipg
+sipg_penalty_prefactor = 2.0
+sipg_penalty_fcn = maxp_sqr_over_minh
+
+[amr]
+scheme = {scheme}
+num_of_amr_steps = {steps}
+
+[geometry]
+{geometry}
+
+[d4est_solver_krylov_petsc]
+ksp_type = fcg
+ksp_atol = 5e-15
+use_structured = auto
+use_mixed_precision = {mixed}
+
+[quadrature]
+name = legendre
+"""
+DISK = "name = disk\nr0 = 0.5\nr1 = 1.0"
+HOLE = "name = hole_in_a_box\ninner_radius = 1.0\nbox_length = 10.0"
+QUAD_H = "FACE_H_EQ_J_DIV_SJ_QUAD"
+GEOMETRY_RUNS = {
+    # (a) the disk at full width, level 5 -> 6 (cut from 7: level 7 and
+    # a plain f64 FCG solve of it took 83 s of the phase's ~150 s on an
+    # H100); level 6 alone as a plain f64 FCG solve; the uniform_p run of
+    # the JAX CLI
+    "a": dict(level=5, deg=3, max_degree=3, scheme="uniform_h", steps=1,
+              face_h=QUAD_H, geometry=DISK, mixed=1, problem="sinx"),
+    "a6f": dict(level=6, deg=3, max_degree=3, scheme="uniform_h", steps=0,
+                face_h=QUAD_H, geometry=DISK, mixed=0, problem="sinx"),
+    "ap": dict(level=3, deg=3, max_degree=5, scheme="uniform_p", steps=2,
+               face_h=QUAD_H, geometry=DISK, mixed=1, problem="sinx"),
+    # (b) the single-tree 2D maps, uniform_p from deg 2 to 4
+    "trap": dict(level=4, deg=2, max_degree=4, scheme="uniform_p", steps=2,
+                 face_h=QUAD_H, geometry="name = trap", mixed=1,
+                 problem="sinx"),
+    "pizza": dict(level=4, deg=2, max_degree=4, scheme="uniform_p", steps=2,
+                  face_h=QUAD_H, geometry="name = pizza_half\nr0 = 0.5\n"
+                  "r1 = 1.0", mixed=1, problem="sinx"),
+    # (c) the hole-in-a-box, level 1 -> 3; level 3 alone as a plain f64
+    # FCG solve
+    "c": dict(level=1, deg=3, max_degree=3, scheme="uniform_h", steps=2,
+              face_h=QUAD_H, geometry=HOLE, mixed=1, problem="lorentzian"),
+    "c3f": dict(level=3, deg=3, max_degree=3, scheme="uniform_h", steps=0,
+                face_h=QUAD_H, geometry=HOLE, mixed=0, problem="lorentzian"),
+}
+# (elements, DOF, L2) per level from the JAX driver
+# (`refcheck/geometry_smoke_pins.py a5 a6 ap trap pizza hole hole3`)
+HOLE3_PIN = (6144, 393216, 1.5917169034568844e-05)
+GEOMETRY_PINS = {
+    "a": [(5120, 81920, 1.5197996707216392e-08),
+          (20480, 327680, 5.026451928921405e-10)],
+    "a6f": [(20480, 327680, 5.026451928921405e-10)],
+    "ap": [(320, 5120, 9.676940229968944e-06),
+           (320, 8000, 5.33376336457762e-07),
+           (320, 11520, 6.726050331400483e-08)],
+    "trap": [(256, 2304, 3.585223491629404e-05),
+             (256, 4096, 2.2763103407103242e-07),
+             (256, 6400, 4.37981713187347e-09)],
+    "pizza": [(256, 2304, 2.780560611109229e-05),
+              (256, 4096, 2.0469866256102782e-07),
+              (256, 6400, 1.0193174770159288e-08)],
+    "c": [(96, 6144, 0.007300673864398753),
+          (768, 49152, 0.0003415714960187432),
+          HOLE3_PIN],
+    "c3f": [HOLE3_PIN],
+}
+DERIV_REL = 1e-12  # the derivatives on the card against the CPU's
+KSLOT_REL = 1e-12  # the K-slot Schwarz apply against the materialized one
 
 
 # the options of `refcheck/amr_smoke_pins.py`, with the solve settings
@@ -1633,13 +1762,15 @@ def phase_nonlinear(torch, np, card):
     return c["krylov"], c["solve"]
 
 
-def precond_run(torch, np, key, nonlinear=False):
+def precond_run(torch, np, key, nonlinear=False, extra="", tag="12"):
     """One run of phase 12 through the CLI entry: its per-level records
     (norm line, solve or Newton line, Krylov iterations, forest digest,
     mesh seconds) printed beside the JAX pins of
     `refcheck/precond_smoke_pins.py`, the CLI wall and the peak device
-    memory.  Returns the records, the driver's result and the Σ u of
-    each level's solution."""
+    memory (kept in the first record as `wall` and `peak`).  `extra`
+    options are appended to the run's; `tag` names the phase in the
+    lines.  Returns the records, the driver's result and the Σ u of each
+    level's solution."""
     from disco4est_tpu_torch import __main__ as cli
     from disco4est_tpu_torch import driver
 
@@ -1655,6 +1786,7 @@ def precond_run(torch, np, key, nonlinear=False):
             steps=steps, pc=pc, smoother=sm, bottom=bt,
             use_structured="auto", mixed=1)
         problem, name = "sinx", "run_poisson"
+    text += extra
     results, sums = [], []
     run_fn, newton = getattr(cli, name), driver.newton_solve
 
@@ -1697,7 +1829,7 @@ def precond_run(torch, np, key, nonlinear=False):
         rec.update(E=int(E), dof=int(dof), value=float(value), line=line,
                    counts=counts, info=info)
         pin = pins[k] if k < len(pins) else None
-        print(f"[12] ({key}) level {k}: {line}; {lines[n + k]}; Krylov "
+        print(f"[{tag}] ({key}) level {k}: {line}; {lines[n + k]}; Krylov "
               f"{counts} (JAX {pin[3] if pin else 'no pin'}); forest "
               f"{rec['forest']}; mesh {rec['mesh']:.3f} s")
         check(np.isfinite(rec["value"]), f"({key}) level {k}: {line}")
@@ -1713,8 +1845,9 @@ def precond_run(torch, np, key, nonlinear=False):
         if not nonlinear:
             check(info.residual_norm <= 5e-15 and not info.fallback,
                   f"({key}) level {k}: {lines[n + k]}")
-    print(f"[12] ({key}) CLI wall {wall:.2f} s, peak device memory "
+    print(f"[{tag}] ({key}) CLI wall {wall:.2f} s, peak device memory "
           f"{peak:.2f} GiB")
+    epochs[0].update(wall=wall, peak=peak)
     return epochs, result, sums
 
 
@@ -1824,6 +1957,8 @@ def phase_precond(torch, np, card, fcg5, tp11):
           f"({M.rep_mesh.n_elements} replicated elements, "
           f"{M.iterations} subdomain CG iterations)")
     check(torch.equal(M(rr), M(rr)), "(f) two Schwarz applies differ")
+    schwarz_b = dict(iterations=b_sw[0]["counts"][0], l2=b_sw[0]["value"],
+                     ms=sms, peak=b_sw[0]["peak"])
     for key in ("mg_so_reuse", "mg_none_cheby", "mg_cheby_cheby",
                 "mg_block"):
         (rec,), _, _ = precond_run(torch, np, key)
@@ -1893,6 +2028,384 @@ def phase_precond(torch, np, card, fcg5, tp11):
           f"paths run f64 torch operations only); phase wall "
           f"{time.perf_counter() - t_phase:.1f} s")
     check(not any(counts.values()), f"a kernel ran in phase 12: {counts}")
+    return schwarz_b
+
+
+def geometry_run(torch, np, key):
+    """One run of phase 13 through the CLI entry: one line per epoch with
+    its norm line, solve path, outer and inner iterations, the solve's
+    residual, fallback, the host seconds of mesh build and solve and the
+    epoch's peak device memory, each L2 held to the JAX pin of
+    `refcheck/geometry_smoke_pins.py` where there is one; then the true
+    f64 residual ‖b − A u‖ of the last epoch's solution beside the one
+    the solve reported.  B1 must not run on these meshes."""
+    from disco4est_tpu_torch import __main__ as cli
+    from disco4est_tpu_torch import driver
+    from disco4est_tpu_torch.laplacian.sipg import (
+        apply_sipg,
+        build_rhs_with_strong_bc,
+    )
+
+    run = dict(GEOMETRY_RUNS[key])
+    problem = run.pop("problem")
+    text = GEOMETRY_OPTIONS.format(**run)
+    peaks, results = [], []
+    run_poisson = cli.run_poisson
+
+    def capture(*args, **kw):
+        results.append(run_poisson(*args, **kw))
+        return results[-1]
+
+    t0 = time.perf_counter()
+    with amr_probe(torch, np) as epochs:
+        build = driver.build_mesh  # amr_probe's timed build
+
+        def peak_build(*args, **kw):
+            # the previous epoch's peak, then a fresh count for this one
+            torch.cuda.synchronize()
+            peaks.append(torch.cuda.max_memory_allocated() / 2**30)
+            torch.cuda.reset_peak_memory_stats()
+            return build(*args, **kw)
+
+        driver.build_mesh, cli.run_poisson = peak_build, capture
+        try:
+            norms, _, fields, launches = run_cli(text, torch, problem)
+        finally:
+            driver.build_mesh, cli.run_poisson = build, run_poisson
+    peaks = peaks[1:] + [torch.cuda.max_memory_allocated() / 2**30]
+    wall = time.perf_counter() - t0
+    check(len(norms) == len(epochs) == run["steps"] + 1,
+          f"({key}) {len(norms)} levels, {len(epochs)} epochs")
+    pins = GEOMETRY_PINS.get(key, [])
+    for k, (rec, line, f, peak) in enumerate(zip(epochs, norms, fields,
+                                                 peaks)):
+        E, dof, _, l2 = line.split()
+        its = int(f["iterations"])
+        rec.update(E=int(E), dof=int(dof), l2=float(l2), line=line,
+                   fields=f, solve=float(f["seconds"]), peak=peak)
+        pin = pins[k] if k < len(pins) else None
+        rel = abs(rec["l2"] - pin[2]) / pin[2] if pin else None
+        print(f"[13] ({key}) level {k}: {line} (JAX "
+              f"{pin[2] if pin else 'no pin'}"
+              f"{f', rel {rel:.3e}' if pin else ''}); path={f['path']} "
+              f"outer={f['outer']} iterations={its} residual="
+              f"{f['residual']} fallback={f['fallback']}; seconds: mesh "
+              f"{rec['mesh']:.3f}, solve {rec['solve']:.3f} "
+              f"({rec['solve'] / max(its, 1) * 1e3:.3f} ms an iteration); "
+              f"peak {peak:.2f} GiB")
+        check(np.isfinite(rec["l2"]), f"({key}) L2 {l2}")
+        check(f["fallback"] == "no", f"({key}) level {k} fell back: {f}")
+        if pin is not None:
+            check((rec["E"], rec["dof"]) == pin[:2],
+                  f"({key}) level {k}: {E} {dof}, JAX {pin[0]} {pin[1]}")
+            check(rel <= LEVEL5_REL, f"({key}) level {k} L2 {l2} vs JAX "
+                  f"{pin[2]} (rel {rel:.3e})")
+        if run["mixed"] and rec["uniform"]:
+            check(f["path"] == "mixed-curved",
+                  f"({key}) uniform epoch {k} took {f['path']}")
+    res = results[0]
+    mesh, prob = res.mesh, cli.LINEAR_PROBLEMS[problem](None)
+    rhs = build_rhs_with_strong_bc(mesh, mesh.init_field(prob.rhs),
+                                   mesh.boundary_values(prob.boundary))
+    true = float(torch.linalg.norm((rhs - apply_sipg(mesh, res.u)
+                                    ).reshape(-1)))
+    epochs[-1]["true_residual"] = true
+    print(f"[13] ({key}) {problem} on {run['geometry'].splitlines()[0]}: "
+          f"CLI wall {wall:.2f} s, B1 launches {launches}; last epoch's "
+          f"true residual {true:.3e} (reported {fields[-1]['residual']})")
+    check(launches == 0, f"({key}) B1 ran")
+    return epochs
+
+
+def capped_inner_solve(torch):
+    """ROADMAP C14: the level-6 disk once more with the JAX driver's
+    400-iteration inner cap on the curved solve (`mixed_inner_max_iter =
+    400`; the port's default is 20000).  Printed, not checked: the capped
+    inner solves contract the outer residual by less than the stall
+    test's 10 %, and the solve stops above the f64 floor."""
+    from disco4est_tpu_torch import driver
+    from disco4est_tpu_torch.problems.poisson import SinxProblem
+    from disco4est_tpu_torch.util.config import Options
+
+    run = dict(GEOMETRY_RUNS["a6f"], mixed=1)
+    run.pop("problem")
+    text = GEOMETRY_OPTIONS.format(**run).replace(
+        "use_mixed_precision = 1",
+        "use_mixed_precision = 1\nmixed_inner_max_iter = 400")
+    res = driver.run_poisson(Options.load(text), SinxProblem, device="cuda")
+    l2, pin = res.norms.rows[0]["L_2"], GEOMETRY_PINS["a"][1][2]
+    print(f"[13] (a) C14, the level-6 disk with a 400-iteration inner cap: "
+          f"{res.solves[0].line(0)}; L2 {l2!r}, {l2 / pin:.3f}x JAX's")
+
+
+def _quad_l2(mesh, v):
+    """sqrt(Σ w J v²) of a field at the volume quadrature points."""
+    from disco4est_tpu_torch.mesh.builder import vol_weights
+
+    w = vol_weights(mesh, v.dtype)
+    return float((w * mesh.j_quad * v * v).sum().sqrt())
+
+
+def derivatives_check(torch, np):
+    """(d) `gradient` and `hessian_trace` on the card against the port's
+    CPU run (the level-5 disk and a level-2 7-tree sphere, deg 3), then
+    the hessian trace of the deg-3 interpolant of sinx on the level-5 and
+    level-6 disks against −2π²u."""
+    from disco4est_tpu_torch.geometry.cubed_sphere import CubedSphereGeometry
+    from disco4est_tpu_torch.geometry.disk import DiskGeometry
+    from disco4est_tpu_torch.laplacian.derivatives import (
+        gradient,
+        hessian_trace,
+    )
+    from disco4est_tpu_torch.mesh.builder import build_mesh
+    from disco4est_tpu_torch.mesh.tree import Forest
+
+    pi = np.pi
+    sinx = lambda *c: torch.sin(pi * c[0]) * torch.sin(pi * c[1]) * (
+        torch.sin(pi * c[2]) if len(c) == 3 else 1.0)
+    disk = DiskGeometry(0.5, 1.0)
+    errs = []
+    for name, geom, level in (("disk", disk, 5),
+                              ("7-tree sphere", CubedSphereGeometry(
+                                  "7tree", R0=1.0, R1=2.0), 2),
+                              ("disk", disk, 6)):
+        forest = Forest.uniform(geom.conn, level)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mesh = build_mesh(geom, forest, deg=3, device="cuda")
+        u = mesh.init_field(sinx)
+        g, h = gradient(mesh, u), hessian_trace(mesh, u)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        line = (f"[13] (d) {name} level {level}: {mesh.n_elements} "
+                f"elements, gradient {tuple(g.shape)}, hessian trace "
+                f"{tuple(h.shape)}, card {secs:.3f} s (mesh build "
+                f"included)")
+        check(bool(torch.isfinite(g).all() and torch.isfinite(h).all()),
+              f"(d) {name} level {level}: non-finite derivatives")
+        if level <= 5:  # the port's CPU run of the same derivatives
+            cpu = build_mesh(geom, forest, deg=3, device="cpu")
+            uc = cpu.init_field(sinx)
+            gc, hc = gradient(cpu, uc), hessian_trace(cpu, uc)
+            rel = lambda a, b: float((a - b).abs().max() / b.abs().max())
+            rg, rh = rel(g.cpu(), gc), rel(h.cpu(), hc)
+            # the hessian's own rounding: the CPU's response to a relative
+            # 2^-52 perturbation of u (the second differences amplify it
+            # ~1/h²: 2e-14 on the level-1 disk, 1.1e-11 on the level-5 one)
+            noise = 1.0 + torch.rand(uc.shape, dtype=uc.dtype,
+                                     generator=torch.Generator().manual_seed(
+                                         0)) * 2.0**-52
+            cond = rel(hessian_trace(cpu, uc * noise), hc)
+            line += (f"; against the CPU: gradient {rg:.2e}, hessian "
+                     f"{rh:.2e} (the CPU hessian moves {cond:.2e} under a "
+                     f"2^-52 perturbation of u)")
+            check(rg <= DERIV_REL and rh <= max(DERIV_REL, cond),
+                  f"(d) {name} level {level}: card vs CPU {rg}, {rh}")
+        if name == "disk":
+            ref = -2.0 * pi**2 * mesh.init_field_on_quad(sinx)
+            errs.append(_quad_l2(mesh, h - ref) / _quad_l2(mesh, ref))
+            line += f"; |Δu_h + 2π²u| / |2π²u| {errs[-1]:.3e}"
+        print(line)
+    print(f"[13] (d) hessian-trace error level 5 / level 6: "
+          f"{errs[0] / errs[1]:.2f}")
+    check(errs[0] >= 3.0 * errs[1], f"(d) hessian error fell {errs}")
+
+
+def _cds_schwarz(torch, chunk):
+    """(e)(iii) the CDS regression (phase 11 (a)) with `pc_type = schwarz`
+    through the CLI entry: its printed lines and the driver's result."""
+    from disco4est_tpu_torch import __main__ as cli
+
+    # level 2 alone: with the regression's smooth_pred step the K-slot run
+    # of level 1 (288 elements, 18 chunks of 16) took 161 s on an H100,
+    # launch-bound, the phase's whole budget
+    run = dict(NONLINEAR_RUNS["a"], steps=0)
+    problem = run.pop("problem")
+    text = NONLINEAR_OPTIONS.format(**run).replace(
+        "ksp_max_it = 10000", "ksp_max_it = 10000\npc_type = schwarz\n\n"
+        f"[d4est_solver_schwarz]\nsubdomain_chunk = {chunk}")
+    results, fn = [], cli.run_nonlinear
+
+    def capture(*args, **kw):
+        results.append(fn(*args, **kw))
+        return results[-1]
+
+    buf = io.StringIO()
+    cli.run_nonlinear = capture
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            code = cli.main([text, f"--problem={problem}", "--device=cuda"])
+        torch.cuda.synchronize()
+    finally:
+        cli.run_nonlinear = fn
+    check(code == 0, f"(e)(iii) CLI exit code {code}")
+    return buf.getvalue().splitlines(), results[0], time.perf_counter() - t0
+
+
+def kslot_full_width(torch, np):
+    """(e)(ii) one K-slot apply (chunk 4096) against one materialized
+    apply of the same input on the level-5 brick at deg 3: build seconds,
+    apply milliseconds and the peak device memory around build + apply;
+    (e)(iv) two K-slot applies bit-equal."""
+    from disco4est_tpu_torch.geometry.brick import BrickGeometry
+    from disco4est_tpu_torch.mesh.builder import build_mesh
+    from disco4est_tpu_torch.mesh.tree import Forest
+    from disco4est_tpu_torch.solvers import schwarz_overlap as so
+
+    geom = BrickGeometry(dim=3)
+    mesh = build_mesh(geom, Forest.uniform(geom.conn, 5), deg=3,
+                      device="cuda")
+    r = torch.sin(torch.arange(mesh.n_elements * 64, dtype=torch.float64,
+                               device="cuda")).reshape(mesh.n_elements, 4,
+                                                       4, 4)
+    out, stats = {}, {}
+    for kind in ("kslot", "materialized"):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        M = (so.build_overlapping_schwarz_kslot(mesh, 1, 15, chunk=4096)
+             if kind == "kslot" else so.build_overlapping_schwarz(mesh, 1,
+                                                                  15))
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out[kind] = M(r)
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        ms = _wall_ms(torch, lambda: M(r), 2)
+        if kind == "kslot":
+            check(torch.equal(out[kind], M(r)),
+                  "(e)(iv) two K-slot applies differ")
+            resident = sum(t.numel() * t.element_size() for t in (
+                [M.member, M.valid, M.codes, M.mask_table, M.weight_table,
+                 M.nbr_slot, M.bnd, M.conf] + list(M.hc.values())
+                + [t for pair in M.combine for t in pair])) / 2**30
+            extra = (f"{M.shape[0] // M.chunk} chunks of "
+                     f"{M.chunk * M.member.shape[1]} replicated elements, "
+                     f"resident tables {resident:.3f} GiB")
+        else:
+            extra = f"{M.rep_mesh.n_elements} replicated elements"
+        stats[kind] = dict(build=build_s, ms=ms, peak=peak)
+        print(f"[13] (e)(ii) level 5 {kind}: build {build_s:.3f} s, first "
+              f"apply {first_ms:.1f} ms, apply {ms:.1f} ms, peak device "
+              f"memory over build + apply {peak:.2f} GiB ({extra})")
+        del M
+    a, b = out["kslot"], out["materialized"]
+    rel = float((a - b).abs().max() / b.abs().max())
+    print(f"[13] (e)(ii) K-slot against materialized: rel {rel:.3e}, equal "
+          f"bit for bit: {'yes' if torch.equal(a, b) else 'no'}")
+    check(rel <= KSLOT_REL, f"(e)(ii) K-slot vs materialized rel {rel}")
+    check(stats["kslot"]["peak"] < stats["materialized"]["peak"],
+          f"(e)(ii) K-slot peak {stats['kslot']['peak']:.2f} GiB not below "
+          f"the materialized {stats['materialized']['peak']:.2f} GiB")
+    return stats
+
+
+def phase_geometry(torch, np, card, schwarz_b):
+    """Phase 13: the disk and misc geometries, the derivatives and the
+    K-slot Schwarz on the card through the CLI entry (torch operations;
+    B1, B2 and B3 must not launch)."""
+    from disco4est_tpu_torch.laplacian import fused
+    from disco4est_tpu_torch.laplacian import structured as S
+    from disco4est_tpu_torch.solvers.schwarz_overlap import SchwarzKSlot
+    from disco4est_tpu_torch.tools import exp_kernel_design as X
+
+    print(f"[13] the disk and misc geometries, the derivatives and the "
+          f"K-slot Schwarz on {card}")
+    t_phase = time.perf_counter()
+    S.KERNEL_LAUNCHES = fused.KERNEL_LAUNCHES = X.KERNEL_LAUNCHES = 0
+
+    # (a) the disk at full width, level 5 -> 6, and the uniform_p run
+    a = geometry_run(torch, np, "a")
+    check([e["E"] for e in a] == [5120, 20480]
+          and [e["dof"] for e in a] == [81920, 327680], "(a) sizes")
+    fall = a[0]["l2"] / a[1]["l2"]
+    (a6f,) = geometry_run(torch, np, "a6f")
+    print(f"[13] (a) the L2 falls {fall:.2f}x; level 6 against JAX: "
+          f"mixed-curved {abs(a[1]['l2'] / GEOMETRY_PINS['a'][1][2] - 1):.3e}"
+          f", plain f64 FCG {abs(a6f['l2'] / GEOMETRY_PINS['a'][1][2] - 1):.3e}"
+          f" (true residual {a6f['true_residual']:.3e}, reported "
+          f"{a6f['fields']['residual']})")
+    check(fall >= 8.0, f"(a) the error fell less than 8x: {fall}")
+    capped_inner_solve(torch)
+    geometry_run(torch, np, "ap")
+
+    # (b) the trapezoid and the pizza-half, uniform_p from deg 2 to 4
+    for key in ("trap", "pizza"):
+        b = geometry_run(torch, np, key)
+        check(b[2]["l2"] < 0.1 * b[0]["l2"], f"({key}) deg 4 vs deg 2: "
+              f"{b[2]['l2']} {b[0]['l2']}")
+
+    # (c) the hole-in-a-box, level 1 -> 3, and level 3 by plain f64 FCG
+    c = geometry_run(torch, np, "c")
+    (c3f,) = geometry_run(torch, np, "c3f")
+    pin3 = GEOMETRY_PINS["c"][2][2]
+    print(f"[13] (c) level 3 against JAX: mixed-curved "
+          f"{abs(c[2]['l2'] / pin3 - 1):.3e}, plain f64 FCG "
+          f"{abs(c3f['l2'] / pin3 - 1):.3e} (true residual "
+          f"{c3f['true_residual']:.3e}, reported "
+          f"{c3f['fields']['residual']})")
+    check(c[0]["l2"] > c[1]["l2"] > c[2]["l2"], "(c) the L2 did not fall")
+
+    # (d) the derivatives
+    derivatives_check(torch, np)
+
+    # (e)(i) phase 12 (b)'s Schwarz with the K-slot variant, chunk 1024
+    (ks,), res, _ = precond_run(
+        torch, np, "schwarz", tag="13",
+        extra="\n[d4est_solver_schwarz]\nsubdomain_chunk = 1024\n")
+    M = res.precond
+    check(isinstance(M, SchwarzKSlot) and M.chunk == 1024,
+          f"(e)(i) the preconditioner is {type(M).__name__}")
+    rr = torch.sin(torch.arange(int(np.prod(M.shape)), dtype=torch.float64,
+                                device="cuda")).reshape(M.shape)
+    kms = _wall_ms(torch, lambda: M(rr), 3)
+    its, rel = ks["counts"][0], abs(ks["value"] - schwarz_b["l2"]) / \
+        schwarz_b["l2"]
+    print(f"[13] (e)(i) K-slot Schwarz at level 4 ({M.shape[0] // M.chunk} "
+          f"chunks of {M.chunk * M.member.shape[1]} replicated elements): "
+          f"FCG {its} (materialized, phase 12 (b): "
+          f"{schwarz_b['iterations']}), L2 rel to it {rel:.3e}; "
+          f"{kms:.2f} ms an apply (materialized {schwarz_b['ms']:.2f}); "
+          f"peak {ks['peak']:.2f} GiB (materialized "
+          f"{schwarz_b['peak']:.2f})")
+    check(abs(its - schwarz_b["iterations"]) <= 1,
+          f"(e)(i) FCG {its} vs {schwarz_b['iterations']}")
+    check(rel <= LEVEL5_REL, f"(e)(i) L2 {ks['value']} vs "
+          f"{schwarz_b['l2']}")
+    check(torch.equal(M(rr), M(rr)), "(e)(iv) two K-slot applies differ")
+    del M, res
+
+    # (e)(ii) and (iv) at full width
+    kslot_full_width(torch, np)
+
+    # (e)(iii) the CDS regression with Schwarz, materialized and K-slot
+    runs = {chunk: _cds_schwarz(torch, chunk) for chunk in (0, 16)}
+    (lm, rm, wm), (lk, rk, wk) = runs[0], runs[16]
+    n = len(rm.solves)
+    check(len(rk.solves) == n, "(e)(iii) the runs' level counts differ")
+    for k in range(n):
+        print(f"[13] (e)(iii) CDS level {k}: materialized {lm[k]}, Newton "
+              f"{rm.solves[k].iterations}, FCG {rm.solves[k].krylov}; "
+              f"K-slot {lk[k]}, Newton {rk.solves[k].iterations}, FCG "
+              f"{rk.solves[k].krylov}")
+        check(lm[k] == lk[k]
+              and rm.solves[k].iterations == rk.solves[k].iterations
+              and rm.solves[k].krylov == rk.solves[k].krylov,
+              f"(e)(iii) CDS level {k} differs")
+    check(isinstance(rk.precond, SchwarzKSlot), "(e)(iii) not K-slot")
+    print(f"[13] (e)(iii) CLI wall: materialized {wm:.2f} s, K-slot "
+          f"{wk:.2f} s")
+
+    counts = dict(B1=S.KERNEL_LAUNCHES, B2=fused.KERNEL_LAUNCHES,
+                  B3=X.KERNEL_LAUNCHES)
+    print(f"[13] kernel launches in phase 13: {counts} (these paths run "
+          f"torch operations only); phase wall "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    check(not any(counts.values()), f"a kernel ran in phase 13: {counts}")
 
 
 def main():
@@ -1917,7 +2430,8 @@ def main():
     phase_amr(torch, np, card, level5_l2, b1[(3, 5)]["ms"])
     phase_curved(torch, np, card)
     tp11 = phase_nonlinear(torch, np, card)
-    phase_precond(torch, np, card, fcg5, tp11)
+    schwarz_b = phase_precond(torch, np, card, fcg5, tp11)
+    phase_geometry(torch, np, card, schwarz_b)
 
     csrc = "disco4est_tpu_torch/csrc/"
     # B1 and B2 have one entry per timed size; each entry's launches are

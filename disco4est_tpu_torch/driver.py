@@ -3,8 +3,9 @@
 Port of `disco4est_tpu/driver.py` (`geometry_from_options`,
 `run_poisson`, and for the nonlinear problems `run_nonlinear` with
 `CDSProblem`, `OkendonProblem` and `TwoPuncturesProblem`, below) for
-every `pc_type` on bricks
-and cubed spheres (7-tree and 13-tree, compactified shells included): the
+every `pc_type` on bricks,
+cubed spheres (7-tree and 13-tree, compactified shells included), the 2D
+disk, trapezoid and pizza-half and the hole-in-a-box: the
 AMR loop of the reference's problem drivers
 (`Problems/Poisson/poisson_sinx_uniform.c:142`),
 
@@ -31,7 +32,8 @@ solve takes one of these paths, as in the JAX driver:
 - a preconditioner (`[d4est_solver_krylov_petsc] pc_type`, rebuilt each
   epoch; on mixed-degree epochs on the hp operator): f64 FCG with one
   multigrid V-cycle (`fcg-mg`, the `[multigrid]` smoother and bottom
-  plugins) or one overlapping Schwarz apply (`fcg-schwarz`), or f64 CG
+  plugins) or one overlapping Schwarz apply (`fcg-schwarz`; the K-slot
+  variant when `[d4est_solver_schwarz] subdomain_chunk` > 0), or f64 CG
   with 8 Chebyshev steps (`cg-cheby`).
 
 `use_structured = auto` means "on when the device is CUDA" (the JAX
@@ -65,6 +67,12 @@ from disco4est_tpu_torch.amr.smooth_pred import (
 from disco4est_tpu_torch.estimators.bi import estimate_bi
 from disco4est_tpu_torch.geometry.brick import BrickGeometry
 from disco4est_tpu_torch.geometry.cubed_sphere import CubedSphereGeometry
+from disco4est_tpu_torch.geometry.disk import DiskGeometry
+from disco4est_tpu_torch.geometry.misc import (
+    HoleInABoxGeometry,
+    PizzaHalfGeometry,
+    TrapGeometry,
+)
 from disco4est_tpu_torch.io.norms import NormLog, norm_L2, norm_Linfty
 from disco4est_tpu_torch.laplacian import curved, structured
 from disco4est_tpu_torch.laplacian.hp import (
@@ -106,6 +114,7 @@ from disco4est_tpu_torch.solvers.multigrid import (
 from disco4est_tpu_torch.solvers.newton import NewtonParams, newton_solve
 from disco4est_tpu_torch.solvers.schwarz_overlap import (
     build_overlapping_schwarz,
+    build_overlapping_schwarz_kslot,
 )
 from disco4est_tpu_torch.util.config import Options
 
@@ -127,7 +136,8 @@ def resolve_device(name) -> torch.device:
 
 def geometry_from_options(opts: Options):
     """[geometry] section → Geometry (reference `d4est_geometry_new`,
-    `Geometry/d4est_geometry.c:127`): the brick and the cubed spheres."""
+    `Geometry/d4est_geometry.c:127`): the brick, the cubed spheres, the
+    5-tree disk, the trapezoid, the pizza-half and the hole-in-a-box."""
     name = opts.get("geometry", "name", required=True)
     g = lambda k, d: opts.get_float("geometry", k, d)
     if name == "brick":
@@ -145,12 +155,15 @@ def geometry_from_options(opts: Options):
             compactify_inner_shell=opts.get(
                 "geometry", "compactify_inner_shell", False, cast=bool),
         )
-    if name in ("disk", "5treedisk", "trap", "trapezoid", "pizza_half",
-                "hole_in_a_box"):
-        raise NotImplementedError(
-            f"geometry {name!r}: the disk and misc geometries are not "
-            "ported yet (ROADMAP A11b)"
-        )
+    if name in ("disk", "5treedisk"):
+        return DiskGeometry(R0=g("r0", 0.5), R1=g("r1", 1.0))
+    if name in ("trap", "trapezoid"):
+        return TrapGeometry()
+    if name == "pizza_half":
+        return PizzaHalfGeometry(R0=g("r0", 0.5), R1=g("r1", 1.0))
+    if name == "hole_in_a_box":
+        return HoleInABoxGeometry(inner_radius=g("inner_radius", 1.0),
+                                  box_length=g("box_length", 10.0))
     raise ValueError(f"unknown geometry {name}")
 
 
@@ -276,7 +289,8 @@ class DriverResult:
     eta2_history: list = dataclasses.field(default_factory=list)
     #                    [np.ndarray η² per element] per smooth_pred marking
     precond: object = None  # the last epoch's preconditioner state
-    #     (`MGHierarchy`, `OverlappingSchwarz` or the Chebyshev bounds)
+    #     (`MGHierarchy`, `OverlappingSchwarz`, `SchwarzKSlot` or the
+    #     Chebyshev bounds)
 
 
 def _refuse_unported(opts: Options):
@@ -284,12 +298,6 @@ def _refuse_unported(opts: Options):
     pc_type = opts.get("d4est_solver_krylov_petsc", "pc_type", "none")
     if pc_type not in ("none", "schwarz", "multigrid", "cheby"):
         raise ValueError(f"unknown pc_type: {pc_type!r}")
-    if (pc_type == "schwarz"
-            and opts.get_int("d4est_solver_schwarz", "subdomain_chunk", 0) > 0):
-        raise NotImplementedError(
-            "[d4est_solver_schwarz] subdomain_chunk > 0: the K-slot "
-            "Schwarz variant is not ported yet (ROADMAP A13b)"
-        )
     # with any pc_type: the JAX driver drops to one device where it cannot
     # distribute (ROADMAP C6); the port refuses instead
     enable = str(opts.get("parallelism", "enable", "auto")).lower()
@@ -379,6 +387,9 @@ def run_poisson(opts: Options, problem, *, device) -> DriverResult:
         overlap=opts.get_int("d4est_solver_schwarz", "num_nodes_overlap", 1),
         subdomain_iter=opts.get_int("d4est_solver_schwarz", "subdomain_iter",
                                     15),
+        # > 0 selects the K-slot variant: resident index tables instead of
+        # the 27x replicated mesh
+        chunk=opts.get_int("d4est_solver_schwarz", "subdomain_chunk", 0),
         eigs_iters=opts.get_int("mg_smoother_cheby", "cheby_eigs_cg_imax",
                                 10),
         ratio=opts.get_float("mg_smoother_cheby",
@@ -490,8 +501,21 @@ def _solve_hp(mesh: MeshData, rhs, x0):
     return info, res.x
 
 
+def _schwarz(mesh: MeshData, *, overlap, subdomain_iter, chunk, hp=False):
+    """The overlapping Schwarz of one epoch: the K-slot variant when
+    `[d4est_solver_schwarz] subdomain_chunk` > 0, else the materialized
+    one (JAX `driver.py:731-750`, `:1405-1426`)."""
+    if chunk > 0:
+        return build_overlapping_schwarz_kslot(
+            mesh, num_nodes_overlap=overlap, iterations=subdomain_iter,
+            chunk=chunk, hp=hp)
+    return build_overlapping_schwarz(
+        mesh, num_nodes_overlap=overlap, iterations=subdomain_iter, hp=hp)
+
+
 def _solve_pc(mesh: MeshData, rhs, x0, *, hp, pc_type, mg_params,
-              mesh_kwargs, overlap, subdomain_iter, eigs_iters, ratio):
+              mesh_kwargs, overlap, subdomain_iter, chunk, eigs_iters,
+              ratio):
     """A preconditioned epoch (JAX `_linear_solve_fcg_mg(_hp)`,
     `_linear_solve_fcg_schwarz(_hp)`, `_linear_solve_cg_cheby(_hp)`): the
     preconditioner is set up on this epoch's mesh, then f64 FCG (multigrid,
@@ -516,9 +540,9 @@ def _solve_pc(mesh: MeshData, rhs, x0, *, hp, pc_type, mg_params,
         M = lambda r: v_cycle(state, op, r, torch.zeros_like(r))
         solver, path = fcg_solve, "fcg-mg"
     elif pc_type == "schwarz":
-        state = M = step("schwarz", lambda: build_overlapping_schwarz(
-            mesh, num_nodes_overlap=overlap, iterations=subdomain_iter,
-            hp=hp))
+        state = M = step("schwarz", lambda: _schwarz(
+            mesh, overlap=overlap, subdomain_iter=subdomain_iter,
+            chunk=chunk, hp=hp))
         solver, path = fcg_solve, "fcg-schwarz"
     else:  # cheby: bounds from CG-Lanczos on the rhs, 8 steps per apply
         lmax = step("eigs", lambda: cg_eigs(A, rhs, eigs_iters))[1]
@@ -573,19 +597,24 @@ def _solve(mesh: MeshData, rhs, x0, *, use_mixed, structured_on, ksp,
                 atol=5e-15, rtol=1e-20, max_outer=mixed_opts["max_outer"],
             )
         elif ts is not None:
-            # inner settings of the JAX driver's curved solve
-            # (`driver.py:347-349`; its call at `:963` passes none of the
-            # mixed_* options, ROADMAP C3).  Its host-stepped outer loop
-            # (`:370-390`) exists for a TPU stall and stops after 3 outer
-            # steps (ROADMAP C1): the port runs `mixed_refine_solve`,
-            # whose stall test compares with the previous residual.
+            # the inner rtol and outer cap of the JAX driver's curved
+            # solve (`driver.py:347-349`; its call at `:963` passes none
+            # of the mixed_* options, ROADMAP C3).  Its 400-iteration
+            # inner cap is replaced by `mixed_inner_max_iter`: capped
+            # inner solves contract the outer residual by less than the
+            # stall test's 10 % on the 2D disk from level 6, and the solve
+            # then stops above the f64 floor (ROADMAP C14).  Its
+            # host-stepped outer loop (`:370-390`) exists for a TPU stall
+            # and stops after 3 outer steps (ROADMAP C1): the port runs
+            # `mixed_refine_solve`, whose stall test compares with the
+            # previous residual.
             path = "mixed-curved"
             res = mixed_refine_solve(
                 lambda v: apply_sipg(mesh, v), rhs, x0=x0,
                 inner_solve=curved.make_inner_solve(
                     ts.astype(torch.float32),
                     curved.permute_mesh_lex(ts, mesh).astype(torch.float32),
-                    rtol=1e-4, max_iter=400,
+                    rtol=1e-4, max_iter=mixed_opts["inner_max_iter"],
                 ),
                 atol=5e-15, rtol=1e-20, max_outer=30,
             )
@@ -853,12 +882,14 @@ def run_nonlinear(opts: Options, problem, *, device) -> DriverResult:
             linear = _level_operators(problem, hier, bc)
             precond = hier
         elif pc_type == "schwarz":
-            precond = schwarz_M = build_overlapping_schwarz(
+            precond = schwarz_M = _schwarz(
                 mesh,
-                num_nodes_overlap=opts.get_int("d4est_solver_schwarz",
-                                               "num_nodes_overlap", 1),
-                iterations=opts.get_int("d4est_solver_schwarz",
-                                        "subdomain_iter", 15))
+                overlap=opts.get_int("d4est_solver_schwarz",
+                                     "num_nodes_overlap", 1),
+                subdomain_iter=opts.get_int("d4est_solver_schwarz",
+                                            "subdomain_iter", 15),
+                chunk=opts.get_int("d4est_solver_schwarz",
+                                   "subdomain_chunk", 0))
         elif pc_type == "cheby":
             _, lmax = cg_eigs(lambda w: linear(mesh, w), _sin3_seed(mesh),
                               10)

@@ -1,6 +1,7 @@
 """Overlapping additive Schwarz — vertex-patch subdomains with node strips.
 
-Port of the materialized variant of `disco4est_tpu/solvers/schwarz_overlap.py`
+Port of `disco4est_tpu/solvers/schwarz_overlap.py`, the materialized
+variant and the K-slot one
 (role of the reference's Schwarz subsystem: subdomain = center element +
 every face/edge/corner neighbor with `num_nodes_overlap` 1D nodes of
 overlap, `Solver/d4est_solver_schwarz_metadata.c:384-799`; quintic-hat
@@ -27,7 +28,14 @@ conforming affine mesh without the pointwise penalty, the compact
 factors; otherwise the per-point face and volume factors too.  The
 JAX module's `optimization_barrier`s are TPU workarounds and have no
 counterpart.  The K-slot variant (`build_overlapping_schwarz_kslot`,
-`subdomain_chunk > 0`) is ROADMAP A13b.
+`[d4est_solver_schwarz] subdomain_chunk > 0`, below) applies the same
+operator chunk by chunk from resident integer tables.
+
+The host builds every table once per epoch with vectorized numpy
+(`_slots`, `_face_tables`, `_mortar_pairs`); the device part gathers the
+factor rows the subdomain apply reads (`_gather_fields`,
+`_gather_hanging`): once for the whole replicated mesh in the
+materialized variant, per chunk inside each apply in the K-slot one.
 """
 
 from __future__ import annotations
@@ -195,16 +203,18 @@ class OverlappingSchwarz:
         return _schwarz_apply(self, r)
 
 
-def _tables(forest: Forest, nl: int, ov: int):
-    """member [S, K] (center first, then ascending; E pads), valid, and
-    the mask and weight [S, K, nl^dim] arrays."""
+def _slots(forest: Forest):
+    """The subdomain slots, vectorized: member [S, K] (center first, then
+    ascending; E pads), valid, and `off` [S, K, dim] in {-1, 0, 1}: the
+    direction through which each member sees its center, in the member's
+    own frame (zeros for the center and for unused slots)."""
     dim = forest.dim
     E = forest.n_elements
     e, n, oi = _best_offsets(forest)
     keep = e != n
     ps = np.concatenate([np.arange(E), e[keep]])
     px = np.concatenate([np.arange(E), n[keep]])
-    center = np.concatenate([np.zeros(E, bool), np.zeros(keep.sum(), bool)])
+    center = np.zeros(len(ps), bool)
     center[:E] = True
     order = np.lexsort((px, ~center, ps))
     ps, px = ps[order], px[order]
@@ -216,8 +226,6 @@ def _tables(forest: Forest, nl: int, ov: int):
     member[ps, slot] = px
     valid[ps, slot] = True
 
-    # per-axis profile codes of each (s, k): the direction through which
-    # the member sees the center, in the member's own frame
     offs = np.asarray(_offsets(dim) + [(0,) * dim], np.int64)
     pair_key = e * E + n  # sorted
     q = px * E + ps  # (member, center)
@@ -226,22 +234,39 @@ def _tables(forest: Forest, nl: int, ov: int):
     if len(pair_key):
         i = np.clip(np.searchsorted(pair_key, q), 0, len(pair_key) - 1)
         found = (pair_key[i] == q) & (px != ps)
-    off = offs[np.where(found, oi[i] if len(oi) else 0, len(offs) - 1)]
-    code = np.where(off < 0, 1, np.where(off > 0, 2, 0))
+    off = np.zeros((E, K, dim), np.int64)
+    off[ps, slot] = offs[np.where(found, oi[i] if len(oi) else 0,
+                                  len(offs) - 1)]
+    return member, valid, off
+
+
+def _outer(prof, code, nl: int, dim: int):
+    """Per-axis profiles prof [3, nl] picked by code [N, dim] (0 core, 1
+    low, 2 high) -> their outer products [N, nl^dim], axis order
+    (z, y, x): direction dim-1 is the slowest axis."""
+    out = prof[code[:, dim - 1]]
+    for a in range(dim - 2, -1, -1):
+        out = out[..., None] * prof[code[:, a]].reshape(
+            (-1,) + (1,) * (dim - 1 - a) + (nl,))
+    return out
+
+
+def _profile_code(off):
+    """Direction {-1, 0, 1} -> profile row of `_profiles` (1, 0, 2)."""
+    return np.where(off < 0, 1, np.where(off > 0, 2, 0))
+
+
+def _tables(forest: Forest, nl: int, ov: int):
+    """member [S, K] (center first, then ascending; E pads), valid, and
+    the mask and weight [S, K, nl^dim] arrays."""
+    dim = forest.dim
+    member, valid, off = _slots(forest)
     pm, pw = _profiles(nl, ov)
-
-    def outer(prof):
-        # axis order (z, y, x): direction dim-1 is the slowest axis
-        out = prof[code[:, dim - 1]]
-        for a in range(dim - 2, -1, -1):
-            out = out[..., None] * prof[code[:, a]].reshape(
-                (-1,) + (1,) * (dim - 1 - a) + (nl,))
-        return out
-
-    mask = np.zeros((E, K) + (nl,) * dim)
-    weight = np.zeros((E, K) + (nl,) * dim)
-    mask[ps, slot] = outer(pm)
-    weight[ps, slot] = outer(pw)
+    code = _profile_code(off[valid])
+    mask = np.zeros(member.shape + (nl,) * dim)
+    weight = np.zeros(member.shape + (nl,) * dim)
+    mask[valid] = _outer(pm, code, nl, dim)
+    weight[valid] = _outer(pw, code, nl, dim)
     return member, valid, mask, weight
 
 
@@ -267,6 +292,124 @@ _UNREAD = ("xyz_lobatto", "xyz_quad", "j_quad", "face_xyz_lobatto",
 _FULL = ("wjgg", "face_sj", "face_n", "face_drst")
 _ELEMENT = ("deg_e", "orient_code", "sigma", "sigma_q", "rad_interp",
             "rad_w", "j_c", "drdx_c", "wjgg_c", "face_sj_c", "face_n_c")
+_HC = ("hc_face", "hc_fine_face", "hc_perm_l", "hc_perm_q", "hc_sj", "hc_n",
+       "hc_drst_m", "hc_sigma", "hc_sigma_q")
+
+
+def _slot_lookup(member: np.ndarray, valid: np.ndarray, E: int):
+    """rep(s, x) -> the flat slot s·K+k of global element x in subdomain
+    s, or -1 where x is not a member (vectorized; host numpy)."""
+    K = member.shape[1]
+    rows = np.where(valid.reshape(-1))[0]
+    keys = (rows // K) * (E + 1) + member.reshape(-1)[rows]
+    korder = np.argsort(keys)
+    keys, krows = keys[korder], rows[korder]
+
+    def rep(s, x):
+        q = s * (E + 1) + x
+        i = np.clip(np.searchsorted(keys, q), 0, len(keys) - 1)
+        return np.where(keys[i] == q, krows[i], -1)
+
+    return rep
+
+
+def _mortar_pairs(mesh: MeshData, member: np.ndarray, valid: np.ndarray):
+    """Every (subdomain, mortar) pair whose coarse or fine elements are
+    members of the subdomain, sorted by subdomain then mortar: arrays
+    (s, m)."""
+    E = mesh.n_elements
+    K = member.shape[1]
+    M_g = mesh.hc_elem.shape[0]
+    ce = mesh.hc_elem.cpu().numpy().astype(np.int64)
+    cf = mesh.hc_fine.cpu().numpy().astype(np.int64)
+    elems = np.concatenate([ce[:, None], cf], axis=1)  # [M, 1+Kc]
+    rows = np.where(valid.reshape(-1))[0]
+    # the subdomains holding each global element
+    xs = member.reshape(-1)[rows]
+    xorder = np.argsort(xs, kind="stable")
+    x_sorted, s_sorted = xs[xorder], (rows // K)[xorder]
+    starts = np.searchsorted(x_sorted, np.arange(E + 1))
+    m_rep = np.repeat(np.arange(M_g), elems.shape[1])
+    x_rep = elems.reshape(-1)
+    cnt = starts[x_rep + 1] - starts[x_rep]
+    m_hit = np.repeat(m_rep, cnt)
+    first = np.repeat(starts[x_rep], cnt)
+    within = np.arange(cnt.sum()) - np.repeat(np.cumsum(cnt) - cnt, cnt)
+    s_hit = s_sorted[first + within]
+    pair = np.unique(s_hit * M_g + m_hit)
+    return pair // M_g, pair % M_g
+
+
+def _face_tables(mesh: MeshData, member: np.ndarray, valid: np.ndarray,
+                 rep):
+    """Per slot and face: the flat slot of the conforming neighbor within
+    the subdomain (-1 outside it, the slot itself on the boundary), and
+    the boundary and conforming-or-boundary flags [S, K, 2d]."""
+    S, K = member.shape
+    nfaces = 2 * mesh.dim
+    bnd_g = mesh.bnd_mask.cpu().numpy()
+    conf_g = mesh.conf_mask.cpu().numpy() & ~bnd_g
+    nbr_g = mesh.nbr_elem.cpu().numpy().astype(np.int64)
+    rows = np.where(valid.reshape(-1))[0]
+    e = member.reshape(-1)[rows]
+    b, c = bnd_g[e], conf_g[e]
+    nbr = np.full((S * K, nfaces), -1, np.int64)
+    bnd = np.zeros((S * K, nfaces), bool)
+    conf = np.zeros((S * K, nfaces), bool)
+    s_of = np.broadcast_to((rows // K)[:, None], b.shape)
+    nbr[rows] = np.where(b, rows[:, None],
+                         np.where(c, rep(s_of, nbr_g[e]), -1))
+    bnd[rows] = b
+    conf[rows] = b | c
+    shape = (S, K, nfaces)
+    return nbr.reshape(shape), bnd.reshape(shape), conf.reshape(shape)
+
+
+def _gather_fields(mesh: MeshData, src, live):
+    """The fields the subdomain apply reads, for the rows of `src` (global
+    elements; rows where `live` is False are zero) plus one zero dummy row
+    at the end (device part: torch gathers)."""
+    compact_only = (mesh.affine and mesh.wjgg_c is not None
+                    and mesh.sigma_q is None and mesh.hc_elem.shape[0] == 0)
+
+    def g(t):
+        x = t[src]
+        keep = live.reshape(live.shape + (1,) * (x.ndim - 1))
+        x = torch.where(keep, x, torch.zeros((), dtype=x.dtype,
+                                             device=x.device))
+        return torch.cat([x, x.new_zeros((1,) + x.shape[1:])])
+
+    fields = {}
+    for f in dataclasses.fields(MeshData):
+        t = getattr(mesh, f.name)
+        if f.name in _UNREAD or (f.name in _FULL and compact_only):
+            fields[f.name] = None
+        elif f.name in _ELEMENT or f.name in _FULL:
+            fields[f.name] = None if t is None else g(t)
+    return fields
+
+
+def _gather_hanging(mesh: MeshData, m, live):
+    """The mortar rows `m` of the global mesh (rows where `live` is False
+    are zero), with the fine-side permutations [len(m)·Kc, ...]."""
+    Kc = 1 << (mesh.dim - 1)
+    out = {}
+
+    def g(t):
+        x = t[m]
+        keep = live.reshape(live.shape + (1,) * (x.ndim - 1))
+        return torch.where(keep, x, torch.zeros((), dtype=x.dtype,
+                                                device=x.device))
+
+    for k in _HC:
+        t = getattr(mesh, k)
+        out[k] = None if t is None else g(t)
+    M_g = mesh.hc_elem.shape[0]
+    for k in ("hf_perm_l", "hf_perm_q"):
+        t = getattr(mesh, k)
+        out[k] = g(t.reshape((M_g, Kc) + t.shape[1:])).reshape(
+            (-1,) + t.shape[1:])
+    return out
 
 
 def _replicate_mesh(mesh: MeshData, member: np.ndarray,
@@ -278,104 +421,45 @@ def _replicate_mesh(mesh: MeshData, member: np.ndarray,
     outside it mapped to the dummy."""
     S, K = member.shape
     E = mesh.n_elements
-    dim, nl, nq = mesh.dim, mesh.nl, mesh.nq
-    nfaces = 2 * dim
+    nfaces = 2 * mesh.dim
     R = S * K
     dev = mesh.device
-    mem_flat = member.reshape(-1)
-    val_flat = valid.reshape(-1)
-    gather_src = torch.as_tensor(np.concatenate([mem_flat, [E]]), device=dev)
-
-    def g(t):
-        pad = torch.cat([t, t.new_zeros((1,) + t.shape[1:])])
-        return pad[gather_src]
-
-    # (subdomain, global element) -> replicated row, R where absent
-    rows = np.where(val_flat)[0]
-    keys = (rows // K) * (E + 1) + mem_flat[rows]
-    korder = np.argsort(keys)
-    keys, krows = keys[korder], rows[korder]
-
-    def rep_idx(s, x):
-        q = s * (E + 1) + x
-        i = np.clip(np.searchsorted(keys, q), 0, len(keys) - 1)
-        return np.where(keys[i] == q, krows[i], R)
-
-    bnd_g = mesh.bnd_mask.cpu().numpy()
-    conf_g = mesh.conf_mask.cpu().numpy() & ~bnd_g
-    nbr_g = mesh.nbr_elem.cpu().numpy().astype(np.int64)
-    nbf_g = mesh.nbr_face.cpu().numpy().astype(np.int64)
+    rep = _slot_lookup(member, valid, E)
+    nbr, bnd, conf = _face_tables(mesh, member, valid, rep)
     nbr_elem = np.full((R + 1, nfaces), R, np.int64)
+    nbr_elem[:R] = np.where(nbr.reshape(R, nfaces) < 0, R,
+                            nbr.reshape(R, nfaces))
+    pad = np.zeros((1, nfaces), bool)
+    nbf = mesh.nbr_face.cpu().numpy().astype(np.int64)
     nbr_face = np.zeros((R + 1, nfaces), np.int64)
-    bnd_mask = np.zeros((R + 1, nfaces), bool)
-    conf_mask = np.zeros((R + 1, nfaces), bool)
-    e = mem_flat[rows]
-    s_of = np.repeat(rows // K, nfaces).reshape(-1, nfaces)
-    nbr_face[rows] = nbf_g[e]
-    b, c = bnd_g[e], conf_g[e]
-    bnd_mask[rows] = b
-    conf_mask[rows] = b | c
-    nbr_elem[rows] = np.where(b, rows[:, None],
-                              np.where(c, rep_idx(s_of, nbr_g[e]), R))
+    val_flat = valid.reshape(-1)
+    nbr_face[:R][val_flat] = nbf[member.reshape(-1)[val_flat]]
 
-    # mortars: one row per (subdomain, mortar) touching the subdomain
-    Kc = 1 << (dim - 1)
-    M_g = mesh.hc_elem.shape[0]
+    i32 = dict(dtype=torch.int32, device=dev)
     hc = {}
-    if M_g:
+    if mesh.hc_elem.shape[0]:
+        s_m, m_idx = _mortar_pairs(mesh, member, valid)
         ce = mesh.hc_elem.cpu().numpy().astype(np.int64)
         cf = mesh.hc_fine.cpu().numpy().astype(np.int64)
-        elems = np.concatenate([ce[:, None], cf], axis=1)  # [M, 1+Kc]
-        # the subdomains holding each global element
-        xs = mem_flat[rows]
-        xorder = np.argsort(xs, kind="stable")
-        x_sorted, s_sorted = xs[xorder], (rows // K)[xorder]
-        starts = np.searchsorted(x_sorted, np.arange(E + 1))
-        m_rep = np.repeat(np.arange(M_g), 1 + Kc)
-        x_rep = elems.reshape(-1)
-        cnt = starts[x_rep + 1] - starts[x_rep]
-        m_hit = np.repeat(m_rep, cnt)
-        first = np.repeat(starts[x_rep], cnt)
-        within = np.arange(cnt.sum()) - np.repeat(np.cumsum(cnt) - cnt, cnt)
-        s_hit = s_sorted[first + within]
-        pair = np.unique(s_hit * M_g + m_hit)
-        s_m, m_idx = pair // M_g, pair % M_g
+        rc = rep(s_m, ce[m_idx])
+        rf = rep(s_m[:, None], cf[m_idx])
         mi = torch.as_tensor(m_idx, device=dev)
-        mik = torch.as_tensor(
-            (m_idx[:, None] * Kc + np.arange(Kc)).reshape(-1), device=dev)
-        i32 = dict(dtype=torch.int32, device=dev)
-        hc = dict(
-            hc_elem=torch.as_tensor(rep_idx(s_m, ce[m_idx]), **i32),
-            hc_fine=torch.as_tensor(rep_idx(s_m[:, None], cf[m_idx]), **i32),
-            hf_perm_l=mesh.hf_perm_l[mik], hf_perm_q=mesh.hf_perm_q[mik],
-        )
-        for k in ("hc_face", "hc_fine_face", "hc_perm_l", "hc_perm_q",
-                  "hc_sj", "hc_n", "hc_drst_m", "hc_sigma", "hc_sigma_q"):
-            t = getattr(mesh, k)
-            hc[k] = None if t is None else t[mi]
-    else:
-        for k in ("hc_elem", "hc_face", "hc_fine", "hc_fine_face",
-                  "hc_perm_l", "hc_perm_q", "hc_sj", "hc_n", "hc_drst_m",
-                  "hc_sigma", "hf_perm_l", "hf_perm_q", "hc_sigma_q"):
-            hc[k] = getattr(mesh, k)
+        hc = _gather_hanging(mesh, mi, torch.ones(len(m_idx), dtype=bool,
+                                                  device=dev))
+        hc["hc_elem"] = torch.as_tensor(np.where(rc < 0, R, rc), **i32)
+        hc["hc_fine"] = torch.as_tensor(np.where(rf < 0, R, rf), **i32)
 
-    # the per-point factors are read off the fast path, or by the mortars
-    compact_only = (mesh.affine and mesh.wjgg_c is not None
-                    and mesh.sigma_q is None and M_g == 0)
-    fields = {}
-    for f in dataclasses.fields(MeshData):
-        t = getattr(mesh, f.name)
-        if f.name in _UNREAD or (f.name in _FULL and compact_only):
-            fields[f.name] = None
-        elif f.name in _ELEMENT or f.name in _FULL:
-            fields[f.name] = None if t is None else g(t)
-    i32 = dict(dtype=torch.int32, device=dev)
+    src = torch.as_tensor(np.minimum(member.reshape(-1), E - 1), device=dev)
+    fields = _gather_fields(mesh, src,
+                            torch.as_tensor(val_flat, device=dev))
     return dataclasses.replace(
         mesh, **fields, **hc,
         nbr_elem=torch.as_tensor(nbr_elem, **i32),
         nbr_face=torch.as_tensor(nbr_face, **i32),
-        bnd_mask=torch.as_tensor(bnd_mask, device=dev),
-        conf_mask=torch.as_tensor(conf_mask, device=dev),
+        bnd_mask=torch.as_tensor(np.concatenate([bnd.reshape(R, nfaces),
+                                                 pad]), device=dev),
+        conf_mask=torch.as_tensor(np.concatenate([conf.reshape(R, nfaces),
+                                                  pad]), device=dev),
     )
 
 
@@ -413,26 +497,51 @@ def build_overlapping_schwarz(mesh: MeshData, num_nodes_overlap: int = 1,
                               iterations=iterations, hp=hp)
 
 
-def _schwarz_apply(s: OverlappingSchwarz, r):
-    """Restrict → batched masked subdomain CG (fixed count, per-subdomain
-    α/β) → weighted combine in the fixed order of `s.inv`."""
-    S, K = s.member.shape
-    dim_shape = r.shape[1:]
-    dtype = r.dtype
-    zero_row = r.new_zeros((1,) + dim_shape)
-    mask = s.mask.to(dtype)
-    b = torch.cat([r, zero_row])[s.member] * mask  # [S, K, nl...]
-    if s.hp:
-        from disco4est_tpu_torch.laplacian.hp import apply_sipg_hp as op
-    else:
-        op = apply_sipg
+def _subdomain_op(hp: bool):
+    if hp:
+        from disco4est_tpu_torch.laplacian.hp import apply_sipg_hp
+        return apply_sipg_hp
+    return apply_sipg
+
+
+def _row_sums(x):
+    """Σ over each row of x [S, L], as a fixed pairwise tree of
+    elementwise adds: each row's sum is the same bits whatever S is (a
+    library reduction picks its order from the shape, so the K-slot
+    variant's chunks and the materialized variant's whole batch would
+    round differently)."""
+    n = x.shape[1]
+    width = 1 << max(n - 1, 0).bit_length()
+    if width != n:
+        x = torch.cat([x, x.new_zeros((x.shape[0], width - n))], dim=1)
+    while width > 1:
+        width //= 2
+        x = x[:, :width] + x[:, width:]
+    return x[:, 0]
+
+
+def _add_slots(out, rows):
+    """out + Σ_j rows[:, j], added one slot at a time in j order (the
+    order both variants share, so their combines round alike)."""
+    for j in range(rows.shape[1]):
+        out = out + rows[:, j]
+    return out
+
+
+def _subdomain_cg(op, rep_mesh: MeshData, b, mask, iterations: int):
+    """The batched masked subdomain CG: b, mask [S, K, nl...] on the
+    replicated mesh of S·K elements plus its dummy; a fixed count of
+    steps with per-subdomain α/β and no host read."""
+    S = b.shape[0]
+    dim_shape = b.shape[2:]
+    zero_row = b.new_zeros((1,) + dim_shape)
 
     def A(v):
-        v_rep = torch.cat([v.reshape((S * K,) + dim_shape), zero_row])
-        return op(s.rep_mesh, v_rep)[:-1].reshape(v.shape) * mask
+        v_rep = torch.cat([v.reshape((-1,) + dim_shape), zero_row])
+        return op(rep_mesh, v_rep)[:-1].reshape(v.shape) * mask
 
     def dot(a, c):  # per-subdomain dots [S]
-        return (a * c).reshape(S, -1).sum(1)
+        return _row_sums((a * c).reshape(S, -1))
 
     def bcast(al):
         return al.reshape((S,) + (1,) * (b.ndim - 1))
@@ -440,8 +549,8 @@ def _schwarz_apply(s: OverlappingSchwarz, r):
     x = torch.zeros_like(b)
     rs, p = b, b
     rr = dot(b, b)
-    one = torch.ones((), dtype=dtype, device=r.device)
-    for _ in range(s.iterations):
+    one = torch.ones((), dtype=b.dtype, device=b.device)
+    for _ in range(iterations):
         Ap = A(p)
         pAp = dot(p, Ap)
         alpha = torch.where(pAp > 0, rr / torch.where(pAp > 0, pAp, one),
@@ -453,9 +562,22 @@ def _schwarz_apply(s: OverlappingSchwarz, r):
                            0.0)
         p = rs + bcast(beta) * p
         rr = rr_new
+    return x
 
+
+def _schwarz_apply(s: OverlappingSchwarz, r):
+    """Restrict → batched masked subdomain CG (fixed count, per-subdomain
+    α/β) → weighted combine in the fixed order of `s.inv`."""
+    S, K = s.member.shape
+    dim_shape = r.shape[1:]
+    dtype = r.dtype
+    zero_row = r.new_zeros((1,) + dim_shape)
+    mask = s.mask.to(dtype)
+    b = torch.cat([r, zero_row])[s.member] * mask  # [S, K, nl...]
+    x = _subdomain_cg(_subdomain_op(s.hp), s.rep_mesh, b, mask,
+                      s.iterations)
     contrib = (x * s.weight.to(dtype)).reshape((S * K,) + dim_shape)
-    return torch.cat([contrib, zero_row])[s.inv].sum(1)
+    return _add_slots(torch.zeros_like(r), torch.cat([contrib, zero_row])[s.inv])
 
 
 def overlap_schwarz_smooth(A, M: OverlappingSchwarz, b, x,
@@ -464,3 +586,221 @@ def overlap_schwarz_smooth(A, M: OverlappingSchwarz, b, x,
     for _ in range(iterations):
         x = x + damping * M(b - A(x))
     return x
+
+
+# ---------------------------------------------------------------------------
+# the K-slot variant: resident integer tables, factors gathered per chunk
+# ---------------------------------------------------------------------------
+#
+# Port of the JAX module's `SchwarzKSlot` (`build_overlapping_schwarz_kslot`,
+# `_kslot_apply`).  The materialized variant above holds every factor array
+# S·K ≈ 27x (884,736 replicated elements at level 5, deg 3).  This one
+# keeps index tables and per-(s, k) mask/weight CODES into a
+# [3^dim + 1, nl^dim] table, and gathers each chunk's factor rows from the
+# global mesh inside the apply: the transient is chunk·K factor rows,
+# independent of E.  The host builds every table once, vectorized (the
+# JAX module fills them in Python loops over S·K·2d and S × mortar rows);
+# the tables equal the JAX module's.  Each chunk's corrections are summed
+# into their elements through a padded slot table built once per chunk, and
+# the chunks are added in their fixed order (the JAX module's
+# `.at[].add` would run as atomics on CUDA, ROADMAP C10).
+
+
+@dataclasses.dataclass
+class SchwarzKSlot:
+    """Chunked K-slot overlapping Schwarz: the operator of
+    `OverlappingSchwarz`, with O(S·K) integers resident instead of
+    O(S·K·nq^dim) floats."""
+
+    mesh: MeshData  # the GLOBAL mesh (shared, not copied)
+    member: torch.Tensor  # [S_pad, K] global element (E = unused)
+    valid: torch.Tensor  # [S_pad, K] bool
+    codes: torch.Tensor  # [S_pad, K] int32 mask/weight code (3^dim unused)
+    mask_table: torch.Tensor  # [3^dim+1, nl...]
+    weight_table: torch.Tensor  # [3^dim+1, nl...]
+    nbr_slot: torch.Tensor  # [S_pad, K, 2d] int32 in [0, K] (K = outside)
+    bnd: torch.Tensor  # [S_pad, K, 2d] bool
+    conf: torch.Tensor  # [S_pad, K, 2d] bool
+    # hanging mortar rows grouped per chunk, chunk-local slots (C·K =
+    # the dummy): hc_m [nchunk, Mc] global mortar row (-1 pads),
+    # hc_elem [nchunk, Mc], hc_fine [nchunk, Mc, Kc]; empty without mortars
+    hc: dict
+    # the fixed-order combine of each chunk: (elements [U], slots [U, J]
+    # chunk-local, C·K pads)
+    combine: list
+    chunk: int
+    iterations: int
+    shape: tuple
+    hp: bool = False
+
+    def __call__(self, r):
+        return _kslot_apply(self, r)
+
+
+def _code_tables(nl: int, ov: int, dim: int):
+    """Mask and weight [3^dim + 1, nl...] of each code Σ_a (off_a + 1)·3^a
+    (the last row, unused slots, zero)."""
+    n = 3**dim
+    codes = np.arange(n)
+    off = np.stack([(codes // 3**a) % 3 - 1 for a in range(dim)], axis=1)
+    pm, pw = _profiles(nl, ov)
+    shape = (n + 1,) + (nl,) * dim
+    mask, weight = np.zeros(shape), np.zeros(shape)
+    mask[:n] = _outer(pm, _profile_code(off), nl, dim)
+    weight[:n] = _outer(pw, _profile_code(off), nl, dim)
+    return mask, weight
+
+
+def build_overlapping_schwarz_kslot(mesh: MeshData,
+                                    num_nodes_overlap: int = 1,
+                                    iterations: int = 15, chunk: int = 128,
+                                    hp: bool = False) -> SchwarzKSlot:
+    """The K-slot preconditioner of one epoch (JAX
+    `build_overlapping_schwarz_kslot`): `chunk` subdomains per batch."""
+    dim, nl = mesh.dim, mesh.nl
+    E = mesh.n_elements
+    dev = mesh.device
+    member0, valid0, off = _slots(mesh.forest)
+    S, K = member0.shape
+    C = min(int(chunk), S)
+    S_pad = -(-S // C) * C
+    nchunk = S_pad // C
+    member = np.full((S_pad, K), E, np.int64)
+    valid = np.zeros((S_pad, K), bool)
+    codes = np.full((S_pad, K), 3**dim, np.int32)
+    member[:S], valid[:S] = member0, valid0
+    codes[:S][valid0] = (off[valid0] + 1) @ (3 ** np.arange(dim))
+
+    rep = _slot_lookup(member, valid, E)
+    nbr, bnd, conf = _face_tables(mesh, member, valid, rep)
+    nbr_slot = np.where(nbr < 0, K, nbr - (np.arange(S_pad) * K)[:, None,
+                                                                  None])
+    nbr_slot = nbr_slot.astype(np.int32)
+
+    i64 = dict(dtype=torch.int64, device=dev)
+    hc = {}
+    if mesh.hc_elem.shape[0]:
+        s_m, m_idx = _mortar_pairs(mesh, member, valid)
+        c_m = s_m // C
+        counts = np.bincount(c_m, minlength=nchunk)
+        Mc = int(counts.max())
+        pos = np.arange(len(c_m)) - np.repeat(np.cumsum(counts) - counts,
+                                              counts)
+        TRASH = C * K
+        ce = mesh.hc_elem.cpu().numpy().astype(np.int64)
+        cf = mesh.hc_fine.cpu().numpy().astype(np.int64)
+        base = c_m * C * K
+        rc = rep(s_m, ce[m_idx])
+        rf = rep(s_m[:, None], cf[m_idx])
+        Kc = cf.shape[1]
+        hc_m = np.full((nchunk, Mc), -1, np.int64)
+        hc_elem = np.full((nchunk, Mc), TRASH, np.int64)
+        hc_fine = np.full((nchunk, Mc, Kc), TRASH, np.int64)
+        hc_m[c_m, pos] = m_idx
+        hc_elem[c_m, pos] = np.where(rc < 0, TRASH, rc - base)
+        hc_fine[c_m, pos] = np.where(rf < 0, TRASH, rf - base[:, None])
+        hc = dict(hc_m=torch.as_tensor(hc_m, **i64),
+                  hc_elem=torch.as_tensor(hc_elem, **i64),
+                  hc_fine=torch.as_tensor(hc_fine, **i64))
+
+    # the combine: per chunk, each touched element's local slots ascending
+    flat = np.where(valid.reshape(-1))[0]
+    x = member.reshape(-1)[flat]
+    c_of = flat // (C * K)
+    order = np.lexsort((flat, x, c_of))
+    flat, x, c_of = flat[order], x[order], c_of[order]
+    combine = []
+    bounds = np.searchsorted(c_of, np.arange(nchunk + 1))
+    for c in range(nchunk):
+        fl, xs = flat[bounds[c]:bounds[c + 1]], x[bounds[c]:bounds[c + 1]]
+        U, start, cnt = np.unique(xs, return_index=True, return_counts=True)
+        J = int(cnt.max())
+        slots = np.full((len(U), J), C * K, np.int64)
+        slots[np.repeat(np.arange(len(U)), cnt),
+              np.arange(len(xs)) - np.repeat(start, cnt)] = fl - c * C * K
+        combine.append((torch.as_tensor(U, **i64),
+                        torch.as_tensor(slots, **i64)))
+
+    mask_t, weight_t = _code_tables(nl, int(num_nodes_overlap), dim)
+    kw = dict(dtype=mesh.sigma.dtype, device=dev)
+    return SchwarzKSlot(
+        mesh=mesh,
+        member=torch.as_tensor(member, **i64),
+        valid=torch.as_tensor(valid, device=dev),
+        codes=torch.as_tensor(codes, device=dev),
+        mask_table=torch.as_tensor(mask_t, **kw),
+        weight_table=torch.as_tensor(weight_t, **kw),
+        nbr_slot=torch.as_tensor(nbr_slot, device=dev),
+        bnd=torch.as_tensor(bnd, device=dev),
+        conf=torch.as_tensor(conf, device=dev),
+        hc=hc,
+        combine=combine,
+        chunk=C,
+        iterations=int(iterations),
+        shape=(E,) + (nl,) * dim,
+        hp=hp,
+    )
+
+
+def _chunk_mesh(s: SchwarzKSlot, c: int) -> MeshData:
+    """The replicated mesh of chunk c: C·K slots plus the dummy row C·K,
+    its factor rows gathered from the global mesh (device part)."""
+    mesh = s.mesh
+    C, K = s.chunk, s.member.shape[1]
+    nfaces = 2 * mesh.dim
+    E = mesh.n_elements
+    R = C * K
+    rows = slice(c * C, (c + 1) * C)
+    mem = s.member[rows].reshape(-1)
+    live = s.valid[rows].reshape(-1)
+    src = mem.clamp(max=E - 1)
+    fields = _gather_fields(mesh, src, live)
+    nsl = s.nbr_slot[rows].long()  # [C, K, 2d]
+    offs = (torch.arange(C, device=mem.device) * K)[:, None, None]
+    nbr_local = torch.where(nsl < K, offs + nsl, R).reshape(R, nfaces)
+    no = torch.zeros((1, nfaces), dtype=torch.bool, device=mem.device)
+    nbf = torch.where(live[:, None], mesh.nbr_face[src],
+                      torch.zeros((), dtype=mesh.nbr_face.dtype,
+                                  device=mem.device))
+    i32 = dict(dtype=torch.int32)
+    hc = {}
+    if s.hc:
+        m = s.hc["hc_m"][c]
+        hc = _gather_hanging(mesh, m.clamp(min=0), m >= 0)
+        hc["hc_elem"] = s.hc["hc_elem"][c].to(**i32)
+        hc["hc_fine"] = s.hc["hc_fine"][c].to(**i32)
+    return dataclasses.replace(
+        mesh, **fields, **hc,
+        nbr_elem=torch.cat([nbr_local, nbr_local.new_full((1, nfaces), R)]
+                           ).to(**i32),
+        nbr_face=torch.cat([nbf, nbf.new_zeros((1, nfaces))]).to(**i32),
+        bnd_mask=torch.cat([s.bnd[rows].reshape(R, nfaces), no]),
+        conf_mask=torch.cat([s.conf[rows].reshape(R, nfaces), no]),
+    )
+
+
+def _kslot_apply(s: SchwarzKSlot, r):
+    """M r chunk by chunk (JAX `_kslot_apply`): gather the chunk's factor
+    rows, restrict, run the batched masked subdomain CG, and add the
+    weighted corrections into their elements through the chunk's slot
+    table; the chunks in their fixed order, no accumulation out of
+    order."""
+    C, K = s.chunk, s.member.shape[1]
+    dim_shape = r.shape[1:]
+    dtype = r.dtype
+    zero_row = r.new_zeros((1,) + dim_shape)
+    r_pad = torch.cat([r, zero_row])
+    op = _subdomain_op(s.hp)
+    out = torch.zeros_like(r)
+    for c, (elems, slots) in enumerate(s.combine):
+        rows = slice(c * C, (c + 1) * C)
+        codes = s.codes[rows].long()
+        mask = s.mask_table.to(dtype)[codes]  # [C, K, nl...]
+        b = r_pad[s.member[rows]] * mask
+        x = _subdomain_cg(op, _chunk_mesh(s, c), b, mask, s.iterations)
+        contrib = (x * s.weight_table.to(dtype)[codes]).reshape(
+            (C * K,) + dim_shape)
+        part = _add_slots(out.index_select(0, elems),
+                          torch.cat([contrib, zero_row])[slots])
+        out = out.index_copy(0, elems, part)
+    return out

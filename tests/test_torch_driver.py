@@ -313,18 +313,19 @@ def test_cli_cuda_without_card_raises(capsys):
     assert capsys.readouterr().out == ""
 
 
-# The cubed spheres and the pointwise J_DIV_SJ_QUAD penalty, which the
-# first and third cases refused until ROADMAP A11, now run: they are held
-# to the JAX driver in `tests/test_torch_curved_driver.py`.  Those cases
-# now refuse the geometries left for ROADMAP A11b.  The preconditioners,
-# which the second case refused until A13, run too
-# (`tests/test_torch_precond_driver.py`); it now refuses the K-slot
-# Schwarz variant left for A13b.
+# The cubed spheres and the pointwise J_DIV_SJ_QUAD penalty (ROADMAP A11),
+# the preconditioners (A13), the disk and misc geometries (A11b) and the
+# K-slot Schwarz variant (A13b), which the first three cases refused in
+# turn, now run: they are held to the JAX driver in
+# `tests/test_torch_curved_driver.py`, `test_torch_precond_driver.py`,
+# `test_torch_geometry2d.py` and `test_torch_kslot.py`.  Those cases now
+# refuse options still left for A14 and A15.
 @pytest.mark.parametrize("edit,item", [
-    (("name = brick", "name = disk"), "A11"),
-    (("ksp_atol = 5e-15", "ksp_atol = 5e-15\npc_type = schwarz\n"
-      "[d4est_solver_schwarz]\nsubdomain_chunk = 4"), "A13"),
-    (("name = brick", "name = hole_in_a_box"), "A11"),
+    (("[quadrature]", "[initial_mesh]\nload_from_checkpoint = ck\n"
+      "[quadrature]"), "A14"),
+    (("[quadrature]", "[d4est_vtk]\nfilename = out\n[quadrature]"), "A14"),
+    (("[quadrature]", "[parallelism]\nn_devices = 2\n[quadrature]"),
+     "A15"),
     (("[quadrature]", "[parallelism]\nenable = 1\n[quadrature]"), "A15"),
     (("[quadrature]", "[checkpoint]\nprefix = ck\n[quadrature]"), "A14"),
 ])
@@ -371,7 +372,8 @@ def test_port_never_imports_jax():
                  ("solvers", "eigs.py"), ("solvers", "cheby.py"),
                  ("solvers", "schwarz.py"), ("solvers", "multigrid.py"),
                  ("solvers", "schwarz_overlap.py"), ("solvers", "gmres.py"),
-                 ("solvers", "diagnostics.py"),
+                 ("solvers", "diagnostics.py"), ("geometry", "disk.py"),
+                 ("geometry", "misc.py"), ("laplacian", "derivatives.py"),
                  ("problems", "constant_density_star.py"),
                  ("problems", "okendon.py"), ("problems", "two_punctures.py"),
                  ("problems", "multi_puncture.py"),

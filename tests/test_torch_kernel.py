@@ -26,7 +26,11 @@
 - the preconditioners on the card (fixed-order sums, no `index_add`): two
   V-cycles (h and hp hierarchies) and two overlapping Schwarz applies of
   one input are equal bit for bit, and a `pc_type = multigrid` sinx solve
-  equals the CPU run's L2 to 1e-9 relative.
+  equals the CPU run's L2 to 1e-9 relative;
+- the 2D disk and the K-slot Schwarz on the card: a level-3 disk solve
+  (`mixed-curved` on the card) equals the CPU run's L2 to 1e-9 relative,
+  and a K-slot apply equals the CPU's to 1e-12 relative and the
+  materialized one bit for bit, and is bit-equal when repeated.
 
 Needs a CUDA device and `nvcc`; every test skips without a device (the
 kernels have no CPU mode).  This file imports neither JAX nor the JAX
@@ -489,3 +493,76 @@ pc_type = multigrid
     assert card.solves[0].iterations == cpu.solves[0].iterations
     a, b = card.norms.rows[0]["L_2"], cpu.norms.rows[0]["L_2"]
     assert abs(a - b) <= 1e-9 * b, (a, b)
+
+
+DISK_OPTIONS = """
+[initial_mesh]
+min_level = 3
+region0_deg = 3
+[mesh_parameters]
+face_h_type = FACE_H_EQ_J_DIV_SJ_QUAD
+[amr]
+scheme = uniform_h
+num_of_amr_steps = 0
+[geometry]
+name = disk
+[d4est_solver_krylov_petsc]
+ksp_type = fcg
+"""
+
+
+@pytest.mark.gpu
+def test_disk_solve_on_the_card_matches_the_cpu(cuda_device):
+    """sinx on the level-3 disk (2D, 320 elements, deg 3): on the card the
+    uniform epoch takes the tree-structured `mixed-curved` solve
+    (`use_structured = auto`), on the CPU the generic `mixed` one; both
+    reach the f64 floor and their L2 errors agree to 1e-9 relative."""
+    from disco4est_tpu_torch import driver
+    from disco4est_tpu_torch.problems.poisson import SinxProblem
+    from disco4est_tpu_torch.util.config import Options
+
+    opts = Options.load(DISK_OPTIONS)
+    card = driver.run_poisson(opts, SinxProblem, device="cuda")
+    cpu = driver.run_poisson(opts, SinxProblem, device="cpu")
+    assert card.solves[0].path == "mixed-curved"
+    assert cpu.solves[0].path == "mixed"
+    assert not card.solves[0].fallback and not cpu.solves[0].fallback
+    assert card.norms.rows[0]["num_quadrants"] == 320
+    a, b = card.norms.rows[0]["L_2"], cpu.norms.rows[0]["L_2"]
+    assert abs(a - b) <= 1e-9 * b, (a, b)
+
+
+@pytest.mark.gpu
+def test_kslot_schwarz_on_the_card_matches_the_cpu(cuda_device):
+    """The K-slot Schwarz on a hanging brick (mortar rows across
+    chunk-local slots): the card's apply equals the CPU's to 1e-12
+    relative and the materialized apply on the card bit for bit (both
+    sum the subdomain dots as one pairwise tree and the corrections slot
+    by slot in one order); two applies on the card are equal bit for
+    bit."""
+    from disco4est_tpu_torch.solvers.schwarz_overlap import (
+        build_overlapping_schwarz,
+        build_overlapping_schwarz_kslot,
+    )
+
+    geom = BrickGeometry(dim=3)
+    forest = Forest.uniform(geom.conn, 2)
+    flags = np.zeros(forest.n_elements, bool)
+    flags[:8] = True
+    forest = forest.refine(flags).balance()
+    r = np.random.default_rng(5).standard_normal(
+        (forest.n_elements, 4, 4, 4))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        mesh = build_mesh(geom, forest, deg=3, device=dev)
+        M = build_overlapping_schwarz_kslot(mesh, num_nodes_overlap=1,
+                                            iterations=8, chunk=16)
+        rt = torch.as_tensor(r, device=dev)
+        out[dev] = M(rt)
+        if dev == "cuda":
+            assert torch.equal(out[dev], M(rt))
+            mat = build_overlapping_schwarz(mesh, num_nodes_overlap=1,
+                                            iterations=8)(rt)
+            assert torch.equal(mat, out[dev])
+    a, b = out["cuda"].cpu(), out["cpu"]
+    assert float((a - b).abs().max()) <= 1e-12 * float(b.abs().max())

@@ -510,15 +510,14 @@ NONLINEAR_OPTIONS = CDS_OPTIONS.replace("num_of_amr_steps = 1",
                                         "num_of_amr_steps = 0")
 
 
-# The preconditioners run since ROADMAP A13 (held to the JAX driver in
-# `tests/test_torch_precond_driver.py`); the first two cases now refuse the
-# K-slot Schwarz variant left for A13b.
+# The preconditioners run since ROADMAP A13 and the K-slot Schwarz variant,
+# which the first two cases refused, since A13b (held to the JAX driver in
+# `tests/test_torch_precond_driver.py` and `test_torch_kslot.py`); the
+# two cases now refuse options still left for A14.
 @pytest.mark.parametrize("edit,item", [
-    (("ksp_max_it = 10000", "ksp_max_it = 10000\npc_type = schwarz\n"
-      "[d4est_solver_schwarz]\nsubdomain_chunk = 4"), "A13"),
-    (("ksp_max_it = 10000", "ksp_max_it = 10000\npc_type = schwarz\n"
-      "[d4est_solver_schwarz]\nsubdomain_chunk = 64\n"
-      "num_nodes_overlap = 2"), "A13"),
+    (("[quadrature]", "[driver]\nprint_timings = 1\n[quadrature]"), "A14"),
+    (("[quadrature]", "[initial_mesh]\nload_from_checkpoint = ck\n"
+      "[quadrature]"), "A14"),
     (("[quadrature]", "[parallelism]\nenable = 1\n[quadrature]"), "A15"),
     (("[quadrature]", "[checkpoint]\nprefix = ck\n[quadrature]"), "A14"),
     (("[quadrature]", "[checkpoint]\ncheckpoint_every_n_krylov_its = 5\n"

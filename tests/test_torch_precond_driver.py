@@ -23,9 +23,10 @@ the forest digest of each level.
   ψ_analytic boundary data, ROADMAP C11), but for the last step under the
   Chebyshev preconditioner, which stops on the forcing term and moves
   with rounding (within 2 iterations, the test says why);
-- the refusals: `subdomain_chunk > 0` names A13b, `[parallelism]` with a
-  preconditioner names A15, an unknown smoother or bottom solver raises
-  the JAX driver's `ValueError`.
+- the refusals: `[parallelism]` with a preconditioner names A15, an
+  unknown smoother or bottom solver raises the JAX driver's `ValueError`
+  (`subdomain_chunk > 0`, the K-slot variant, runs since ROADMAP A13b:
+  `tests/test_torch_kslot.py`).
 """
 
 import contextlib
@@ -185,20 +186,6 @@ def test_nonlinear_pc_types_match_jax(key):
 def _linear_opts(edit):
     text, _ = pins.options("t_mg")
     return Options.load(text.replace(*edit))
-
-
-@pytest.mark.parametrize("nonlinear", [False, True])
-def test_kslot_schwarz_names_a13b(nonlinear):
-    key = "t_cds_schwarz" if nonlinear else "t_schwarz"
-    text, _ = pins.options(key)
-    opts = Options.load(text + "\n[d4est_solver_schwarz]\n"
-                               "subdomain_chunk = 4\n")
-    with pytest.raises(NotImplementedError, match="A13b"):
-        if nonlinear:
-            driver.run_nonlinear(opts, driver.CDSProblem(opts),
-                                 device="cpu")
-        else:
-            driver.run_poisson(opts, SinxProblem, device="cpu")
 
 
 @pytest.mark.parametrize("pc", ["multigrid", "schwarz", "cheby"])
