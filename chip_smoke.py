@@ -202,6 +202,33 @@ and `nvcc`.  Phases, one or more lines each; any failure exits non-zero:
        Krylov counts (both variants sum the subdomain dots as one
        pairwise tree and the corrections slot by slot in one order);
        (iv) two K-slot applies of one input bit-equal.
+14. IO and checkpoint-restart through the drivers, with the seconds and
+   bytes of every checkpoint save and load (behind synchronizes):
+   (a) phase 9 (d)'s hp smooth_pred run with `[checkpoint] prefix`,
+       bit-equal to the same run without it; restarted from its level 1
+       by `structure` and by `history`: final u max |Δ| = 0.0, the last L2
+       and the forest checksum equal, B1 0 times on the restarted level
+       and as often as in the full run after it;
+   (b) sinx deg 3 on the level-5 brick (2,097,152 DOF) as a plain f64 CG
+       with `checkpoint_every_n_krylov_its = 50`: iterations and u
+       bit-equal to the solve without checkpoints, one `_it<k>` file per
+       50 iterations, the seconds a mid-solve save adds; then with
+       `pc_type = cheby` (FCG chunks) against the same solve in one
+       chunk;
+   (c) phase 11 (b)'s CDS (deg 3, level 4 -> 5) with FCG-Chebyshev and
+       `checkpoint_every_n_krylov_its = 1`: one file per Newton iterate;
+       restarted from level 0 by history: u bit-equal, ‖F‖ equal;
+   (d) `[d4est_vtk] filename` on the level-4 deg-3 brick (262,144 points,
+       the header's counts checked, the write timed), and the CLI's
+       `--plot-checkpoint` on (a)'s level-1 file in a subprocess, which
+       must write a `.vtu` with u, deg and level;
+   (e) `[driver] print_timings = 1` and `[logging] log_dir` on phase 9
+       (a)'s run through the CLI entry: one row per level with mesh,
+       solve and amr (C4), each row's phases within the level's wall, the
+       norm lines in `d4est_norms.log`;
+   (f) `ip_energy_norm_sqr` of (b)'s level-5 error and `penalty_report`
+       of a hanging brick, scalar and pointwise penalty, on the card
+       against the CPU to 1e-12 relative; B2 and B3 launch 0 times.
 
 Then one JSON line of the kernels (`{"kernels": [...]}`; B1 and B2 once
 per timed size, each with the launches of a run at that size: phase 5
@@ -1198,6 +1225,8 @@ def amr_probe(torch, np, keep_mesh=False):
                     hist={int(v): int(c) for v, c in zip(values, counts)},
                     uniform=len(values) == 1
                     and len(np.unique(forest.level)) == 1))
+            elif not epochs:  # a restart's history replay, before epoch 0
+                return fn(*args, **kw)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = fn(*args, **kw)
@@ -2408,6 +2437,408 @@ def phase_geometry(torch, np, card, schwarz_b):
     check(not any(counts.values()), f"a kernel ran in phase 13: {counts}")
 
 
+# phase 14, IO and checkpoint-restart: the runs reuse the options of
+# phases 5 (sinx at deg 3), 9 and 11 at their full widths
+MIDSOLVE_EVERY = 50  # (b) Krylov iterations a checkpoint
+IO_REL = 1e-12  # (f) card against CPU
+
+
+@contextlib.contextmanager
+def timed_checkpoints(torch):
+    """Wrap `io/checkpoint.py`'s `save` and `load` (the drivers call them
+    through the module): (kind, path, seconds behind a device synchronize,
+    bytes) of every call."""
+    import os
+
+    from disco4est_tpu_torch.io import checkpoint as C
+
+    calls = []
+    saved = (C.save, C.load)
+
+    def timed(kind, fn):
+        def wrapper(path, *args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(path, *args, **kw)
+            torch.cuda.synchronize()
+            f = path if path.endswith(".npz") else path + ".npz"
+            calls.append((kind, f, time.perf_counter() - t0,
+                          os.path.getsize(f)))
+            return out
+        return wrapper
+
+    C.save, C.load = timed("save", saved[0]), timed("load", saved[1])
+    try:
+        yield calls
+    finally:
+        C.save, C.load = saved
+
+
+def io_run(torch, np, text, problem):
+    """One driver run on the card (`run_poisson` for sinx, `run_nonlinear`
+    for `problem = "cds"`) under `amr_probe`: its result, the B1 launches
+    of each level and its wall behind a synchronize."""
+    from disco4est_tpu_torch import driver
+    from disco4est_tpu_torch.laplacian import structured as S
+    from disco4est_tpu_torch.util.config import Options
+
+    opts = Options.load(text)
+    S.KERNEL_LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with amr_probe(torch, np) as epochs:
+        if problem == "cds":
+            res = driver.run_nonlinear(opts, driver.CDSProblem(opts),
+                                       device="cuda")
+        else:
+            from disco4est_tpu_torch.problems.poisson import SinxProblem
+
+            res = driver.run_poisson(opts, SinxProblem, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ends = [e["launches"] for e in epochs[1:]] + [S.KERNEL_LAUNCHES]
+    return res, [end - e["launches"] for e, end in zip(epochs, ends)], wall
+
+
+def _restart_opts(ck, ctype):
+    return (f"\n[initial_mesh]\nload_from_checkpoint = 1\n"
+            f"checkpoint_prefix = {ck}\ncheckpoint_type = {ctype}\n")
+
+
+def _io_lines(calls, tag):
+    for kind, f, s, size in calls:
+        print(f"[14] {tag} {kind} {pathlib.Path(f).name}: {size / 2**20:.2f} "
+              f"MiB in {s:.4f} s")
+
+
+def io_restart(torch, np, tmp):
+    """(a) phase 9 (d)'s hp smooth_pred run with per-level checkpoints,
+    then restarted from its level 1 by structure and by history."""
+    text = AMR_OPTIONS.format(use_structured="auto", mixed=1,
+                              **AMR_RUNS["d"])
+    plain, b1_plain, w_plain = io_run(torch, np, text, "sinx")
+    ck = f"{tmp}/d"
+    with timed_checkpoints(torch) as calls:
+        full, b1_full, w_full = io_run(
+            torch, np, text + f"\n[checkpoint]\nprefix = {ck}\n", "sinx")
+    print(f"[14] (a) phase 9 (d): elements "
+          f"{[r['num_quadrants'] for r in full.norms.rows]}, paths "
+          f"{[s.path for s in full.solves]}, B1 launches {b1_full}; wall "
+          f"{w_plain:.2f} s without checkpoints, {w_full:.2f} s with")
+    _io_lines(calls, "(a)")
+    check(torch.equal(full.u, plain.u) and b1_full == b1_plain
+          and full.norms.rows == plain.norms.rows,
+          "(a) the checkpointed run differs from the plain one")
+    check(b1_full[0] > 0, "(a) level 0 did not run B1")
+    last = full.norms.rows[-1]["L_2"]
+    for ctype in ("structure", "history"):
+        with timed_checkpoints(torch) as calls:
+            res, b1, wall = io_run(
+                torch, np, text + _restart_opts(f"{ck}_level1", ctype),
+                "sinx")
+        du = float(torch.max(torch.abs(res.u - full.u)))
+        print(f"[14] (a) restart from level 1 by {ctype}: paths "
+              f"{[s.path for s in res.solves]}, B1 launches {b1} (full run "
+              f"{b1_full[1:]}), max |du| {du!r}, last L2 "
+              f"{res.norms.rows[-1]['L_2']!r} (full {last!r}), forest "
+              f"checksum {res.mesh.forest.checksum()}, wall {wall:.2f} s")
+        _io_lines(calls, "(a)")
+        check(du == 0.0 and res.norms.rows[-1]["L_2"] == last
+              and res.mesh.forest.checksum() == full.mesh.forest.checksum(),
+              f"(a) the {ctype} restart is not bit-equal to the full run")
+        check(res.solves[0].path == "restart" and b1[0] == 0
+              and b1[1:] == b1_full[2:],
+              f"(a) {ctype} restart: B1 launches {b1}, full {b1_full}")
+    return full
+
+
+def io_midsolve(torch, np, tmp):
+    """(b) sinx deg 3 level 5 as a plain f64 CG, checkpointed every
+    `MIDSOLVE_EVERY` iterations, against the same solve without
+    checkpoints; then with `pc_type = cheby` (FCG chunks) against one
+    chunk."""
+    import os
+
+    base = SINX_OPTIONS.format(level=5, deg=3, use_structured="auto",
+                               mixed=0).replace("ksp_type = fcg",
+                                                "ksp_type = cg")
+    out = {}
+    for pc in ("none", "cheby"):
+        text = base.replace("use_mixed_precision = 0",
+                            f"use_mixed_precision = 0\npc_type = {pc}")
+        if pc == "none":
+            ref, _, w_ref = io_run(torch, np, text, "sinx")
+        else:  # the same FCG-Chebyshev solve in one chunk
+            ck1 = f"{tmp}/b1"
+            ref, _, w_ref = io_run(
+                torch, np, text + f"\n[checkpoint]\nprefix = {ck1}\n"
+                "checkpoint_every_n_krylov_its = 100000\n", "sinx")
+        ck = f"{tmp}/b_{pc}"
+        with timed_checkpoints(torch) as calls:
+            res, b1, wall = io_run(
+                torch, np, text + f"\n[checkpoint]\nprefix = {ck}\n"
+                f"checkpoint_every_n_krylov_its = {MIDSOLVE_EVERY}\n",
+                "sinx")
+        info, rinfo = res.solves[0], ref.solves[0]
+        k = info.iterations
+        files = sorted(f for f in os.listdir(tmp)
+                       if f.startswith(f"b_{pc}_level0_it"))
+        saves = [c for c in calls if "_it" in c[1]]
+        per = sum(c[2] for c in saves) / len(saves)
+        print(f"[14] (b) pc_type={pc}: {info.line(0)}; reference "
+              f"{rinfo.path} {rinfo.iterations} iterations, "
+              f"{rinfo.seconds:.3f} s; {len(files)} mid-solve files; "
+              f"{per:.4f} s a mid-solve save ({saves[0][3] / 1e6:.1f} MB: "
+              f"device-to-host copy and write), solve "
+              f"{info.seconds - rinfo.seconds:+.3f} s against the "
+              f"reference; B1 launches {b1}")
+        check(k == rinfo.iterations and torch.equal(res.u, ref.u),
+              f"(b) {pc}: the chunked solve differs from the reference")
+        check(len(files) == -(-k // MIDSOLVE_EVERY) and len(saves) ==
+              len(files) + (k % MIDSOLVE_EVERY == 0 and
+                            info.residual_norm >= 5e-15),
+              f"(b) {pc}: {len(files)} files, {len(saves)} saves for {k} "
+              "iterations")
+        check(info.path == ("cg-chunked" if pc == "none"
+                            else "fcg-cheby-chunked")
+              and (pc == "cheby" or rinfo.path == "cg"),
+              f"(b) {pc}: paths {info.path}, {rinfo.path}")
+        out[pc] = (res, per)
+    return out
+
+
+def io_nonlinear(torch, np, tmp):
+    """(c) phase 11 (b)'s CDS with FCG-Chebyshev and per-level plus
+    per-Newton-iterate checkpoints, then restarted from level 0 by
+    history."""
+    import os
+
+    run = dict(NONLINEAR_RUNS["b"], ksp="fcg")
+    run.pop("problem")
+    text = NONLINEAR_OPTIONS.format(**run).replace(
+        "ksp_max_it = 10000", "ksp_max_it = 10000\npc_type = cheby")
+    ck = f"{tmp}/c"
+    with timed_checkpoints(torch) as calls:
+        full, _, w_full = io_run(
+            torch, np, text + f"\n[checkpoint]\nprefix = {ck}\n"
+            "checkpoint_every_n_krylov_its = 1\n", "cds")
+    saves = [c for c in calls if "_it" in c[1]]
+    print(f"[14] (c) CDS deg 3, level 4 -> 5, FCG-Chebyshev: Newton "
+          f"{[s.iterations for s in full.solves]}, Krylov "
+          f"{[s.krylov for s in full.solves]}, F_norm "
+          f"{[r['F_norm'] for r in full.norms.rows]}, {len(saves)} "
+          f"Newton-iterate checkpoints, wall {w_full:.2f} s")
+    for level, info in enumerate(full.solves):
+        its = sorted(int(f.split("_it")[1][:-4]) for f in os.listdir(tmp)
+                     if f.startswith(f"c_level{level}_it"))
+        check(its == list(range(1, info.iterations + 1)),
+              f"(c) level {level}: iterate files {its}")
+    with timed_checkpoints(torch) as calls:
+        res, _, wall = io_run(
+            torch, np, text + _restart_opts(f"{ck}_level0", "history"),
+            "cds")
+    du = float(torch.max(torch.abs(res.u - full.u)))
+    print(f"[14] (c) restart from level 0 by history: max |du| {du!r}, "
+          f"F_norm {res.norms.rows[-1]['F_norm']!r} (full "
+          f"{full.norms.rows[-1]['F_norm']!r}), wall {wall:.2f} s")
+    _io_lines(calls, "(c)")
+    check(du == 0.0 and res.norms.rows[-1]["F_norm"]
+          == full.norms.rows[-1]["F_norm"],
+          "(c) the nonlinear restart is not bit-equal to the full run")
+
+
+def io_vtk(torch, np, tmp, ck_level1):
+    """(d) `[d4est_vtk] filename` on the level-4 deg-3 brick, and the
+    checkpoint plotter of the CLI in a subprocess on (a)'s level-1
+    checkpoint."""
+    import os
+
+    from disco4est_tpu_torch import driver
+    from disco4est_tpu_torch.io import vtk
+
+    text = SINX_OPTIONS.format(level=4, deg=3, use_structured="auto",
+                               mixed=1)
+    writes = []
+    write_vtu = vtk.write_vtu
+
+    def timed(path, mesh, *args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        write_vtu(path, mesh, *args, **kw)
+        writes.append((path, time.perf_counter() - t0, mesh.n_elements,
+                       mesh.nl))
+
+    driver.write_vtu = timed
+    try:
+        io_run(torch, np, text + f"\n[d4est_vtk]\nfilename = {tmp}/v\n",
+               "sinx")
+    finally:
+        driver.write_vtu = write_vtu
+    (path, secs, E, nl), = writes
+    with open(path) as f:
+        head = f.read(400)
+    pts, cells = E * nl**3, E * (nl - 1)**3
+    print(f"[14] (d) VTK of the level-4 deg-3 brick: {pts} points, {cells} "
+          f"cells, {os.path.getsize(path) / 2**20:.1f} MiB written in "
+          f"{secs:.3f} s")
+    check(pts == 262144 and f'NumberOfPoints="{pts}" NumberOfCells='
+          f'"{cells}"' in head, f"(d) VTK header {head!r}")
+    opts_path = f"{tmp}/plot.input"
+    with open(opts_path, "w") as f:
+        f.write(AMR_OPTIONS.format(use_structured="auto", mixed=1,
+                                   **AMR_RUNS["d"]))
+    out = f"{tmp}/plot.vtu"
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "disco4est_tpu_torch", opts_path,
+         f"--plot-checkpoint={ck_level1}", f"--output={out}"],
+        capture_output=True, text=True, timeout=300,
+        cwd=pathlib.Path(__file__).resolve().parent)
+    wall = time.perf_counter() - t0
+    print(f"[14] (d) plotter: exit {r.returncode}, {r.stdout.strip()!r}, "
+          f"{os.path.getsize(out) / 2**20 if os.path.exists(out) else 0:.1f}"
+          f" MiB, subprocess wall {wall:.2f} s")
+    check(r.returncode == 0, f"(d) plotter failed: {r.stderr[-2000:]}")
+    with open(out) as f:
+        txt = f.read()
+    check('Name="u"' in txt and 'Name="deg"' in txt and 'Name="level"'
+          in txt, "(d) the plotter's .vtu lacks u, deg or level")
+
+
+def io_timings(torch, np, tmp):
+    """(e) `[driver] print_timings = 1` and `[logging] log_dir` on phase
+    9 (a)'s run through the CLI entry: one TIMINGS row per level, amr
+    included where an AMR step follows (C4), each row's phases within the
+    level's own wall (from the timer's start of one level to the next's,
+    behind synchronizes)."""
+    from disco4est_tpu_torch import __main__ as cli
+    from disco4est_tpu_torch import driver
+    from disco4est_tpu_torch.util import logging as dlog
+
+    text = AMR_OPTIONS.format(use_structured="auto", mixed=1,
+                              **AMR_RUNS["a"]) + (
+        f"\n[driver]\nprint_timings = 1\n[logging]\nlog_dir = {tmp}/logs\n")
+    starts = []
+    level = driver._PhaseTimer.level
+
+    def marked(self, it):
+        torch.cuda.synchronize()
+        starts.append(time.perf_counter())
+        return level(self, it)
+
+    results = []
+    run_poisson = cli.run_poisson
+
+    def capture(*args, **kw):
+        results.append(run_poisson(*args, **kw))
+        return results[-1]
+
+    buf = io.StringIO()
+    driver._PhaseTimer.level = marked
+    cli.run_poisson = capture
+    try:
+        with contextlib.redirect_stdout(buf):
+            code = cli.main([text, "--problem=sinx", "--device=cuda"])
+        torch.cuda.synchronize()
+        end = time.perf_counter()
+    finally:
+        driver._PhaseTimer.level = level
+        cli.run_poisson = run_poisson
+        dlog.init_logging(None, console=False)
+    check(code == 0, f"(e) CLI exit code {code}")
+    lines = buf.getvalue().splitlines()
+    rows = [x for x in lines if x.startswith("TIMINGS")]
+    norms = [x for x in lines if len(x.split()) == 4
+             and not x.startswith(("TIMINGS", "solve", "C1"))]
+    walls = [b - a for a, b in zip(starts, starts[1:] + [end])]
+    timings = results[0].timings
+    for row, phases, wall in zip(rows, timings, walls):
+        total = sum(v for k, v in phases.items() if k != "level")
+        print(f"[14] (e) {row} (sum {total:.4f} s; the level's wall "
+              f"{wall:.4f} s)")
+        check(total <= wall, f"(e) phases {total} > wall {wall}")
+    check(len(rows) == len(timings) == 2
+          and set(timings[0]) == {"level", "mesh", "solve", "amr"}
+          and set(timings[1]) == {"level", "mesh", "solve"},
+          f"(e) TIMINGS rows {rows}")
+    with open(f"{tmp}/logs/d4est_norms.log") as f:
+        logged = f.read()
+    print(f"[14] (e) d4est_norms.log: {len(logged.splitlines())} lines")
+    check(len(norms) == 2 and all(x in logged for x in norms),
+          f"(e) norm lines {norms} not all in d4est_norms.log")
+
+
+def io_diagnostics(torch, np, mid):
+    """(f) `ip_energy_norm_sqr` of (b)'s level-5 error on the card against
+    the CPU, and `penalty_report` of a hanging brick and of a
+    pointwise-penalty mesh against the CPU's."""
+    from disco4est_tpu_torch.geometry.brick import BrickGeometry
+    from disco4est_tpu_torch.io.ip_energy_norm import ip_energy_norm_sqr
+    from disco4est_tpu_torch.laplacian.penalty_debug import penalty_report
+    from disco4est_tpu_torch.mesh.builder import build_mesh
+    from disco4est_tpu_torch.mesh.tree import Forest
+    from disco4est_tpu_torch.problems.poisson import SinxProblem
+
+    res = mid["none"][0]
+    mesh = res.mesh
+    e = res.u - mesh.init_field(SinxProblem.analytic)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = {k: float(v) for k, v in ip_energy_norm_sqr(mesh, e).items()}
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = {k: float(v) for k, v in
+           ip_energy_norm_sqr(mesh.to("cpu"), e.cpu()).items()}
+    t_cpu = time.perf_counter() - t0
+    rel = {k: abs(card[k] - cpu[k]) / abs(cpu[k]) for k in cpu}
+    print(f"[14] (f) IP energy norm of the level-5 error: {card} "
+          f"(card {t_card:.3f} s, CPU {t_cpu:.3f} s; rel {rel})")
+    check(all(r <= IO_REL for r in rel.values()), f"(f) IP norm rel {rel}")
+
+    geom = BrickGeometry(dim=3)
+    forest = Forest.uniform(geom.conn, 3)
+    flags = np.zeros(forest.n_elements, bool)
+    flags[::7] = True
+    forest = forest.refine(flags).balance()
+    for face_h in ("volume_div_area", "j_div_sj_quad"):
+        reps = [penalty_report(build_mesh(geom, forest, deg=3,
+                                          face_h_type=face_h, device=dev))
+                for dev in ("cuda", "cpu")]
+        print(f"[14] (f) penalty report, {forest.n_elements} elements, "
+              f"{face_h}: {reps[0]}")
+        for cls in ("interior", "boundary", "mortar"):
+            a, b = reps[0][cls], reps[1][cls]
+            check(a["count"] == b["count"] > 0 and all(
+                abs(a[s] - b[s]) <= IO_REL * abs(b[s])
+                for s in ("min", "max", "mean")),
+                f"(f) {face_h} {cls}: card {a}, CPU {b}")
+
+
+def phase_io(torch, np, card):
+    """Phase 14: checkpoints, restart, VTK, the plotter, timings, logging
+    and the diagnostics on the card."""
+    import tempfile
+
+    from disco4est_tpu_torch.laplacian import fused
+    from disco4est_tpu_torch.laplacian import structured as S
+    from disco4est_tpu_torch.tools import exp_kernel_design as X
+
+    print(f"[14] IO and checkpoint-restart on {card}")
+    t_phase = time.perf_counter()
+    fused.KERNEL_LAUNCHES = X.KERNEL_LAUNCHES = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        io_restart(torch, np, tmp)
+        mid = io_midsolve(torch, np, tmp)
+        io_nonlinear(torch, np, tmp)
+        io_vtk(torch, np, tmp, f"{tmp}/d_level1")
+        io_timings(torch, np, tmp)
+        io_diagnostics(torch, np, mid)
+    counts = dict(B2=fused.KERNEL_LAUNCHES, B3=X.KERNEL_LAUNCHES)
+    print(f"[14] B2 and B3 launches in phase 14: {counts}; phase wall "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    check(not any(counts.values()), f"B2 or B3 ran in phase 14: {counts}")
+
+
 def main():
     import numpy as np
     import torch
@@ -2432,6 +2863,7 @@ def main():
     tp11 = phase_nonlinear(torch, np, card)
     schwarz_b = phase_precond(torch, np, card, fcg5, tp11)
     phase_geometry(torch, np, card, schwarz_b)
+    phase_io(torch, np, card)
 
     csrc = "disco4est_tpu_torch/csrc/"
     # B1 and B2 have one entry per timed size; each entry's launches are

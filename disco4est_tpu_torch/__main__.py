@@ -1,5 +1,5 @@
 """CLI: `python -m disco4est_tpu_torch options.input [--problem=sinx]
-[--device=cuda|cpu]`.
+[--device=cuda|cpu] [--plot-checkpoint=ck [--output=out.vtu]]`.
 
 Port of `disco4est_tpu/__main__.py`.  The problem comes from `--problem=`
 or `[problem] name`; the device from `--device=` (default `cuda`; a
@@ -11,23 +11,35 @@ Nonlinear problems (constant_density_star / cds, okendon, two_punctures)
 run the Newton–Krylov loop and print the norm lines (L2 error, or ‖F‖
 where the problem has no analytic solution), one Newton line per level
 (iterations, ‖F‖, Krylov iterations, wall time, ‖F‖ history) and the fit.
+`[logging] log_dir = <dir>` also routes the norm lines to the
+`d4est_norms` category's files there (`util/logging.py`); the console
+keeps stdout.  `--plot-checkpoint=ck` writes the checkpoint `ck` as a
+`.vtu` (`--output=`, default `checkpoint.vtu`) and solves nothing.
 """
 
 import sys
+
+import numpy as np
 
 from disco4est_tpu_torch.driver import (
     CDSProblem,
     OkendonProblem,
     TwoPuncturesProblem,
+    geometry_from_options,
+    resolve_device,
     run_nonlinear,
     run_poisson,
 )
+from disco4est_tpu_torch.io import checkpoint as ckpt
+from disco4est_tpu_torch.io.vtk import write_vtu
+from disco4est_tpu_torch.mesh.builder import build_mesh
 from disco4est_tpu_torch.problems.poisson import (
     LorentzianProblem,
     SinxProblem,
 )
 from disco4est_tpu_torch.problems.stamm import StammProblem
 from disco4est_tpu_torch.util.config import Options
+from disco4est_tpu_torch.util.logging import get_category, init_logging
 
 
 def _stamm(opts):
@@ -55,8 +67,29 @@ NONLINEAR_PROBLEMS = {
 
 USAGE = (
     "usage: python -m disco4est_tpu_torch options.input [--problem=sinx] "
-    "[--device=cuda|cpu]"
+    "[--device=cuda|cpu] [--plot-checkpoint=ck.npz [--output=out.vtu]]"
 )
+
+
+def plot_checkpoint(opts: Options, ck_path: str, out_path: str, *,
+                    device) -> int:
+    """Checkpoint-to-VTK plotter (JAX `plot_checkpoint`; the reference's
+    CheckpointAMRPlotter problem family): rebuild the mesh of a checkpoint
+    on `device` and write every stored nodal field, with `level` (and, when
+    stored, `deg`) cell fields, to a `.vtu`; no solve."""
+    device = resolve_device(device)
+    geom = geometry_from_options(opts)
+    forest, fields, deg, _, extra = ckpt.load(ck_path, geom.conn,
+                                              device=device)
+    mesh = build_mesh(geom, forest, deg=deg, device=device)
+    cells = {"level": forest.level.astype(np.int32)}
+    de = (extra or {}).get("deg_e")
+    if de is not None:
+        cells["deg"] = np.asarray(de, np.int32)
+    write_vtu(out_path, mesh, point_fields=fields, cell_fields=cells)
+    print(f"wrote {out_path}: {forest.n_elements} elements, "
+          f"fields {sorted(fields)}")
+    return 0
 
 
 def main(argv):
@@ -64,24 +97,28 @@ def main(argv):
         print(USAGE)
         return 1
     opts = Options.load(argv[0])
-    if opts.get("logging", "log_dir", None):
-        raise NotImplementedError(
-            "[logging] log_dir is not ported yet (ROADMAP A14)"
-        )
     name = opts.get("problem", "name", "sinx")
     device = "cuda"
+    ck, out = None, "checkpoint.vtu"
     for a in argv[1:]:
         if a.startswith("--problem="):
             name = a.split("=", 1)[1]
         elif a.startswith("--device="):
             device = a.split("=", 1)[1]
-        elif a.startswith(("--plot-checkpoint=", "--output=")):
-            raise NotImplementedError(
-                "the checkpoint plotter is not ported yet (ROADMAP A14)"
-            )
+        elif a.startswith("--plot-checkpoint="):
+            ck = a.split("=", 1)[1]
+        elif a.startswith("--output="):
+            out = a.split("=", 1)[1]
         else:
             print(f"unknown argument {a!r}\n{USAGE}")
             return 1
+    # [logging] log_dir routes per-category logs to files (zlog role,
+    # reference `IO/logging.conf:20-31`); the console stays stdout
+    log_dir = opts.get("logging", "log_dir", None)
+    if log_dir:
+        init_logging(log_dir, console=False)
+    if ck is not None:
+        return plot_checkpoint(opts, ck, out, device=device)
     if name in NONLINEAR_PROBLEMS:
         result = run_nonlinear(opts, NONLINEAR_PROBLEMS[name](opts),
                                device=device)
@@ -95,9 +132,13 @@ def main(argv):
         print(f"unknown problem {name!r}; known: {known}")
         return 1
 
+    if log_dir:
+        nlog = get_category("d4est_norms")
+        for line in result.norms.lines(key):
+            nlog.info(line)
     for line in result.norms.lines(key):
         print(line)
-    for level, info in enumerate(result.solves):
+    for level, info in enumerate(result.solves, result.first_level):
         print(info.line(level))
     fit = result.norms.convergence_fit(key)
     if fit:

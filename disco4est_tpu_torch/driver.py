@@ -39,15 +39,26 @@ solve takes one of these paths, as in the JAX driver:
 `use_structured = auto` means "on when the device is CUDA" (the JAX
 driver: "on when the backend is a TPU").  Everything runs on the device
 the caller names; a missing CUDA device raises, it never drops to the CPU.
-Forests, marking and logs stay host numpy between epochs.  Options this
-slice does not port raise `NotImplementedError` naming the ROADMAP item
-that brings them.
+Forests, marking and logs stay host numpy between epochs.
+
+IO and restart (JAX `driver.py:1225-1300`): `[checkpoint] prefix` writes
+`<prefix>_level<k>.npz` after every level (`io/checkpoint.py`), and with
+`checkpoint_every_n_krylov_its = n` also `<prefix>_level<k>_it<j>.npz`
+every n Krylov iterations (the linear solve then runs in exactly resumed
+chunks) or Newton iterates; `[initial_mesh] load_from_checkpoint = 1`
+restarts from `checkpoint_prefix` by `checkpoint_type = structure` or
+`history`; `[d4est_vtk] filename` writes `<filename>_<k>.vtu` per level;
+`[driver] print_timings = 1` prints one `TIMINGS level k:` line per level
+of `run_poisson`.  `[parallelism]` (ROADMAP A15) raises
+`NotImplementedError`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -73,11 +84,14 @@ from disco4est_tpu_torch.geometry.misc import (
     PizzaHalfGeometry,
     TrapGeometry,
 )
+from disco4est_tpu_torch.io import checkpoint as ckpt_io
 from disco4est_tpu_torch.io.norms import NormLog, norm_L2, norm_Linfty
+from disco4est_tpu_torch.io.vtk import write_vtu
 from disco4est_tpu_torch.laplacian import curved, structured
 from disco4est_tpu_torch.laplacian.hp import (
     adjoint_to_own,
     apply_sipg_hp,
+    restrict_padded,
     to_max,
 )
 from disco4est_tpu_torch.laplacian.nonlinear import (
@@ -111,7 +125,11 @@ from disco4est_tpu_torch.solvers.multigrid import (
     set_matrix_operator,
     v_cycle,
 )
-from disco4est_tpu_torch.solvers.newton import NewtonParams, newton_solve
+from disco4est_tpu_torch.solvers.newton import (
+    NewtonParams,
+    NewtonResult,
+    newton_solve,
+)
 from disco4est_tpu_torch.solvers.schwarz_overlap import (
     build_overlapping_schwarz,
     build_overlapping_schwarz_kslot,
@@ -285,16 +303,22 @@ class DriverResult:
     mesh: MeshData  # the last epoch's mesh
     u: torch.Tensor  # the last epoch's solution (padded own degrees)
     norms: NormLog
-    solves: list  # [SolveInfo] per level
+    solves: list  # [SolveInfo] per level this run went through (from the
+    #               restart level on a restart)
     eta2_history: list = dataclasses.field(default_factory=list)
     #                    [np.ndarray η² per element] per smooth_pred marking
     precond: object = None  # the last epoch's preconditioner state
     #     (`MGHierarchy`, `OverlappingSchwarz`, `SchwarzKSlot` or the
     #     Chebyshev bounds)
+    timings: list = dataclasses.field(default_factory=list)
+    #     [{"level": k, phase: seconds}] per level with `[driver]
+    #     print_timings = 1` (JAX `DriverResult.timings`), else empty
+    first_level: int = 0  # the level of `solves[0]`: the restart level,
+    #                       else 0
 
 
 def _refuse_unported(opts: Options):
-    """Options of the JAX driver that this slice does not port."""
+    """Options of the JAX driver that the port does not run yet."""
     pc_type = opts.get("d4est_solver_krylov_petsc", "pc_type", "none")
     if pc_type not in ("none", "schwarz", "multigrid", "cheby"):
         raise ValueError(f"unknown pc_type: {pc_type!r}")
@@ -306,23 +330,122 @@ def _refuse_unported(opts: Options):
             "[parallelism]: the distributed driver is not ported yet "
             "(ROADMAP A15)"
         )
-    for section, key, what in (
-        ("checkpoint", "prefix", "checkpoints"),
-        ("initial_mesh", "load_from_checkpoint", "checkpoint restart"),
-        ("d4est_vtk", "filename", "VTK output"),
-        ("driver", "print_timings", "per-phase timings"),
-    ):
-        value = str(opts.get(section, key, "")).lower()
-        if value not in ("", "0", "false", "no", "off"):
-            raise NotImplementedError(
-                f"[{section}] {key}: {what} are not ported yet "
-                "(ROADMAP A14)"
+
+
+class _PhaseTimer:
+    """Per-phase wall clock of the linear AMR loop (JAX `_PhaseTimer`,
+    `driver.py:187-231`): with `[driver] print_timings = 1`, one line
+    `TIMINGS level k: mesh=…s solve=…s estimate=…s amr=…s` per level.
+
+    Each phase boundary synchronizes the device, so that a phase is charged
+    its own asynchronous launches and not the previous phase's.  The JAX
+    timer prints a level's row before its amr phase runs, so its rows never
+    show amr (ROADMAP C4); the port prints after it.  Off (the default) it
+    records nothing and adds no synchronize."""
+
+    def __init__(self, opts: Options, device):
+        self.enabled = opts.get("driver", "print_timings", False, cast=bool)
+        self.device = device
+        self.rows = []
+
+    def level(self, it):
+        if self.enabled:
+            self.rows.append({"level": it})
+
+    @contextlib.contextmanager
+    def phase(self, name):
+        if not self.enabled:
+            yield
+            return
+        _sync(self.device)
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            _sync(self.device)
+            row = self.rows[-1]
+            row[name] = row.get(name, 0.0) + time.perf_counter() - t0
+
+    def flush(self):
+        if self.enabled and self.rows:
+            row = self.rows[-1]
+            parts = " ".join(f"{k}={v:.3f}s" for k, v in row.items()
+                             if k != "level")
+            print(f"TIMINGS level {row['level']}: {parts}")
+
+
+def _restart_state(opts: Options, geom, device):
+    """[initial_mesh] load_from_checkpoint (JAX `_restart_state`; role of
+    `driver.c:156-227`): (forest, level, fields, deg, history, extra) or
+    None.
+
+    `checkpoint_type = structure` trusts the stored forest (the P4EST_H5
+    analog); `history` rebuilds the initial mesh and REPLAYS the stored
+    refinement logs (`d4est_checkpoint_load_mesh_from_amr_history`), and
+    the replayed forest must reproduce the stored checksum."""
+    if not opts.get("initial_mesh", "load_from_checkpoint", False,
+                    cast=bool):
+        return None
+    prefix = opts.get("initial_mesh", "checkpoint_prefix", required=True)
+    ctype = opts.get("initial_mesh", "checkpoint_type", "structure")
+    if ctype not in ("structure", "history"):
+        raise ValueError(f"unknown checkpoint_type {ctype!r}")
+    forest, fields, deg, history, extra = ckpt_io.load(prefix, geom.conn,
+                                                       device=device)
+    if ctype == "history":
+        level0 = opts.get_int("initial_mesh", "min_level", required=True)
+        replayed = ckpt_io.replay_amr_history(
+            Forest.uniform(geom.conn, level0), history or [])
+        if replayed.checksum() != forest.checksum():
+            raise ValueError(
+                "AMR-history replay does not reproduce the checkpointed "
+                "forest (checksum mismatch)"
             )
+        forest = replayed
+    extra = extra or {}
+    return (forest, int(extra.get("level", 0)), fields, deg, history or [],
+            extra)
+
+
+class _Checkpointer:
+    """[checkpoint] section (JAX `_Checkpointer`): per-AMR-level
+    checkpoints, plus mid-solve ones every n Krylov or Newton iterations
+    (`d4est_solver_krylov_petsc.c:236-245`, `d4est_amr_smooth_pred.c:34`)."""
+
+    def __init__(self, opts: Options):
+        self.prefix = opts.get("checkpoint", "prefix", None)
+        self.every_n = opts.get_int("checkpoint",
+                                    "checkpoint_every_n_krylov_its", 0)
+
+    @property
+    def midsolve(self) -> bool:
+        return bool(self.prefix) and self.every_n > 0
+
+    def save_level(self, forest, it, fields, deg, history, extra):
+        ckpt_io.save(f"{self.prefix}_level{it}", forest, fields, deg=deg,
+                     amr_history=history, extra=extra)
+
+    def save_midsolve(self, forest, it, k, u, deg):
+        ckpt_io.save(f"{self.prefix}_level{it}_it{k}", forest, {"u": u},
+                     deg=deg, extra={"mid_solve_iteration": int(k)})
+
+
+def _predictor_json(sp_state):
+    """The smooth_pred predictor as checkpoint JSON (float repr is exact)."""
+    return None if sp_state is None else sp_state.predictor.tolist()
 
 
 def run_poisson(opts: Options, problem, *, device) -> DriverResult:
     """Linear Poisson AMR-solve loop on the configured geometry, on
-    `device`."""
+    `device`.
+
+    On a restart (`[initial_mesh] load_from_checkpoint`) the loop starts at
+    the checkpoint's level with its forest, degrees, predictor and
+    post-solve iterate, and skips that level's solve (JAX
+    `driver.py:687-701`, `:843-855`): its `SolveInfo` has path `restart`,
+    0 iterations and the residual ‖b − A u‖ of the restored iterate, and
+    no preconditioner is built for it.  `solves` and `eta2_history` then
+    start at the restart level."""
     device = resolve_device(device)
     # IEEE f32 products everywhere: reduced-precision (TF32) products make
     # the inner f32 CG diverge, as the JAX package found on the TPU
@@ -396,6 +519,9 @@ def run_poisson(opts: Options, problem, *, device) -> DriverResult:
                              "cheby_eigs_lmax_lmin_ratio", 30.0),
     )
     precond = None
+    ckpt = _Checkpointer(opts)
+    timer = _PhaseTimer(opts, device)
+    vtk_base = opts.get("d4est_vtk", "filename", None)
 
     forest = Forest.uniform(geom.conn, level)
     # hp state: per-element degrees and the storage degree (grows as
@@ -403,37 +529,83 @@ def run_poisson(opts: Options, problem, *, device) -> DriverResult:
     deg_e = np.full(forest.n_elements, deg, np.int32)
     storage = deg
     norms = NormLog()
-    solves, eta2_hist = [], []
+    solves, eta2_hist, amr_history = [], [], []
     u = None
     sp_state = None
-    for it in range(n_amr + 1):
+    it0, resume_u, resume_own = 0, None, None
+    rs = _restart_state(opts, geom, device)
+    if rs is not None:
+        # the checkpoint holds its level's post-solve iterate at the
+        # storage degree, the degrees and the predictor before marking
+        forest, it0, fields, storage, amr_history, extra = rs
+        de = extra.get("deg_e")
+        deg_e = (np.asarray(de, np.int32) if de is not None
+                 else np.full(forest.n_elements, deg, np.int32))
+        if extra.get("predictor") is not None:
+            sp_state = SmoothPredState(np.asarray(extra["predictor"]))
+        resume_u = fields["u"]
+        resume_own = fields.get("u_own")
+    for it in range(it0, n_amr + 1):
+        timer.level(it)
         mixed = bool((deg_e != storage).any())
-        mesh = build_mesh(
-            geom, forest, deg=storage, quad=quad, deg_quad=storage + dq_inc,
-            penalty_prefactor=prefactor, penalty_fcn=penalty_fcn,
-            deg_e=deg_e, face_h_type=face_h_type, device=device,
-        )
+        with timer.phase("mesh"):
+            mesh = build_mesh(
+                geom, forest, deg=storage, quad=quad,
+                deg_quad=storage + dq_inc, penalty_prefactor=prefactor,
+                penalty_fcn=penalty_fcn, deg_e=deg_e,
+                face_h_type=face_h_type, device=device,
+            )
         g = mesh.boundary_values(problem.boundary)
         f = mesh.init_field(problem.rhs)
         rhs_max = build_rhs_with_strong_bc(mesh, f, g)
         rhs = adjoint_to_own(mesh, rhs_max) if mixed else rhs_max
         # the transferred field starts the solve when the shapes match
         x0 = torch.zeros_like(f) if u is None or u.shape != f.shape else u
-        if pc_type != "none":
-            info, u, precond = _solve_pc(mesh, rhs, x0, hp=mixed, **pc_opts)
-        elif mixed:
-            info, u = _solve_hp(mesh, rhs, x0)
-        else:
-            info, u = _solve(mesh, rhs, x0, use_mixed=use_mixed,
-                             structured_on=structured_on, ksp=ksp,
-                             mixed_opts=mixed_opts)
-        solves.append(info)
-        u_max = to_max(mesh, u) if mixed else u
+        restart = it == it0 and resume_u is not None
+        pc = (_build_pc(mesh, rhs, hp=mixed, **pc_opts)
+              if pc_type != "none" and not restart else None)
+        if pc is not None:
+            precond = pc.state
+        with timer.phase("solve"):
+            if restart:
+                info, u = _restored(mesh, rhs, resume_u, resume_own,
+                                    hp=mixed)
+            elif ckpt.midsolve:
+                info, u = _solve_chunked(
+                    mesh, rhs, x0, hp=mixed, ksp=ksp, pc=pc,
+                    every_n=ckpt.every_n,
+                    save=lambda k, x: ckpt.save_midsolve(forest, it, k, x,
+                                                         storage))
+            elif pc is not None:
+                info, u = _solve_pc(mesh, rhs, x0, hp=mixed, pc=pc)
+            elif mixed:
+                info, u = _solve_hp(mesh, rhs, x0)
+            else:
+                info, u = _solve(mesh, rhs, x0, use_mixed=use_mixed,
+                                 structured_on=structured_on, ksp=ksp,
+                                 mixed_opts=mixed_opts)
+            solves.append(info)
+            u_max = (resume_u if restart else
+                     to_max(mesh, u) if mixed else u)
 
         u_a = mesh.init_field(problem.analytic)
         norms.add(mesh, L_2=norm_L2(mesh, u_max - u_a),
                   L_infty=norm_Linfty(u_max - u_a))
+        if vtk_base:
+            write_vtu(f"{vtk_base}_{it}.vtu", mesh,
+                      point_fields={"u": u_max, "error": u_max - u_a},
+                      cell_fields={"deg": deg_e})
+        if ckpt.prefix:
+            # a mixed-degree level also stores its own-degree iterate, which
+            # restricting u back from the storage degree does not give bit
+            # for bit (ROADMAP C16)
+            ckpt.save_level(forest, it,
+                            {"u": u_max, "u_own": u} if mixed else
+                            {"u": u_max}, storage, amr_history,
+                            extra={"level": it, "deg_e": deg_e.tolist(),
+                                   "predictor": _predictor_json(sp_state)})
         if it == n_amr:
+            timer.flush()
             break
 
         pred = None
@@ -443,11 +615,12 @@ def run_poisson(opts: Options, problem, *, device) -> DriverResult:
             # raise every element's degree by one per step
             log = np.minimum(deg_e + 1, max_degree).astype(np.int64)
         else:
-            F = apply_sipg(mesh, u_max) - rhs_max
-            eta2 = estimate_bi(
-                mesh, u_max, F, g=g, penalty_prefactor=prefactor,
-                vol_h=vol_h_from_options(opts),
-            ).cpu().numpy()
+            with timer.phase("estimate"):
+                F = apply_sipg(mesh, u_max) - rhs_max
+                eta2 = estimate_bi(
+                    mesh, u_max, F, g=g, penalty_prefactor=prefactor,
+                    vol_h=vol_h_from_options(opts),
+                ).cpu().numpy()
             eta2_hist.append(eta2)
             if sp_state is None or len(sp_state.predictor) != mesh.n_elements:
                 sp_state = SmoothPredState.fresh(mesh.n_elements, sp_params)
@@ -464,19 +637,23 @@ def run_poisson(opts: Options, problem, *, device) -> DriverResult:
             )
             if pred is not None:
                 sp_state = SmoothPredState(pred)
-        new_forest, new_deg_e, fields, new_storage = amr_step_hp(
-            forest, deg_e, log, {"u": u}, storage, max_degree
-        )
-        u = fields["u"]
-        if sp_state is not None and pred is not None:
-            sp_state = SmoothPredState(
-                transfer_predictor(forest, new_forest, pred, deg_e,
-                                   sp_params, log)
+        amr_history.append(np.asarray(log))
+        with timer.phase("amr"):
+            new_forest, new_deg_e, fields, new_storage = amr_step_hp(
+                forest, deg_e, log, {"u": u}, storage, max_degree
             )
+            u = fields["u"]
+            if sp_state is not None and pred is not None:
+                sp_state = SmoothPredState(
+                    transfer_predictor(forest, new_forest, pred, deg_e,
+                                       sp_params, log)
+                )
+        timer.flush()
         forest, deg_e, storage = new_forest, new_deg_e, new_storage
 
     return DriverResult(mesh=mesh, u=u, norms=norms, solves=solves,
-                        eta2_history=eta2_hist, precond=precond)
+                        eta2_history=eta2_hist, precond=precond,
+                        timings=timer.rows, first_level=it0)
 
 
 def _sync(device):
@@ -513,14 +690,24 @@ def _schwarz(mesh: MeshData, *, overlap, subdomain_iter, chunk, hp=False):
         mesh, num_nodes_overlap=overlap, iterations=subdomain_iter, hp=hp)
 
 
-def _solve_pc(mesh: MeshData, rhs, x0, *, hp, pc_type, mg_params,
-              mesh_kwargs, overlap, subdomain_iter, chunk, eigs_iters,
-              ratio):
-    """A preconditioned epoch (JAX `_linear_solve_fcg_mg(_hp)`,
-    `_linear_solve_fcg_schwarz(_hp)`, `_linear_solve_cg_cheby(_hp)`): the
-    preconditioner is set up on this epoch's mesh, then f64 FCG (multigrid,
-    Schwarz) or CG (Chebyshev) runs on the operator, the hp one on
-    mixed-degree epochs.  Returns (info, x, preconditioner state)."""
+class _Precond(NamedTuple):
+    """One epoch's preconditioner: the apply `M`, its state (returned as
+    `DriverResult.precond`), the Krylov solver and path it pairs with, and
+    its set-up seconds by step."""
+
+    M: object
+    state: object
+    solver: object
+    path: str
+    setup: dict
+
+
+def _build_pc(mesh: MeshData, rhs, *, hp, pc_type, mg_params, mesh_kwargs,
+              overlap, subdomain_iter, chunk, eigs_iters, ratio) -> _Precond:
+    """Set up the preconditioner of a preconditioned epoch (JAX
+    `driver.py:704-795`) on this epoch's mesh, on the hp operator on
+    mixed-degree epochs: multigrid and Schwarz pair with f64 FCG, Chebyshev
+    (bounds from CG-Lanczos on the rhs, 8 steps an apply) with f64 CG."""
     op = apply_sipg_hp if hp else apply_sipg
     A = lambda v: op(mesh, v)
     setup = {}
@@ -544,24 +731,93 @@ def _solve_pc(mesh: MeshData, rhs, x0, *, hp, pc_type, mg_params,
             mesh, overlap=overlap, subdomain_iter=subdomain_iter,
             chunk=chunk, hp=hp))
         solver, path = fcg_solve, "fcg-schwarz"
-    else:  # cheby: bounds from CG-Lanczos on the rhs, 8 steps per apply
+    else:  # cheby
         lmax = step("eigs", lambda: cg_eigs(A, rhs, eigs_iters))[1]
         state = (lmax / ratio, lmax)
         M = lambda r: cheby_smooth(A, r, torch.zeros_like(r), state[0],
                                    state[1], 8)
         solver, path = cg_solve, "cg-cheby"
+    return _Precond(M, state, solver, path, setup)
+
+
+def _solve_pc(mesh: MeshData, rhs, x0, *, hp, pc: _Precond):
+    """A preconditioned epoch (JAX `_linear_solve_fcg_mg(_hp)`,
+    `_linear_solve_fcg_schwarz(_hp)`, `_linear_solve_cg_cheby(_hp)`): `pc`'s
+    solver on the operator, the hp one on mixed-degree epochs."""
+    op = apply_sipg_hp if hp else apply_sipg
     _sync(mesh.device)
     t0 = time.perf_counter()
-    res = solver(A, rhs, x0=x0, M=M, atol=5e-15, rtol=1e-20,
-                 max_iter=10000)
+    res = pc.solver(lambda v: op(mesh, v), rhs, x0=x0, M=pc.M, atol=5e-15,
+                    rtol=1e-20, max_iter=10000)
     _sync(mesh.device)
     info = SolveInfo(
-        path=path + ("-hp" if hp else ""), outer_iterations=0,
+        path=pc.path + ("-hp" if hp else ""), outer_iterations=0,
         iterations=res.iterations, residual_norm=res.residual_norm,
         rhs_norm=float(torch.linalg.norm(rhs.reshape(-1))), fallback=False,
-        seconds=time.perf_counter() - t0, setup=setup,
+        seconds=time.perf_counter() - t0, setup=pc.setup,
     )
-    return info, res.x, state
+    return info, res.x
+
+
+def _solve_chunked(mesh: MeshData, rhs, x0, *, hp, ksp, pc, every_n, save):
+    """The mid-solve checkpoint path (JAX `driver.py:880-899`, role of
+    `d4est_solver_krylov_petsc.c:236-245`): the f64 Krylov solve in chunks
+    of `every_n` iterations, each resuming the previous chunk's exact state
+    (`resume_state`), with `save(k, x)` after every chunk.  Preconditioned
+    chunks run FCG with `pc.M`; without one, `ksp_type` picks CG or FCG.
+    The f32 inner solves are not used on this path (as in JAX), so the
+    result equals the same Krylov solve run in one piece, bit for bit.
+    Path `<cg|fcg>[-<mg|schwarz|cheby>][-hp]-chunked`."""
+    op = apply_sipg_hp if hp else apply_sipg
+    M = pc.M if pc is not None else None
+    solver = fcg_solve if (ksp == "fcg" or M is not None) else cg_solve
+    parts = ["fcg" if solver is fcg_solve else "cg"]
+    if pc is not None:
+        parts.append(pc.path.split("-")[1])
+    if hp:
+        parts.append("hp")
+    _sync(mesh.device)
+    t0 = time.perf_counter()
+    state, k_cap = None, every_n
+    while True:
+        res, state = solver(lambda v: op(mesh, v), rhs, x0=x0, M=M,
+                            atol=5e-15, rtol=1e-20, max_iter=k_cap,
+                            resume_state=state, return_state=True)
+        save(res.iterations, res.x)
+        if res.iterations < k_cap or res.residual_norm < 5e-15:
+            break
+        k_cap += every_n
+    _sync(mesh.device)
+    info = SolveInfo(
+        path="-".join(parts + ["chunked"]), outer_iterations=0,
+        iterations=res.iterations, residual_norm=res.residual_norm,
+        rhs_norm=float(torch.linalg.norm(rhs.reshape(-1))), fallback=False,
+        seconds=time.perf_counter() - t0,
+        setup=pc.setup if pc is not None else {},
+    )
+    return info, res.x
+
+
+def _restored(mesh: MeshData, rhs, u_max, u_own, *, hp):
+    """The restart level's iterate, with no solve (JAX `driver.py:843-855`):
+    the checkpoint's storage-degree `u_max`, and on a mixed-degree epoch
+    its own-degree iterate `u_own` when the checkpoint has it, else
+    `restrict_padded(u_max)` (a checkpoint of the JAX driver, which is
+    exact only up to rounding, ROADMAP C16).  The info's residual is the
+    true ‖b − A u‖ of the restored iterate."""
+    u = u_max
+    if hp:
+        u = (u_own if u_own is not None
+             else restrict_padded(u_max, mesh.deg_e, mesh.deg, mesh.dim))
+    op = apply_sipg_hp if hp else apply_sipg
+    info = SolveInfo(
+        path="restart", outer_iterations=0, iterations=0,
+        residual_norm=float(torch.linalg.norm((rhs - op(mesh, u))
+                                              .reshape(-1))),
+        rhs_norm=float(torch.linalg.norm(rhs.reshape(-1))), fallback=False,
+        seconds=0.0,
+    )
+    return info, u
 
 
 def _solve(mesh: MeshData, rhs, x0, *, use_mixed, structured_on, ksp,
@@ -667,6 +923,7 @@ class CDSProblem:
     which moves the level-2 L2 from 9.6079e-6 to 8.4215e-6."""
 
     bc_type = "dirichlet"
+    name = "constant_density_star"
 
     def __init__(self, opts: Options | None = None):
         o = opts or Options.load("[problem]\n")
@@ -703,6 +960,7 @@ class OkendonProblem:
     """Okendon power-law adapter (`Problems/Okendon/`)."""
 
     bc_type = "dirichlet"
+    name = "okendon"
 
     def __init__(self, opts: Options | None = None):
         o = opts or Options.load("[problem]\n")
@@ -734,6 +992,7 @@ class TwoPuncturesProblem:
     Robin BC u/r + du/dn = 0 at the outer sphere."""
 
     bc_type = "robin"
+    name = "two_punctures"
     analytic = None
 
     def __init__(self, opts: Options | None = None):
@@ -798,16 +1057,19 @@ class NewtonInfo:
 def run_nonlinear(opts: Options, problem, *, device) -> DriverResult:
     """Nonlinear AMR loop on `device`: Newton–Krylov per level, the bi
     estimator on the residual, then uniform_h or h-only smooth_pred
-    refinement.  `DriverResult.solves` holds one `NewtonInfo` a level."""
+    refinement.  `DriverResult.solves` holds one `NewtonInfo` a level.
+
+    Checkpoints, restart and VTK as in `run_poisson` (JAX
+    `driver.py:1369-1380`, `:1489-1492`, `:1551-1562`, `:1600-1617`);
+    `checkpoint_every_n_krylov_its = n` saves every n-th Newton iterate.
+    The restart level runs no Newton step: its `NewtonInfo` has 0
+    iterations and ‖F‖ of the restored iterate.  `[driver] print_timings`
+    is accepted and prints nothing: the JAX nonlinear driver has no phase
+    timer, and `DriverResult.timings` stays empty."""
     device = resolve_device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     _refuse_unported(opts)
-    if opts.get_int("checkpoint", "checkpoint_every_n_krylov_its", 0) > 0:
-        raise NotImplementedError(
-            "[checkpoint] checkpoint_every_n_krylov_its: mid-solve "
-            "checkpoints are not ported yet (ROADMAP A14)"
-        )
 
     geom = geometry_from_options(opts)
     level = opts.get_int("initial_mesh", "min_level", required=True)
@@ -843,13 +1105,22 @@ def run_nonlinear(opts: Options, problem, *, device) -> DriverResult:
     face_h_type = face_h_from_options(opts)
     robin = problem.bc_type == "robin"
     precond = None
+    ckpt = _Checkpointer(opts)
+    vtk_base = opts.get("d4est_vtk", "filename", None)
 
     forest = Forest.uniform(geom.conn, level)
     norms = NormLog()
-    solves, eta2_hist = [], []
+    solves, eta2_hist, amr_history = [], [], []
     u = None
     sp_state = None
-    for it in range(n_amr + 1):
+    it0, resume_u = 0, None
+    rs = _restart_state(opts, geom, device)
+    if rs is not None:
+        forest, it0, fields, _, amr_history, extra = rs
+        if extra.get("predictor") is not None:
+            sp_state = SmoothPredState(np.asarray(extra["predictor"]))
+        resume_u = fields["u"]
+    for it in range(it0, n_amr + 1):
         deg_e = np.full(forest.n_elements, deg, np.int32)
         mesh = build_mesh(
             geom, forest, deg=deg, quad=quad, deg_quad=deg + dq_inc,
@@ -862,7 +1133,10 @@ def run_nonlinear(opts: Options, problem, *, device) -> DriverResult:
         else:
             bc = mesh.boundary_values(problem.boundary)
             g_est = bc
-        if u is None or u.shape[0] != mesh.n_elements:
+        restart = it == it0 and resume_u is not None
+        if restart:  # the checkpoint's post-solve iterate (JAX :1551-1562)
+            u = resume_u
+        elif u is None or u.shape[0] != mesh.n_elements:
             u = mesh.init_field(problem.initial_guess)
 
         krylov_its = []
@@ -875,7 +1149,9 @@ def run_nonlinear(opts: Options, problem, *, device) -> DriverResult:
         # FCG diverges on TwoPunctures (ROADMAP C13)
         hier = schwarz_M = cheby_bounds = None
         linear = lambda m, v: problem.linear_apply(m, v, bc)
-        if pc_type == "multigrid":
+        if restart:
+            pass  # no Newton step on the restart level
+        elif pc_type == "multigrid":
             hier = build_hierarchy(mesh, mg_params, mesh_kwargs=dict(
                 penalty_prefactor=prefactor, penalty_fcn=penalty_fcn,
                 face_h_type=face_h_type))
@@ -926,10 +1202,21 @@ def run_nonlinear(opts: Options, problem, *, device) -> DriverResult:
             krylov_its.append(res.iterations)
             return res.x
 
+        def newton_cb(k, u_k, fnorm):
+            if k % ckpt.every_n == 0:
+                ckpt.save_midsolve(forest, it, k, u_k, deg)
+
         _sync(device)
         t0 = time.perf_counter()
-        res = newton_solve(lambda v: problem.residual(mesh, v, bc),
-                           jac_solve, u, newton_params)
+        if restart:
+            F = problem.residual(mesh, u, bc)
+            fnorm = float(torch.sqrt(torch.sum(F * F)))
+            res = NewtonResult(u=u, iterations=0, residual_norm=fnorm,
+                                history=[fnorm])
+        else:
+            res = newton_solve(lambda v: problem.residual(mesh, v, bc),
+                               jac_solve, u, newton_params,
+                               callback=newton_cb if ckpt.midsolve else None)
         _sync(device)
         u = res.u
         solves.append(NewtonInfo(
@@ -953,6 +1240,14 @@ def run_nonlinear(opts: Options, problem, *, device) -> DriverResult:
         eta2_hist.append(eta2)
         norms.rows[-1]["eta2_sum"] = float(eta2.sum())
 
+        if vtk_base:
+            write_vtu(f"{vtk_base}_{it}.vtu", mesh, point_fields={"u": u},
+                      cell_fields={"eta2": eta2})
+        if ckpt.prefix:
+            ckpt.save_level(forest, it, {"u": u}, deg, amr_history,
+                            extra={"problem": problem.name, "level": it,
+                                   "predictor": _predictor_json(sp_state)})
+
         if it == n_amr or scheme == "none":
             break
         if scheme == "uniform_h":
@@ -962,6 +1257,7 @@ def run_nonlinear(opts: Options, problem, *, device) -> DriverResult:
                 sp_state = SmoothPredState.fresh(mesh.n_elements, sp_params)
             log, pred = smooth_pred_mark(eta2, deg_e, sp_state, sp_params,
                                          dim=mesh.dim)
+        amr_history.append(np.asarray(log))
         new_forest = refine_and_balance(forest, np.asarray(log) < 0)
         u = transfer_field(forest, new_forest, u, deg)
         if scheme == "smooth_pred":
@@ -970,4 +1266,5 @@ def run_nonlinear(opts: Options, problem, *, device) -> DriverResult:
         forest = new_forest
 
     return DriverResult(mesh=mesh, u=u, norms=norms, solves=solves,
-                        eta2_history=eta2_hist, precond=precond)
+                        eta2_history=eta2_hist, precond=precond,
+                        first_level=it0)

@@ -14,8 +14,8 @@ Child ordering within a refined cell is x-fastest (p4est's Morton child
 order).
 
 Port of `disco4est_tpu/mesh/tree.py` (host numpy): `Forest.uniform`,
-`refine`, `coarsen`, 2:1 `balance` and leaf lookup.  `checksum` comes with
-checkpoints (ROADMAP A14).
+`refine`, `coarsen`, 2:1 `balance`, leaf lookup and the structural
+`checksum` that checkpoints carry.
 
 One deliberate difference from the JAX module: every leaf lookup
 (`Forest.find_leaves`, and through it `find_leaf`, the balance test, the
@@ -28,6 +28,7 @@ bricks with more than 16 trees find wrong leaves there (ROADMAP C8).
 from __future__ import annotations
 
 import dataclasses
+import zlib
 
 import numpy as np
 
@@ -93,6 +94,17 @@ class Forest:
         return Forest(
             self.conn, self.tree[order], self.level[order], self.anchor[order]
         )
+
+    def checksum(self) -> int:
+        """Deterministic structural checksum (the role of `p4est_checksum`
+        in checkpoint validation): adler32 over the int64 tree ids, levels
+        and row-major [E, dim] anchors, the JAX module's bytes."""
+        payload = np.concatenate([
+            self.tree.astype(np.int64),
+            self.level.astype(np.int64),
+            self.anchor.astype(np.int64).reshape(-1),
+        ]).tobytes()
+        return zlib.adler32(payload)
 
     # ------------------------------------------------------------------
     # Construction / refinement / coarsening

@@ -5,6 +5,12 @@ Port of `disco4est_tpu/solvers/fcg.py` (role of the reference's
 re-orthogonalizes the search direction against the previous one.  A Python
 loop with the JAX arithmetic order; the stopping test is read once per
 iteration.
+
+`return_state` / `resume_state`: the exact mid-solve checkpoint and
+continue of the JAX module (`d4est_solver_fcg_improved.c:319` hook role),
+with the JAX state tuple `(x, r, p, Ap, k)`: the previous direction and its
+product carry the truncation across chunks, and `max_iter` is the
+cumulative cap.
 """
 
 from __future__ import annotations
@@ -33,19 +39,25 @@ def fcg_solve(
     atol: float = 1e-15,
     rtol: float = 1e-20,
     max_iter: int = 1000,
-) -> FCGResult:
+    resume_state: tuple | None = None,
+    return_state: bool = False,
+):
     """Flexible CG (Notay variant, one-direction truncation) with the
-    optional, possibly variable, preconditioner `M`."""
-    x = torch.zeros_like(b) if x0 is None else x0
+    optional, possibly variable, preconditioner `M`.  Returns the
+    `FCGResult`, and with `return_state` also the state to resume from."""
     M = M or (lambda v: v)
 
     bnorm = float(torch.sqrt(_dot(b, b)))
     tol2 = max(atol, rtol * bnorm) ** 2
 
-    r = b - A(x)
-    p = M(r)
-    Ap = A(p)
-    k = 0
+    if resume_state is None:
+        x = torch.zeros_like(b) if x0 is None else x0
+        r = b - A(x)
+        p = M(r)
+        Ap = A(p)
+        k = 0
+    else:
+        x, r, p, Ap, k = resume_state
     while k < max_iter and float(_dot(r, r)) > tol2:
         pAp = _dot(p, Ap)
         alpha = _dot(r, p) / pAp
@@ -58,5 +70,6 @@ def fcg_solve(
         p = z + beta * p
         Ap = Az + beta * Ap
         k += 1
-    return FCGResult(x=x, iterations=k,
-                     residual_norm=float(torch.sqrt(_dot(r, r))))
+    res = FCGResult(x=x, iterations=k,
+                    residual_norm=float(torch.sqrt(_dot(r, r))))
+    return (res, (x, r, p, Ap, k)) if return_state else res

@@ -314,21 +314,19 @@ def test_cli_cuda_without_card_raises(capsys):
 
 
 # The cubed spheres and the pointwise J_DIV_SJ_QUAD penalty (ROADMAP A11),
-# the preconditioners (A13), the disk and misc geometries (A11b) and the
-# K-slot Schwarz variant (A13b), which the first three cases refused in
-# turn, now run: they are held to the JAX driver in
-# `tests/test_torch_curved_driver.py`, `test_torch_precond_driver.py`,
-# `test_torch_geometry2d.py` and `test_torch_kslot.py`.  Those cases now
-# refuse options still left for A14 and A15.
+# the preconditioners (A13), the disk and misc geometries (A11b), the
+# K-slot Schwarz variant (A13b) and IO, checkpoints and restart (A14),
+# which earlier cases refused in turn, now run: they are held to the JAX
+# driver in `tests/test_torch_curved_driver.py`,
+# `test_torch_precond_driver.py`, `test_torch_geometry2d.py`,
+# `test_torch_kslot.py`, `test_torch_io.py` and `test_torch_restart.py`.
+# The cases left refuse `[parallelism]` (A15).
 @pytest.mark.parametrize("edit,item", [
-    (("[quadrature]", "[initial_mesh]\nload_from_checkpoint = ck\n"
-      "[quadrature]"), "A14"),
-    (("[quadrature]", "[d4est_vtk]\nfilename = out\n[quadrature]"), "A14"),
     (("[quadrature]", "[parallelism]\nn_devices = 2\n[quadrature]"),
      "A15"),
     (("[quadrature]", "[parallelism]\nenable = 1\n[quadrature]"), "A15"),
-    (("[quadrature]", "[checkpoint]\nprefix = ck\n[quadrature]"), "A14"),
-])
+    # the ids these cases had before the A14 cases went
+], ids=["edit2-A15", "edit3-A15"])
 def test_unported_options_raise(edit, item):
     opts = Options.load(SINX_OPTIONS.replace(*edit))
     with pytest.raises(NotImplementedError, match=item):
@@ -362,6 +360,10 @@ def test_port_never_imports_jax():
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
     for part in (("tools", "time_fused.py"), ("amr", "amr.py"),
+                 ("io", "checkpoint.py"), ("io", "vtk.py"),
+                 ("io", "ip_energy_norm.py"), ("util", "logging.py"),
+                 ("laplacian", "penalty_debug.py"),
+                 ("elliptic", "problem.py"),
                  ("amr", "smooth_pred.py"), ("estimators", "bi.py"),
                  ("estimators", "stats.py"), ("laplacian", "hp.py"),
                  ("laplacian", "curved.py"), ("geometry", "cubed_sphere.py"),

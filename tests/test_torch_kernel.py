@@ -30,7 +30,10 @@
 - the 2D disk and the K-slot Schwarz on the card: a level-3 disk solve
   (`mixed-curved` on the card) equals the CPU run's L2 to 1e-9 relative,
   and a K-slot apply equals the CPU's to 1e-12 relative and the
-  materialized one bit for bit, and is bit-equal when repeated.
+  materialized one bit for bit, and is bit-equal when repeated;
+- checkpoints on the card: an hp run with per-level checkpoints equals
+  the same run without them, and its restart from level 1 ends equal to
+  it, bit for bit; a CG resumed in chunks equals one solve bit for bit.
 
 Needs a CUDA device and `nvcc`; every test skips without a device (the
 kernels have no CPU mode).  This file imports neither JAX nor the JAX
@@ -566,3 +569,67 @@ def test_kslot_schwarz_on_the_card_matches_the_cpu(cuda_device):
             assert torch.equal(mat, out[dev])
     a, b = out["cuda"].cpu(), out["cpu"]
     assert float((a - b).abs().max()) <= 1e-12 * float(b.abs().max())
+
+
+RESTART_OPTIONS = """
+[initial_mesh]
+min_level = 2
+region0_deg = 2
+[mesh_parameters]
+max_degree = 3
+[amr]
+scheme = smooth_pred
+num_of_amr_steps = 2
+percentile = 25.0
+[geometry]
+name = brick
+"""
+
+
+@pytest.mark.gpu
+def test_checkpointed_run_and_restart_on_the_card(cuda_device, tmp_path):
+    """An hp smooth_pred run from level 2 with per-level checkpoints on the
+    card (its level 0 through B1): bit-equal to the same run without
+    checkpoints, and a restart from its level 1 by history ends bit-equal
+    to it."""
+    from disco4est_tpu_torch import driver
+    from disco4est_tpu_torch.problems.poisson import SinxProblem
+    from disco4est_tpu_torch.util.config import Options
+
+    ck = str(tmp_path / "ck")
+    run = lambda text: driver.run_poisson(Options.load(text), SinxProblem,
+                                          device="cuda")
+    plain = run(RESTART_OPTIONS)
+    full = run(RESTART_OPTIONS + f"[checkpoint]\nprefix = {ck}\n")
+    assert full.solves[0].path == "mixed-structured"
+    assert torch.equal(plain.u, full.u)
+    resumed = run(RESTART_OPTIONS + "[initial_mesh]\nload_from_checkpoint = "
+                  f"1\ncheckpoint_prefix = {ck}_level1\n"
+                  "checkpoint_type = history\n")
+    assert resumed.solves[0].path == "restart"
+    assert torch.equal(resumed.u, full.u)
+    assert resumed.norms.rows[-1]["L_2"] == full.norms.rows[-1]["L_2"]
+
+
+@pytest.mark.gpu
+def test_chunked_cg_on_the_card_equals_one_solve(cuda_device):
+    """`tests/test_driver.py:193` on the card: a CG resumed in chunks of 16
+    from its returned state equals the uninterrupted solve bit for bit."""
+    from disco4est_tpu_torch.laplacian.sipg import (
+        apply_sipg,
+        build_rhs_with_strong_bc,
+    )
+    from disco4est_tpu_torch.solvers.cg import cg_solve
+
+    mesh = _mesh(3, 2, (1.0, 1.0, 1.0), cuda_device)
+    rhs = build_rhs_with_strong_bc(
+        mesh, mesh.init_field(lambda *c: 0.0 * c[0]),
+        mesh.boundary_values(lambda *c: c[0] * c[1]))
+    A = lambda v: apply_sipg(mesh, v)
+    ref = cg_solve(A, rhs, atol=1e-13, rtol=0.0, max_iter=96)
+    state = None
+    for cap in range(16, 97, 16):
+        res, state = cg_solve(A, rhs, atol=1e-13, rtol=0.0, max_iter=cap,
+                              resume_state=state, return_state=True)
+    assert res.iterations == ref.iterations > 16
+    assert torch.equal(res.x, ref.x)

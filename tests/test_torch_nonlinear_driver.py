@@ -510,20 +510,15 @@ NONLINEAR_OPTIONS = CDS_OPTIONS.replace("num_of_amr_steps = 1",
                                         "num_of_amr_steps = 0")
 
 
-# The preconditioners run since ROADMAP A13 and the K-slot Schwarz variant,
-# which the first two cases refused, since A13b (held to the JAX driver in
-# `tests/test_torch_precond_driver.py` and `test_torch_kslot.py`); the
-# two cases now refuse options still left for A14.
+# The preconditioners run since ROADMAP A13, the K-slot Schwarz variant
+# since A13b and IO, checkpoints, restart and the timings option since A14
+# (held to the JAX driver in `tests/test_torch_precond_driver.py`,
+# `test_torch_kslot.py` and `test_torch_restart.py`); the case left refuses
+# `[parallelism]` (A15).
 @pytest.mark.parametrize("edit,item", [
-    (("[quadrature]", "[driver]\nprint_timings = 1\n[quadrature]"), "A14"),
-    (("[quadrature]", "[initial_mesh]\nload_from_checkpoint = ck\n"
-      "[quadrature]"), "A14"),
     (("[quadrature]", "[parallelism]\nenable = 1\n[quadrature]"), "A15"),
-    (("[quadrature]", "[checkpoint]\nprefix = ck\n[quadrature]"), "A14"),
-    (("[quadrature]", "[checkpoint]\ncheckpoint_every_n_krylov_its = 5\n"
-                      "[quadrature]"), "A14"),
-    (("[quadrature]", "[d4est_vtk]\nfilename = out\n[quadrature]"), "A14"),
-])
+    # the ids these cases had before the A14 cases went
+], ids=["edit2-A15"])
 def test_nonlinear_unported_options_raise(edit, item):
     opts = Options.load(NONLINEAR_OPTIONS.replace(*edit))
     with pytest.raises(NotImplementedError, match=item):
