@@ -230,6 +230,43 @@ and `nvcc`.  Phases, one or more lines each; any failure exits non-zero:
        of a hanging brick, scalar and pointwise penalty, on the card
        against the CPU to 1e-12 relative; B2 and B3 launch 0 times.
 
+15. the distributed driver (`[parallelism]`, `parallel/`; torch
+   operations and collectives, no kernel):
+   (a) in this process, a real NCCL group of world size 1: which
+       collectives gloo takes on CUDA tensors (all must be); the halo
+       apply of the sinx brick at deg 3 / level 5 (2,097,152 DOF), the hp
+       halo apply (degrees 2 and 3), both on a hanging brick, and the
+       7-tree level-3 sphere with the pointwise penalty, each against the
+       global apply to 1e-12 relative (f64), and the same applies on 4
+       ranks driven in lockstep on the card; ms per halo apply beside the
+       global one (device time where ten applies fit the launch queue,
+       and wall) and the bytes an apply exchanges on 2 and 4 ranks; the
+       sharded V-cycle at level 5 against the global one (1e-10) and its
+       Lanczos bounds (1e-12); the driver's distributed CG at level 5
+       against the one-process CG (the same count, true residuals, the
+       L2 within `DIST_FORM_REL`);
+   (b) the CLI on 2 and 4 ranks sharing the card (`backend = auto`, which
+       takes gloo there and says so): `tests/test_driver_distributed.py`'s
+       sinx hp smooth_pred against the one-process run and the JAX
+       distributed driver (`refcheck/dist_smoke_pins.py`), and at full
+       width sinx deg 3 level 4 -> 5 (mixed precision, phase 9 (a)), hp
+       smooth_pred from level 4 (phase 9 (d)), FCG + multigrid deg 3
+       level 4 -> 5 (phase 12 (a)) and CDS deg 3 level 4 -> 5 (phase 11
+       (b)), each norm line against the same driver on a world of one
+       rank in this process (1e-11 relative after an f64 CG, else
+       1e-10), and against the one-process run and JAX's one-device pins
+       within `DIST_FORM_REL`; every solve on the halo program, each
+       run's wall and solve lines printed; B1, B2 and B3 launch 0 times
+       in this process's runs of (a) and (b);
+   (c) the errors: `backend = nccl` on 2 ranks of one card raises the
+       port's error (in seconds, through the CLI), and the C6 and C2
+       combinations raise `NotImplementedError` before any rank joins a
+       group.
+
+`python3 chip_smoke.py --nccl=N` on a machine with N cards runs phase 15
+(b)'s CLI with one rank a card (`backend = auto` takes NCCL there) and
+prints the result line.
+
 Then one JSON line of the kernels (`{"kernels": [...]}`; B1 and B2 once
 per timed size, each with the launches of a run at that size: phase 5
 for B1 at deg 3 / level 5, phase 8 for the rest) and, last, the result line
@@ -2839,6 +2876,564 @@ def phase_io(torch, np, card):
     check(not any(counts.values()), f"B2 or B3 ran in phase 14: {counts}")
 
 
+# phase 15, the distributed driver: `tests/test_driver_distributed.py`'s
+# sinx hp smooth_pred (`refcheck/dist_smoke_pins.py`, whose JAX values, 8
+# virtual CPU devices, it prints) and four runs at full width: phase 9
+# (a)'s sinx (deg 3, level 4 -> 5, mixed precision: the outer loop
+# converges the true residual, where a plain f64 CG stops on its recursive
+# one, ROADMAP C15), phase 9 (d)'s hp smooth_pred from level 4 (mixed,
+# then f64 CG on the hp operator; no JAX pin), phase 12 (a)'s FCG +
+# multigrid (deg 3, level 4 -> 5) and phase 11 (b)'s CDS (deg 3, level 4
+# -> 5)
+DIST_JAX_L2 = {
+    "sinx_hp": [0.015208529424303185, 0.0019464036376921176,
+                0.0009024578431378494],
+}
+DIST_FULL = ("sinx_l5", "hp_l4", "mg_l5", "cds_l5")
+# (name, ranks) of the CLI runs
+DIST_RUNS = [("sinx_hp", 4), ("sinx_l5", 4), ("mg_l5", 2), ("hp_l4", 2),
+             ("cds_l5", 2)]
+# a norm line against its one-process reference, relative: after an f64
+# CG (`cg-halo`, `cg-hp-halo`) and otherwise (mixed precision, multigrid,
+# Newton), the bounds of `tests/test_driver_distributed.py`.  At full
+# width the reference is the driver itself on a world of one rank (the
+# halo apply and the global dots, nothing exchanged).  Against the
+# one-process run (the GEMM form of the apply) and JAX's one-device pins
+# the bound is DIST_FORM_REL: the two f64 forms of one operator (the halo
+# apply's quadrature-point face terms, the GEMM form) give discrete
+# solutions ~4e-13 apart (max norm, relative; (a) prints it), which
+# moves a level-5 L2 error of 4.5e-10 by ~2e-6 relative, more than
+# LEVEL5_REL; the world-1 run shows the gap comes with the form
+DIST_CG_REL, DIST_REL = 1e-11, 1e-10
+DIST_FORM_REL = 1e-5
+DIST_APPLY_REL = 1e-12  # (a) a halo apply against the global one, f64
+DIST_VCYCLE_REL = 1e-10  # (a) the sharded V-cycle against the global one
+DIST_RANK_TIMEOUT = 300  # seconds a CLI rank may take
+
+
+def _dist_options(name, n, backend=None):
+    """The options text of a phase-15 run on n ranks (`backend` None:
+    auto, the default)."""
+    line = f"backend = {backend}\n" if backend else ""
+    par = f"\n[parallelism]\nenable = auto\nn_devices = {n}\n" + line
+    if name in ("sinx_l5", "hp_l4"):
+        return AMR_OPTIONS.format(
+            use_structured="auto", mixed=1,
+            **AMR_RUNS["a" if name == "sinx_l5" else "d"]) + par
+    if name == "mg_l5":
+        level, deg, maxd, scheme, steps, pc, sm, bt = PRECOND_RUNS["a"]
+        return PRECOND_OPTIONS.format(
+            level=level, deg=deg, max_degree=maxd, scheme=scheme,
+            steps=steps, pc=pc, smoother=sm, bottom=bt,
+            use_structured="auto", mixed=1) + par
+    if name == "cds_l5":
+        run = dict(NONLINEAR_RUNS["b"])
+        run.pop("problem")
+        return NONLINEAR_OPTIONS.format(**run) + par
+    return _dist_pins().options(name, n) + line
+
+
+def _dist_pins():
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent
+                           / "refcheck"))
+    import dist_smoke_pins
+
+    return dist_smoke_pins
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(n, text, problem, tmp, timeout=DIST_RANK_TIMEOUT):
+    """n rank processes of the CLI on the card (torchrun's variables on
+    127.0.0.1); returns [(exit code, stdout, stderr)] by rank and the
+    wall.  Every process is killed if it outlives `timeout`."""
+    import os
+
+    path = pathlib.Path(tmp) / f"dist_{n}_{time.monotonic_ns()}.input"
+    path.write_text(text)
+    port, procs, out = _free_port(), [], []
+    t0 = time.perf_counter()
+    try:
+        for r in range(n):
+            env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(n),
+                       LOCAL_RANK=str(r), LOCAL_WORLD_SIZE=str(n),
+                       MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "disco4est_tpu_torch", str(path),
+                 f"--problem={problem}", "--device=cuda"],
+                cwd=pathlib.Path(__file__).resolve().parent, env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for p in procs:
+            so, se = p.communicate(timeout=timeout)
+            out.append((p.returncode, so, se))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return out, time.perf_counter() - t0
+
+
+def _one_process(torch, name):
+    """The one-process port run of a phase-15 configuration on the card
+    (the kernels kept out: use_structured = 0); its L2 per level."""
+    from disco4est_tpu_torch import driver
+    from disco4est_tpu_torch.problems.poisson import SinxProblem
+    from disco4est_tpu_torch.util.config import Options
+
+    text = _dist_options(name, 1).replace("enable = auto", "enable = 0")
+    text = text.replace("use_mixed_precision = 1",
+                        "use_mixed_precision = 1\nuse_structured = 0")
+    opts = Options.load(text)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if name.startswith("cds"):
+        res = driver.run_nonlinear(opts, driver.CDSProblem(opts),
+                                   device="cuda")
+    else:
+        res = driver.run_poisson(opts, SinxProblem, device="cuda")
+    torch.cuda.synchronize()
+    return [r["L_2"] for r in res.norms.rows], time.perf_counter() - t0
+
+
+def _world1_run(torch, ctx, name):
+    """The one-process run of a full-width configuration on the
+    distributed path: the driver on this process's world of one rank
+    (`ctx`), so every solve runs the halo apply and the global dots as
+    the ranks do, with nothing to exchange.  Its L2 per level, its solve
+    paths (Poisson runs) and its wall."""
+    from unittest import mock
+
+    from disco4est_tpu_torch import driver
+    from disco4est_tpu_torch.problems.poisson import SinxProblem
+    from disco4est_tpu_torch.util.config import Options
+
+    opts = Options.load(_dist_options(name, 1))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with mock.patch.object(driver.ParallelContext, "from_options",
+                           staticmethod(lambda *a, **k: ctx)):
+        if name.startswith("cds"):
+            res = driver.run_nonlinear(opts, driver.CDSProblem(opts),
+                                       device="cuda")
+        else:
+            res = driver.run_poisson(opts, SinxProblem, device="cuda")
+    torch.cuda.synchronize()
+    paths = [getattr(s, "path", "newton") for s in res.solves]
+    return ([r["L_2"] for r in res.norms.rows], paths,
+            time.perf_counter() - t0)
+
+
+def _dist_pin(name):
+    """The JAX values of a phase-15 run: the distributed driver's for
+    sinx hp smooth_pred (`refcheck/dist_smoke_pins.py`), the one-device
+    pins of phases 9 (a), 12 (a) and 11 (b) for the full-width ones;
+    None for phase 9 (d)'s, which has no pin."""
+    if name == "sinx_l5":
+        return [AMR_PINS["a"][0][3], LEVEL5_L2]
+    if name == "mg_l5":
+        return [p[2] for p in PRECOND_PINS["a"]]
+    if name == "cds_l5":
+        return [p[2] for p in NONLINEAR_PINS["b"]]
+    return DIST_JAX_L2.get(name)
+
+
+def _path_rel(step):
+    """The bound of a level against its one-process reference: f64 CG
+    1e-11, else 1e-10."""
+    path = step.split("path=")[1].split()[0] if "path=" in step else ""
+    return DIST_CG_REL if path in ("cg-halo", "cg-hp-halo") else DIST_REL
+
+
+def _halo_bytes(mesh, n):
+    """(halo elements received over all ranks, their f64 bytes, the bytes
+    of the padded all-to-all blocks sent to other ranks) of one apply on
+    n ranks of `mesh`'s node-weighted layout."""
+    from disco4est_tpu_torch.parallel import halo as H
+    from disco4est_tpu_torch.parallel import repartition as R
+
+    lay = R.PaddedLayout.build((mesh.deg_e.cpu().numpy() + 1) ** 3, n)
+    prog = H.build_halo_program(R.pad_mesh_to_layout(mesh, lay), n)
+    recv = int((prog.recv_pos < prog.H).sum())
+    node = mesh.nl ** mesh.dim * 8
+    return recv, recv * node, n * (n - 1) * prog.K * node
+
+
+def _lockstep(torch, mesh, u, n, hp=False):
+    """The halo apply on n ranks in lockstep on the card (pack, the
+    exchange by hand, compute); the result in global order."""
+    from disco4est_tpu_torch.laplacian.hp import adjoint_to_own, to_max
+    from disco4est_tpu_torch.parallel import halo as H
+    from disco4est_tpu_torch.parallel import repartition as R
+    from disco4est_tpu_torch.parallel.sharding import (
+        shard_field,
+        shard_mesh_data,
+    )
+
+    lay = R.PaddedLayout.build((mesh.deg_e.cpu().numpy() + 1) ** 3, n)
+    mp = R.pad_mesh_to_layout(mesh, lay)
+    prog = H.build_halo_program(mp, n)
+    ms = [shard_mesh_data(mp, r, n) for r in range(n)]
+    hs = [prog.local(r) for r in range(n)]
+    ul = [shard_field(R.migrate_field(u, lay), r, n) for r in range(n)]
+    if hp:
+        ul = [to_max(m, v) for m, v in zip(ms, ul)]
+    sends = [H.halo_pack(h, v) for h, v in zip(hs, ul)]
+    outs = [H.halo_compute(ms[r], hs[r], ul[r],
+                           torch.stack([sends[s][r] for s in range(n)]))
+            for r in range(n)]
+    if hp:
+        outs = [adjoint_to_own(m, v) for m, v in zip(ms, outs)]
+    return R.unmigrate_field(torch.cat(outs), lay, mesh.n_elements)
+
+
+def _rel_t(torch, a, b):
+    return float(torch.max(torch.abs(a - b)) / torch.max(torch.abs(b)))
+
+
+def _gloo_cuda_probe(torch):
+    """Which collectives gloo takes on CUDA tensors (a gloo group beside
+    the NCCL one): `parallel/comm.py` hands gloo the rank's CUDA tensors,
+    so every one of them must be accepted."""
+    import torch.distributed as dist
+
+    g = dist.new_group(backend="gloo")
+    x = torch.ones(4, dtype=torch.float64, device="cuda")
+    ops = {
+        "all_to_all_single": lambda: dist.all_to_all_single(
+            torch.empty_like(x), x, group=g),
+        "all_gather": lambda: dist.all_gather([torch.empty_like(x)], x,
+                                              group=g),
+        "broadcast": lambda: dist.broadcast(x, 0, group=g),
+        "all_reduce": lambda: dist.all_reduce(x, group=g),
+    }
+    out = {}
+    for name, fn in ops.items():
+        try:
+            fn()
+            torch.cuda.synchronize()
+            out[name] = "accepted"
+        except Exception as e:  # noqa: BLE001 (the probe's answer)
+            out[name] = f"refused ({type(e).__name__}: {str(e)[:80]})"
+    dist.destroy_process_group(g)
+    return out
+
+
+def _world1_context(torch):
+    """A real NCCL group of world size 1 in this process, as the driver's
+    `ParallelContext`."""
+    from disco4est_tpu_torch import driver
+    from disco4est_tpu_torch.parallel import comm as C
+
+    return driver.ParallelContext(C.init_process_group("nccl", C.World(
+        0, 1, 0, 1, f"tcp://127.0.0.1:{_free_port()}"),
+        torch.device("cuda", 0)))
+
+
+def dist_in_process(torch, np, card, ctx):
+    """(a) On the world of one rank `ctx`: the halo applies, the lockstep
+    4-rank apply, the sharded V-cycle and the distributed CG at full width
+    against the global operators."""
+    from disco4est_tpu_torch import driver
+    from disco4est_tpu_torch.geometry.brick import BrickGeometry
+    from disco4est_tpu_torch.geometry.cubed_sphere import CubedSphereGeometry
+    from disco4est_tpu_torch.io.norms import norm_L2
+    from disco4est_tpu_torch.laplacian.hp import apply_sipg_hp, own_mask
+    from disco4est_tpu_torch.laplacian.sipg import (
+        apply_sipg,
+        build_rhs_with_strong_bc,
+    )
+    from disco4est_tpu_torch.mesh.builder import build_mesh
+    from disco4est_tpu_torch.mesh.tree import Forest
+    from disco4est_tpu_torch.parallel import mg as PMG
+    from disco4est_tpu_torch.parallel.halo import (
+        apply_sipg_halo,
+        apply_sipg_hp_halo,
+    )
+    from disco4est_tpu_torch.problems.poisson import SinxProblem
+    from disco4est_tpu_torch.solvers import multigrid as tmg
+    from disco4est_tpu_torch.solvers.cg import cg_solve
+
+    comm = ctx.comm
+    probe = _gloo_cuda_probe(torch)
+    print(f"[15] (a) NCCL group of world size 1; gloo on CUDA tensors: "
+          f"{probe}")
+    check(all(v == "accepted" for v in probe.values()),
+          f"(a) gloo refuses CUDA tensors: {probe}")
+    rng = np.random.default_rng(15)
+    dev = "cuda"
+
+    def field(mesh, own=False):
+        u = torch.as_tensor(rng.standard_normal(
+            (mesh.n_elements,) + (mesh.nl,) * mesh.dim), device=dev)
+        return u * own_mask(mesh, u.dtype) if own else u
+
+    def halo_check(label, mesh, hp=False, device_ms=True):
+        ep = ctx.distribute(mesh)
+        u = field(mesh, own=hp)
+        glob = (lambda: apply_sipg_hp(mesh, u)) if hp else (
+            lambda: apply_sipg(mesh, u))
+        u_l = ep.to_dev(u)
+        fn = apply_sipg_hp_halo if hp else apply_sipg_halo
+        halo = lambda: fn(ep.mesh, ep.halo, u_l, comm)  # noqa: E731
+        ref = glob()
+        rel = _rel_t(torch, ep.to_host(halo()), ref)
+        rel4 = _rel_t(torch, _lockstep(torch, mesh, u, 4, hp=hp), ref)
+        # device time in batches of two behind a spin: ten uniform halo
+        # applies (~140 launches each) would fill the card's launch queue
+        # and block the host; on hanging meshes (the mortar passes) one
+        # apply does, so there the wall alone is printed
+        wall = {k: _wall_ms(torch, f, 10) for k, f in (("halo", halo),
+                                                       ("global", glob))}
+        dev_ms = (f"device ms per apply halo {_time_ms(torch, halo, n=2):.4f}"
+                  f", global {_time_ms(torch, glob, n=2):.4f}; "
+                  if device_ms else "")
+        print(f"[15] (a) {label}: {mesh.n_elements} elements; "
+              f"{'hp ' if hp else ''}halo apply rel {rel:.2e}, lockstep 4 "
+              f"ranks rel {rel4:.2e}; {dev_ms}wall ms per apply halo "
+              f"{wall['halo']:.3f}, global {wall['global']:.3f}")
+        check(rel <= DIST_APPLY_REL and rel4 <= DIST_APPLY_REL,
+              f"(a) {label}: halo apply rel {rel}, lockstep {rel4}")
+        return ep
+
+    geom = BrickGeometry(dim=3)
+    mesh5 = build_mesh(geom, Forest.uniform(geom.conn, 5), deg=3, device=dev)
+    ep5 = halo_check("sinx brick deg 3 level 5 (2,097,152 DOF)", mesh5)
+    for n in (2, 4):
+        recv, nbytes, padded = _halo_bytes(mesh5, n)
+        print(f"[15] (a) level 5 on {n} ranks: {recv} halo elements "
+              f"received an apply, {nbytes / 2**20:.2f} MiB (f64), "
+              f"{padded / 2**20:.2f} MiB in the padded all-to-all blocks")
+    deg_e = np.where(rng.random(mesh5.n_elements) < 0.5, 2, 3).astype(
+        np.int32)
+    halo_check("hp brick level 5, degrees 2 and 3",
+               build_mesh(geom, mesh5.forest, deg=3, deg_e=deg_e,
+                          device=dev), hp=True)
+    # epoch 2 of phase 9 (c)'s hp smooth_pred run (4040 elements: hanging
+    # faces, degrees 2 and 3; the kernels kept out: use_structured = 0)
+    sp = driver.run_poisson(driver.Options.load(AMR_OPTIONS.format(
+        use_structured=0, mixed=1, **dict(AMR_RUNS["c"], steps=2))),
+        SinxProblem, device=dev).mesh
+    check(sp.hc_elem.shape[0] > 0 and len(set(sp.deg_e.tolist())) > 1,
+          "(a) the smooth_pred mesh has no hanging face or one degree")
+    halo_check("smooth_pred mesh (phase 9 (c), storage degree "
+               f"{sp.deg})", build_mesh(geom, sp.forest, deg=sp.deg,
+                                        device=dev), device_ms=False)
+    halo_check("the same, hp (its own degrees)", sp, hp=True,
+               device_ms=False)
+    sph = CubedSphereGeometry("7tree", R0=1.0, R1=2.0)
+    halo_check("7-tree sphere level 3, deg 3, pointwise sigma",
+               build_mesh(sph, Forest.uniform(sph.conn, 3), deg=3,
+                          face_h_type="j_div_sj_quad", device=dev))
+
+    # the sharded V-cycle at level 5 against the global one (same bounds)
+    params = driver.mg_params_from_options(driver.Options.load("[x]\n"))
+    hier = tmg.build_hierarchy(mesh5, params)
+    tmg.mg_setup(hier, apply_sipg, driver._sin3_seed)
+    sh = PMG.build_sharded_hierarchy(hier, comm)
+    bounds = PMG.mg_setup_sharded(sh, driver._sin3_seed)
+    brel = max(abs(a[1] - b[1]) / b[1] for a, b in zip(bounds, hier.bounds))
+    sh.bounds = hier.bounds
+    b = field(mesh5)
+    b_l = ep5.to_dev(b)
+    vg = lambda: tmg.v_cycle(hier, apply_sipg, b, torch.zeros_like(b))  # noqa
+    vs = lambda: PMG.v_cycle_sharded(sh, b_l, torch.zeros_like(b_l))  # noqa
+    vrel = _rel_t(torch, ep5.to_host(vs()), vg())
+    print(f"[15] (a) level-5 V-cycle ({hier.n_levels} levels): sharded rel "
+          f"{vrel:.2e}, lmax rel {brel:.2e}; wall ms per V-cycle sharded "
+          f"{_wall_ms(torch, vs, 3):.1f}, global {_wall_ms(torch, vg, 3):.1f}")
+    check(vrel <= DIST_VCYCLE_REL and brel <= DIST_APPLY_REL,
+          f"(a) sharded V-cycle rel {vrel}, bounds rel {brel}")
+
+    # the distributed CG of the driver against the one-process CG
+    g = mesh5.boundary_values(SinxProblem.boundary)
+    rhs = build_rhs_with_strong_bc(mesh5, mesh5.init_field(SinxProblem.rhs), g)
+    x0 = torch.zeros_like(rhs)
+    u_a = mesh5.init_field(SinxProblem.analytic)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one = cg_solve(lambda v: apply_sipg(mesh5, v), rhs, x0=x0, atol=5e-15,
+                   rtol=1e-20, max_iter=100000)
+    torch.cuda.synchronize()
+    t_one = time.perf_counter() - t0
+    info, x = driver._solve_dist(ep5, rhs, x0, hp=False, use_mixed=False,
+                                 ksp="cg", mixed_opts={})
+    l2 = [float(norm_L2(mesh5, v - u_a)) for v in (one.x, x)]
+    true = [float(torch.linalg.norm((rhs - apply_sipg(mesh5, v)).reshape(-1)))
+            for v in (one.x, x)]
+    bnorm = float(torch.linalg.norm(rhs.reshape(-1)))
+    print(f"[15] (a) level-5 CG: distributed {info.line(0)}; one process "
+          f"{one.iterations} iterations, {t_one:.3f} s; L2 {l2[1]!r} / "
+          f"{l2[0]!r} (rel {abs(l2[1] - l2[0]) / l2[0]:.2e}; JAX's mixed "
+          f"solve {LEVEL5_L2!r}); true residuals ||b - A x|| {true[1]:.3e} "
+          f"/ {true[0]:.3e}; max |x_dist - x_one| / max |x_one| "
+          f"{_rel_t(torch, x, one.x):.2e}")
+    # both stop on their recursive residual (ROADMAP C15): the same
+    # count, true residuals under the mixed solve's fallback floor, the L2
+    # within DIST_FORM_REL (two forms of the operator)
+    check(info.path == "cg-halo" and info.iterations == one.iterations
+          and max(true) <= 1e-10 * (1.0 + bnorm)
+          and abs(l2[1] - l2[0]) <= DIST_FORM_REL * l2[0],
+          f"(a) distributed CG: {info.line(0)}, L2 {l2}, true {true}")
+
+
+def dist_cli(torch, tmp, ctx, runs=DIST_RUNS):
+    """(b) The CLI on n ranks (`backend = auto`: gloo when they share the
+    card, NCCL on a card each), each norm line against its one-process
+    reference: the driver on the world of one rank `ctx` at full width,
+    the one-process run otherwise."""
+    world1 = {}
+    for name, n in runs:
+        problem = "cds" if name.startswith("cds") else "sinx"
+        one, t_one = _one_process(torch, name)
+        if name in DIST_FULL and name not in world1:
+            world1[name] = _world1_run(torch, ctx, name)
+        ref, ref_paths, t_ref = world1.get(name, (one, None, t_one))
+        out, wall = run_ranks(n, _dist_options(name, n), problem, tmp)
+        for r, (code, so, se) in enumerate(out):
+            check(code == 0, f"(b) {name} on {n} ranks: rank {r} exit "
+                  f"{code}: {se[-3000:]}")
+            check(r == 0 or so == "", f"(b) rank {r} printed {so!r}")
+        lines = out[0][1].splitlines()
+        backend = "gloo" if n > torch.cuda.device_count() else "nccl"
+        check(lines[0].startswith(f"parallelism: {n} ranks, backend = "
+                                  f"{backend} (auto"),
+              f"(b) {name}: rank 0's first line {lines[0]!r}")
+        norms = [x for x in lines if len(x.split()) == 4
+                 and x.split()[0].isdigit()]
+        step = "newton level" if problem == "cds" else "solve level"
+        steps = [x for x in lines if x.startswith(step)]
+        got = [float(x.split()[3]) for x in norms]
+        pins = _dist_pin(name)
+        full = name in DIST_FULL
+        print(f"[15] (b) {name} on {n} ranks ({lines[0]}): wall {wall:.2f} "
+              f"s (one process in this process {t_one:.2f} s"
+              + (f", on a world of one rank {t_ref:.2f} s, paths "
+                 f"{ref_paths}" if full else "") + ")")
+        for k, (line, st) in enumerate(zip(norms, steps)):
+            jax = (f"{abs(got[k] - pins[k]) / abs(pins[k]):.2e}" if pins
+                   else "no pin")
+            print(f"[15] (b)   {line} | {st}")
+            print(f"[15] (b)   level {k}: rel to "
+                  + (f"the world of one rank {abs(got[k] - ref[k]) / abs(ref[k]):.2e}"
+                     f" (bound {_path_rel(st):.0e}), to " if full else "")
+                  + f"one process {abs(got[k] - one[k]) / abs(one[k]):.2e}"
+                  f", to JAX {jax}")
+        check(len(got) == len(ref) == len(one) == len(steps)
+              and (pins is None or len(pins) == len(got)),
+              f"(b) {name}: {len(got)} norm lines, {len(ref)} levels")
+        check(all(abs(a - b) <= _path_rel(st) * abs(b)
+                  for a, b, st in zip(got, ref, steps)),
+              f"(b) {name} on {n} ranks: {got} against {ref}")
+        far = DIST_FORM_REL if full else None
+        for other in (one, pins or []):
+            check(all(abs(a - b) <= (far or _path_rel(st)) * abs(b)
+                      for a, b, st in zip(got, other, steps)),
+                  f"(b) {name} on {n} ranks: {got} against {other}")
+        check(problem == "cds" or all("-halo " in x for x in steps),
+              f"(b) {name}: a solve off the halo program: {steps}")
+        check(ref_paths is None or all(
+            x == "newton" or x.endswith("-halo") for x in ref_paths),
+            f"(b) {name}: the world of one rank left the halo program: "
+            f"{ref_paths}")
+
+
+def dist_errors(torch, tmp):
+    """(c) The errors that must be raised: NCCL with two ranks on one
+    card, and the C6 and C2 combinations (in process, in a world of 2:
+    they raise before any rank joins a group)."""
+    import os
+
+    from disco4est_tpu_torch import driver
+    from disco4est_tpu_torch.problems.poisson import SinxProblem
+    from disco4est_tpu_torch.util.config import Options
+
+    text = _dist_options("sinx_hp", 2, backend="nccl")
+    out, wall = run_ranks(2, text, "sinx", tmp, timeout=120)
+    print(f"[15] (c) backend = nccl on 2 ranks of one card: exit codes "
+          f"{[o[0] for o in out]} in {wall:.1f} s: "
+          f"{out[0][2].strip().splitlines()[-1]!r}")
+    check(all(o[0] != 0 and "backend = gloo" in o[2] for o in out),
+          "(c) nccl with 2 ranks on one card did not raise the port's error")
+    base = _dist_options("sinx_hp", 2)
+    cases = {
+        "pc_type = schwarz (C6)": base.replace(
+            "use_mixed_precision = 0", "use_mixed_precision = 0\n"
+            "pc_type = schwarz"),
+        "pc_type = cheby (C6)": base.replace(
+            "use_mixed_precision = 0", "use_mixed_precision = 0\n"
+            "pc_type = cheby"),
+        "mid-solve checkpoints (C6)": base + (
+            f"\n[checkpoint]\nprefix = {tmp}/ck\n"
+            "checkpoint_every_n_krylov_its = 5\n"),
+        "a Schwarz multigrid smoother (C2)": _dist_options("mg", 2)
+        + "\n[multigrid]\nsmoother_name = mg_smoother_schwarz\n",
+        "Newton-MG (C6)": _dist_options("cds", 2).replace(
+            "ksp_type = cg", "ksp_type = fcg\npc_type = multigrid"),
+    }
+    env = dict(WORLD_SIZE="2", RANK="0", LOCAL_RANK="0",
+               MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()))
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        for label, text in cases.items():
+            opts = Options.load(text)
+            try:
+                if "Newton" in label:
+                    driver.run_nonlinear(opts, driver.CDSProblem(opts),
+                                         device="cuda")
+                else:
+                    driver.run_poisson(opts, SinxProblem, device="cuda")
+            except NotImplementedError as e:
+                print(f"[15] (c) {label}: NotImplementedError: {e}")
+                check(label[-3:-1] in str(e), f"(c) {label}: {e}")
+                continue
+            fail(f"(c) {label} ran under [parallelism]")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def phase_dist(torch, np, card):
+    """Phase 15: the distributed driver on the card (torch operations and
+    collectives; B1, B2 and B3 must not launch in (a))."""
+    import tempfile
+
+    from disco4est_tpu_torch.laplacian import fused
+    from disco4est_tpu_torch.laplacian import structured as S
+    from disco4est_tpu_torch.parallel import comm as C
+    from disco4est_tpu_torch.tools import exp_kernel_design as X
+
+    print(f"[15] the distributed driver on {card}")
+    t_phase = time.perf_counter()
+    S.KERNEL_LAUNCHES = fused.KERNEL_LAUNCHES = X.KERNEL_LAUNCHES = 0
+    ctx = _world1_context(torch)
+    try:
+        dist_in_process(torch, np, card, ctx)
+        print(f"[15] (a) {time.perf_counter() - t_phase:.1f} s")
+        with tempfile.TemporaryDirectory() as tmp:
+            dist_cli(torch, tmp, ctx)
+            counts = dict(B1=S.KERNEL_LAUNCHES, B2=fused.KERNEL_LAUNCHES,
+                          B3=X.KERNEL_LAUNCHES)
+            print(f"[15] (a), (b) kernel launches in this process's "
+                  f"distributed and one-process runs: {counts}")
+            check(not any(counts.values()),
+                  f"a kernel ran in (a) or (b): {counts}")
+            dist_errors(torch, tmp)
+    finally:
+        C.shutdown()
+    print(f"[15] phase wall {time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     import numpy as np
     import torch
@@ -2864,6 +3459,7 @@ def main():
     schwarz_b = phase_precond(torch, np, card, fcg5, tp11)
     phase_geometry(torch, np, card, schwarz_b)
     phase_io(torch, np, card)
+    phase_dist(torch, np, card)
 
     csrc = "disco4est_tpu_torch/csrc/"
     # B1 and B2 have one entry per timed size; each entry's launches are
@@ -2898,5 +3494,35 @@ def main():
     }}))
 
 
+def main_nccl(n):
+    """`python3 chip_smoke.py --nccl=N` on a machine with N cards: phase
+    15 (b)'s CLI runs on N ranks, one a card (`backend = auto` takes
+    NCCL), against the one-process runs and the JAX pins; the last line as
+    `main`'s."""
+    import tempfile
+
+    import torch
+
+    from disco4est_tpu_torch.parallel import comm as C
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this script needs a GPU")
+    check(torch.cuda.device_count() >= n,
+          f"--nccl={n} needs {n} cards, {torch.cuda.device_count()} visible")
+    name, card = phase_device(torch)
+    ctx = _world1_context(torch)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            dist_cli(torch, tmp, ctx, runs=[(x, n) for x, _ in DIST_RUNS])
+    finally:
+        C.shutdown()
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),
+    }}))
+
+
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) > 1 and sys.argv[1].startswith("--nccl="):
+        main_nccl(int(sys.argv[1].split("=", 1)[1]))
+    else:
+        main()

@@ -15,6 +15,20 @@ where the problem has no analytic solution), one Newton line per level
 `d4est_norms` category's files there (`util/logging.py`); the console
 keeps stdout.  `--plot-checkpoint=ck` writes the checkpoint `ck` as a
 `.vtu` (`--output=`, default `checkpoint.vtu`) and solves nothing.
+
+Distributed (`[parallelism]`, `driver.ParallelContext`): run one process
+per rank, e.g.
+
+    python -m torch.distributed.run --nproc_per_node=N \
+        -m disco4est_tpu_torch options.input [--device=cpu]
+
+(or N processes with torchrun's variables RANK, WORLD_SIZE, LOCAL_RANK,
+MASTER_ADDR and MASTER_PORT set); the ranks run the driver as one program
+and only rank 0 prints, first a line `parallelism: N ranks, backend =
+...` (`backend = auto`, the default, takes NCCL when every rank has a
+card of its own, else gloo).  An error on any rank ends that rank with
+a nonzero exit; the others then fail in their next collective (gloo sees
+the closed connection, NCCL its timeout), so no run hangs.
 """
 
 import sys
@@ -33,6 +47,7 @@ from disco4est_tpu_torch.driver import (
 from disco4est_tpu_torch.io import checkpoint as ckpt
 from disco4est_tpu_torch.io.vtk import write_vtu
 from disco4est_tpu_torch.mesh.builder import build_mesh
+from disco4est_tpu_torch.parallel.comm import shutdown
 from disco4est_tpu_torch.problems.poisson import (
     LorentzianProblem,
     SinxProblem,
@@ -93,6 +108,13 @@ def plot_checkpoint(opts: Options, ck_path: str, out_path: str, *,
 
 
 def main(argv):
+    try:
+        return _main(argv)
+    finally:
+        shutdown()  # leave the process group of a distributed run
+
+
+def _main(argv):
     if not argv:
         print(USAGE)
         return 1
@@ -132,6 +154,10 @@ def main(argv):
         print(f"unknown problem {name!r}; known: {known}")
         return 1
 
+    if result.rank != 0:  # rank 0 prints a distributed run's lines
+        return 0
+    if result.parallel:
+        print(f"parallelism: {result.parallel}")
     if log_dir:
         nlog = get_category("d4est_norms")
         for line in result.norms.lines(key):

@@ -49,8 +49,21 @@ chunks) or Newton iterates; `[initial_mesh] load_from_checkpoint = 1`
 restarts from `checkpoint_prefix` by `checkpoint_type = structure` or
 `history`; `[d4est_vtk] filename` writes `<filename>_<k>.vtu` per level;
 `[driver] print_timings = 1` prints one `TIMINGS level k:` line per level
-of `run_poisson`.  `[parallelism]` (ROADMAP A15) raises
-`NotImplementedError`.
+of `run_poisson`.
+
+Distributed execution (`[parallelism]`, JAX `driver.py:443-613`; the
+reference's driver is the MPI program, `driver.c:13-313`): run under
+torchrun (or N processes with its variables), one rank per process, each
+rank builds every epoch's global mesh and takes its block of a
+node-weighted SFC layout (`parallel/`); the unpreconditioned and
+multigrid linear solves and the Newton–Krylov solve then apply through
+the halo-exchange program with global dot products, and the solution is
+gathered back for the norms, the estimator and the AMR step.  Rank 0's
+estimate decides the marks, and only rank 0 writes files.  Where the JAX
+driver drops to one device without a word (the Schwarz and Chebyshev
+preconditioners, mid-solve checkpoints of a linear solve, Newton-MG;
+ROADMAP C6) or runs Chebyshev for a Schwarz multigrid smoother (C2), the
+port raises `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -96,6 +109,7 @@ from disco4est_tpu_torch.laplacian.hp import (
 )
 from disco4est_tpu_torch.laplacian.nonlinear import (
     apply_mass_coeff,
+    apply_mass_fof,
     assemble_fof_blocks,
     fof_lin_coeff,
 )
@@ -105,6 +119,26 @@ from disco4est_tpu_torch.laplacian.sipg import (
 )
 from disco4est_tpu_torch.mesh.builder import MeshData, build_mesh
 from disco4est_tpu_torch.mesh.tree import Forest
+from disco4est_tpu_torch.parallel import comm as pcomm
+from disco4est_tpu_torch.parallel.halo import (
+    apply_sipg_halo,
+    apply_sipg_hp_halo,
+    build_halo_program,
+)
+from disco4est_tpu_torch.parallel.mg import (
+    build_sharded_hierarchy,
+    level_operator,
+    mg_setup_sharded,
+    smoother_refusal,
+    v_cycle_sharded,
+)
+from disco4est_tpu_torch.parallel.repartition import (
+    PaddedLayout,
+    migrate_field,
+    pad_mesh_to_layout,
+    unmigrate_field,
+)
+from disco4est_tpu_torch.parallel.sharding import shard_field, shard_mesh_data
 from disco4est_tpu_torch.problems import (
     constant_density_star as cds,
     okendon,
@@ -137,6 +171,7 @@ from disco4est_tpu_torch.solvers.schwarz_overlap import (
 from disco4est_tpu_torch.util.config import Options
 
 _ON = ("1", "true", "yes", "on")
+_OFF = ("0", "false", "no", "off")
 
 
 def resolve_device(name) -> torch.device:
@@ -272,7 +307,9 @@ class SolveInfo:
 
     path: str  # "mixed-structured" | "mixed-curved" | "mixed" | "cg" |
     #            "fcg" | "cg-hp" | "fcg-mg" | "fcg-schwarz" | "cg-cheby"
-    #            (preconditioned paths: "-hp" on mixed-degree epochs)
+    #            (preconditioned paths: "-hp" on mixed-degree epochs);
+    #            under [parallelism] "mixed-halo" | "cg-halo" | "fcg-halo"
+    #            | "cg-hp-halo" | "fcg-mg[-hp]-halo"
     outer_iterations: int  # refinement steps (0 for a plain Krylov solve)
     iterations: int  # inner f32 iterations, or the plain solve's
     residual_norm: float
@@ -315,21 +352,15 @@ class DriverResult:
     #     print_timings = 1` (JAX `DriverResult.timings`), else empty
     first_level: int = 0  # the level of `solves[0]`: the restart level,
     #                       else 0
+    rank: int = 0  # this process's rank under [parallelism], else 0
+    parallel: str = ""  # under [parallelism]: the ranks and the backend
 
 
 def _refuse_unported(opts: Options):
-    """Options of the JAX driver that the port does not run yet."""
+    """Options the port refuses before it starts."""
     pc_type = opts.get("d4est_solver_krylov_petsc", "pc_type", "none")
     if pc_type not in ("none", "schwarz", "multigrid", "cheby"):
         raise ValueError(f"unknown pc_type: {pc_type!r}")
-    # with any pc_type: the JAX driver drops to one device where it cannot
-    # distribute (ROADMAP C6); the port refuses instead
-    enable = str(opts.get("parallelism", "enable", "auto")).lower()
-    if enable in _ON or opts.get_int("parallelism", "n_devices", 1) > 1:
-        raise NotImplementedError(
-            "[parallelism]: the distributed driver is not ported yet "
-            "(ROADMAP A15)"
-        )
 
 
 class _PhaseTimer:
@@ -343,9 +374,10 @@ class _PhaseTimer:
     show amr (ROADMAP C4); the port prints after it.  Off (the default) it
     records nothing and adds no synchronize."""
 
-    def __init__(self, opts: Options, device):
+    def __init__(self, opts: Options, device, quiet=False):
         self.enabled = opts.get("driver", "print_timings", False, cast=bool)
         self.device = device
+        self.quiet = quiet  # ranks other than 0 record and print nothing
         self.rows = []
 
     def level(self, it):
@@ -367,7 +399,7 @@ class _PhaseTimer:
             row[name] = row.get(name, 0.0) + time.perf_counter() - t0
 
     def flush(self):
-        if self.enabled and self.rows:
+        if self.enabled and self.rows and not self.quiet:
             row = self.rows[-1]
             parts = " ".join(f"{k}={v:.3f}s" for k, v in row.items()
                              if k != "level")
@@ -452,6 +484,11 @@ def run_poisson(opts: Options, problem, *, device) -> DriverResult:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     _refuse_unported(opts)
+    par = ParallelContext.from_options(
+        opts, device, refuse=_parallel_refusals(opts, nonlinear=False))
+    if par is not None:
+        device = par.device
+    rank0 = par is None or par.rank == 0
 
     geom = geometry_from_options(opts)
     level = opts.get_int("initial_mesh", "min_level", required=True)
@@ -520,7 +557,7 @@ def run_poisson(opts: Options, problem, *, device) -> DriverResult:
     )
     precond = None
     ckpt = _Checkpointer(opts)
-    timer = _PhaseTimer(opts, device)
+    timer = _PhaseTimer(opts, device, quiet=not rank0)
     vtk_base = opts.get("d4est_vtk", "filename", None)
 
     forest = Forest.uniform(geom.conn, level)
@@ -562,14 +599,21 @@ def run_poisson(opts: Options, problem, *, device) -> DriverResult:
         # the transferred field starts the solve when the shapes match
         x0 = torch.zeros_like(f) if u is None or u.shape != f.shape else u
         restart = it == it0 and resume_u is not None
-        pc = (_build_pc(mesh, rhs, hp=mixed, **pc_opts)
-              if pc_type != "none" and not restart else None)
-        if pc is not None:
+        pc = None
+        if pc_type != "none" and not restart:
+            pc = (_build_pc(mesh, rhs, hp=mixed, **pc_opts) if par is None
+                  else _build_pc_dist(par, mesh, hp=mixed, **pc_opts))
             precond = pc.state
         with timer.phase("solve"):
             if restart:
                 info, u = _restored(mesh, rhs, resume_u, resume_own,
                                     hp=mixed)
+            elif par is not None and pc is not None:
+                info, u = _solve_pc_dist(par, pc, rhs, x0)
+            elif par is not None:
+                info, u = _solve_dist(par.distribute(mesh), rhs, x0,
+                                      hp=mixed, use_mixed=use_mixed, ksp=ksp,
+                                      mixed_opts=mixed_opts)
             elif ckpt.midsolve:
                 info, u = _solve_chunked(
                     mesh, rhs, x0, hp=mixed, ksp=ksp, pc=pc,
@@ -591,11 +635,11 @@ def run_poisson(opts: Options, problem, *, device) -> DriverResult:
         u_a = mesh.init_field(problem.analytic)
         norms.add(mesh, L_2=norm_L2(mesh, u_max - u_a),
                   L_infty=norm_Linfty(u_max - u_a))
-        if vtk_base:
+        if vtk_base and rank0:
             write_vtu(f"{vtk_base}_{it}.vtu", mesh,
                       point_fields={"u": u_max, "error": u_max - u_a},
                       cell_fields={"deg": deg_e})
-        if ckpt.prefix:
+        if ckpt.prefix and rank0:
             # a mixed-degree level also stores its own-degree iterate, which
             # restricting u back from the storage degree does not give bit
             # for bit (ROADMAP C16)
@@ -621,6 +665,8 @@ def run_poisson(opts: Options, problem, *, device) -> DriverResult:
                     mesh, u_max, F, g=g, penalty_prefactor=prefactor,
                     vol_h=vol_h_from_options(opts),
                 ).cpu().numpy()
+                if par is not None:  # rank 0's estimate decides the marks
+                    eta2 = par.comm.broadcast(eta2)
             eta2_hist.append(eta2)
             if sp_state is None or len(sp_state.predictor) != mesh.n_elements:
                 sp_state = SmoothPredState.fresh(mesh.n_elements, sp_params)
@@ -653,7 +699,9 @@ def run_poisson(opts: Options, problem, *, device) -> DriverResult:
 
     return DriverResult(mesh=mesh, u=u, norms=norms, solves=solves,
                         eta2_history=eta2_hist, precond=precond,
-                        timings=timer.rows, first_level=it0)
+                        timings=timer.rows, first_level=it0,
+                        rank=0 if par is None else par.rank,
+                        parallel="" if par is None else par.note)
 
 
 def _sync(device):
@@ -903,6 +951,298 @@ def _solve(mesh: MeshData, rhs, x0, *, use_mixed, structured_on, ksp,
 
 
 # ---------------------------------------------------------------------------
+# Distributed execution ([parallelism])
+# ---------------------------------------------------------------------------
+#
+# The reference's driver is the parallel program (`driver.c:13-313`:
+# PetscInitialize → p4est partition → ghost → solve; every problem runs
+# under mpirun).  Here each rank is a process (torchrun); `[parallelism]`
+# routes a solve through the node-weighted SFC layout
+# (`d4est_amr_load_balance`), the rank's block of the padded mesh and the
+# halo-exchange apply (`Mesh/d4est_ghost_data.c` role): one all-to-all of
+# halo volume values an apply and global dot products.
+
+
+class ParallelContext:
+    """The driver's distributed state (JAX `ParallelContext`,
+    `driver.py:457-513`).  [parallelism] options:
+
+        enable    = auto|1|0   (auto: on when WORLD_SIZE > 1)
+        n_devices = <int>      (must equal the world size)
+        backend   = auto|nccl|gloo  (auto: nccl when every rank on the
+                                host has a card of its own, else gloo;
+                                an explicit nccl that cannot be served
+                                raises)
+        multihost = 1          (accepted: the ranks always come from the
+                                environment, `parallel/comm.py`)
+    """
+
+    def __init__(self, comm, note=""):
+        self.comm = comm
+        self.n_dev, self.rank, self.device = comm.size, comm.rank, comm.device
+        # what the CLI prints of the run's ranks and backend
+        self.note = note or f"{comm.size} ranks"
+
+    @staticmethod
+    def from_options(opts: Options, device, refuse=()):
+        """The context of this run, or None when it runs on one rank.
+        Every check runs before the process group is joined; `refuse`
+        lists the messages of option combinations that cannot run
+        distributed (the first raises `NotImplementedError`)."""
+        enable = str(opts.get("parallelism", "enable", "auto")).lower()
+        if enable in _OFF:
+            return None
+        world = pcomm.world_from_env()
+        n = opts.get_int("parallelism", "n_devices", world.size)
+        if n != world.size:
+            raise ValueError(
+                f"[parallelism] n_devices = {n} but the world has "
+                f"{world.size} ranks (start one process per rank, e.g. "
+                "`python -m torch.distributed.run --nproc_per_node=N`)")
+        if world.size <= 1:
+            if enable in _ON:
+                raise ValueError(
+                    "[parallelism] enable = 1 requires more than one rank "
+                    "(WORLD_SIZE > 1)")
+            return None
+        dev = pcomm.rank_device(device, world)
+        asked = opts.get("parallelism", "backend", "auto")
+        backend = pcomm.resolve_backend(asked, dev, world)
+        for msg in refuse:
+            raise NotImplementedError(msg)
+        note = f"{world.size} ranks, backend = {backend}" + (
+            f" (auto: {world.local_size} ranks on this host, "
+            f"{torch.cuda.device_count() if dev.type == 'cuda' else 0} "
+            "CUDA cards)" if asked == "auto" else "")
+        return ParallelContext(pcomm.init_process_group(backend, world, dev),
+                               note)
+
+    def distribute(self, mesh: MeshData) -> "DistributedEpoch":
+        """Node-weighted SFC layout, the rank's block of the padded mesh
+        and its halo program for one mesh epoch (`p4est_partition_ext`
+        with node weights + `d4est_ghost_init`)."""
+        layout = PaddedLayout.build(
+            (mesh.deg_e.cpu().numpy() + 1) ** mesh.dim, self.n_dev)
+        mesh_p = pad_mesh_to_layout(mesh, layout)
+        halo = build_halo_program(mesh_p, self.n_dev).local(self.rank,
+                                                             self.device)
+        mesh_l = shard_mesh_data(mesh_p, self.rank, self.n_dev, self.device)
+        return DistributedEpoch(self.comm, layout, mesh_l, halo,
+                                mesh.n_elements)
+
+
+class DistributedEpoch:
+    """One mesh epoch on this rank: the layout, the rank's mesh block and
+    halo program, and field migration in and out of the layout (JAX
+    `DistributedEpoch`)."""
+
+    def __init__(self, comm, layout, mesh, halo, E):
+        self.comm, self.layout, self.mesh, self.halo, self.E = (
+            comm, layout, mesh, halo, E)
+        rows = slice(comm.rank * layout.Bmax, (comm.rank + 1) * layout.Bmax)
+        # the rank's real rows: pad rows are kept at exactly zero
+        self.valid = torch.as_tensor(layout.src[rows] >= 0,
+                                     device=comm.device)
+
+    def to_dev(self, field):
+        """A global-SFC field [E, ...] -> this rank's rows [Bmax, ...]."""
+        return shard_field(migrate_field(field, self.layout), self.comm.rank,
+                           self.comm.size, self.comm.device)
+
+    def to_host(self, field_l):
+        """Every rank's rows -> the global-SFC field (on every rank)."""
+        return unmigrate_field(self.comm.all_gather_rows(field_l),
+                               self.layout, self.E)
+
+    def real_rows(self, v):
+        """v with its pad rows set to zero."""
+        return torch.where(self.valid.reshape((-1,) + (1,) * (v.ndim - 1)),
+                           v, torch.zeros((), dtype=v.dtype,
+                                          device=v.device))
+
+
+def _parallel_refusals(opts: Options, nonlinear: bool):
+    """The option combinations that cannot run distributed: the JAX
+    driver runs them on one device without a word (ROADMAP C6) or swaps
+    the multigrid smoother (C2); the port refuses them."""
+    pc_type = opts.get("d4est_solver_krylov_petsc", "pc_type", "none")
+    out = []
+    if nonlinear and pc_type != "none":
+        out.append(
+            f"[parallelism] with pc_type = {pc_type} in a nonlinear run: the "
+            "distributed Newton–Krylov solve has no preconditioner (the JAX "
+            "driver drops to one device, ROADMAP C6)")
+    if not nonlinear and pc_type in ("schwarz", "cheby"):
+        out.append(
+            f"[parallelism] with pc_type = {pc_type}: no distributed "
+            f"{pc_type} preconditioner (the JAX driver drops to one device, "
+            "ROADMAP C6)")
+    if not nonlinear and pc_type == "multigrid":
+        msg = smoother_refusal(mg_plugin_names(opts)[0])
+        if msg:
+            out.append(msg)
+    if not nonlinear and _Checkpointer(opts).midsolve:
+        out.append(
+            "[parallelism] with checkpoint_every_n_krylov_its: no "
+            "distributed mid-solve checkpoints of a linear solve (the JAX "
+            "driver drops to one device, ROADMAP C6)")
+    return out
+
+
+def _halo_op(epoch: DistributedEpoch, hp=False, robin_coeff=None):
+    if hp:
+        return lambda v: apply_sipg_hp_halo(epoch.mesh, epoch.halo, v,
+                                            epoch.comm)
+    return lambda v: apply_sipg_halo(epoch.mesh, epoch.halo, v, epoch.comm,
+                                     robin_coeff)
+
+
+def _solve_dist(epoch: DistributedEpoch, rhs, x0, *, hp, use_mixed, ksp,
+                mixed_opts):
+    """An unpreconditioned epoch on the halo program (JAX
+    `_linear_solve_halo`, `_linear_solve_mixed_halo`, `driver.py:541-606`,
+    routed as at `:829-879`): f64 CG on the hp operator on mixed-degree
+    epochs (`cg-hp-halo`); mixed precision with the f32 inner CG through
+    the f32 halo program (`mixed-halo`), falling back to f64 CG when the
+    outer loop runs out (JAX `:870-873`) or stops above the one-rank
+    path's floor 1e-10·(1 + ‖b‖); else f64 CG or FCG (`cg-halo`,
+    `fcg-halo`).  Returns the info and the gathered global solution."""
+    comm = epoch.comm
+    dot = comm.dot
+    _sync(comm.device)
+    t0 = time.perf_counter()
+    rhs_l, x0_l = epoch.to_dev(rhs), epoch.to_dev(x0)
+    A = _halo_op(epoch, hp=hp)
+    bnorm = float(torch.sqrt(dot(rhs_l, rhs_l)))
+
+    def plain(flexible):
+        return (fcg_solve if flexible else cg_solve)(
+            A, rhs_l, x0=x0_l, atol=5e-15, rtol=1e-20, max_iter=100000,
+            dot=dot)
+
+    fallback, outer = False, 0
+    if hp:
+        path, res = "cg-hp-halo", plain(False)
+        iters = res.iterations
+    elif use_mixed:
+        path = "mixed-halo"
+        mesh32, halo32 = epoch.mesh.astype(torch.float32), epoch.halo.astype(
+            torch.float32)
+        res = mixed_refine_solve(
+            A, rhs_l, x0=x0_l,
+            A32=lambda v: apply_sipg_halo(mesh32, halo32, v, comm),
+            atol=5e-15, rtol=1e-20, dot=dot, **mixed_opts)
+        outer, iters = res.outer_iterations, res.inner_iterations
+        if (res.outer_iterations >= mixed_opts["max_outer"]
+                or res.residual_norm > 1e-10 * (1.0 + bnorm)):
+            fallback = True
+            res = plain(False)
+            iters = res.iterations
+    else:
+        path = f"{'fcg' if ksp == 'fcg' else 'cg'}-halo"
+        res = plain(ksp == "fcg")
+        iters = res.iterations
+    x = epoch.to_host(res.x)
+    _sync(comm.device)
+    info = SolveInfo(
+        path=path, outer_iterations=outer, iterations=iters,
+        residual_norm=float(res.residual_norm), rhs_norm=bnorm,
+        fallback=fallback, seconds=time.perf_counter() - t0,
+    )
+    return info, x
+
+
+def _build_pc_dist(par: ParallelContext, mesh: MeshData, *, hp, pc_type,
+                   mg_params, mesh_kwargs, **_) -> _Precond:
+    """The multigrid preconditioner of a distributed epoch (JAX
+    `driver.py:787-799`): the global hierarchy, every level distributed
+    (`parallel/mg.build_sharded_hierarchy`) and its Chebyshev bounds from
+    Lanczos on the level halo operators; one shard-resident V-cycle an
+    apply, with FCG.  Its state is the `ShardedHierarchy`."""
+    setup = {}
+
+    def step(name, fn):
+        _sync(par.device)
+        t = time.perf_counter()
+        out = fn()
+        _sync(par.device)
+        setup[name] = time.perf_counter() - t
+        return out
+
+    assert pc_type == "multigrid", pc_type  # the others are refused (C6)
+    sh = step("hierarchy", lambda: build_sharded_hierarchy(
+        build_hierarchy(mesh, mg_params, mesh_kwargs=mesh_kwargs),
+        par.comm))
+    step("mg_setup", lambda: mg_setup_sharded(sh, _sin3_seed))
+    return _Precond(lambda r: v_cycle_sharded(sh, r, torch.zeros_like(r)),
+                    sh, fcg_solve, "fcg-mg" + ("-hp" if hp else "") + "-halo",
+                    setup)
+
+
+def _solve_pc_dist(par: ParallelContext, pc: _Precond, rhs, x0):
+    """A distributed multigrid epoch (JAX `_linear_solve_fcg_mg_sharded`):
+    FCG on the level-0 halo operator, one V-cycle an apply."""
+    sh, comm = pc.state, par.comm
+    _sync(par.device)
+    t0 = time.perf_counter()
+    lay = sh.layouts[0]
+    rhs_l = shard_field(migrate_field(rhs, lay), comm.rank, comm.size,
+                        comm.device)
+    x0_l = shard_field(migrate_field(x0, lay), comm.rank, comm.size,
+                       comm.device)
+    res = pc.solver(level_operator(sh, 0), rhs_l, x0=x0_l, M=pc.M,
+                    atol=5e-15, rtol=1e-20, max_iter=10000, dot=comm.dot)
+    x = unmigrate_field(comm.all_gather_rows(res.x), lay, rhs.shape[0])
+    _sync(par.device)
+    info = SolveInfo(
+        path=pc.path, outer_iterations=0, iterations=res.iterations,
+        residual_norm=res.residual_norm,
+        rhs_norm=float(torch.sqrt(comm.dot(rhs_l, rhs_l))), fallback=False,
+        seconds=time.perf_counter() - t0, setup=pc.setup,
+    )
+    return info, x
+
+
+def _newton_dist(epoch: DistributedEpoch, problem, mesh: MeshData, u, bc,
+                 params, *, ksp, ksp_iters, krylov_its, callback=None):
+    """The distributed Newton–Krylov solve of one level (JAX
+    `driver.py:1494-1575`): the residual is the halo apply (with the Robin
+    coefficient, or plus the migrated A(0; g) for Dirichlet data) and the
+    rank-local nonlinear mass term; the Jacobian is the halo apply and the
+    local frozen-u0 mass term; ‖F‖ and the Krylov dots are global.
+    `callback(k, u, ‖F‖)` gets the gathered global iterate.  Returns the
+    `NewtonResult` with the gathered global solution."""
+    comm = epoch.comm
+    robin = problem.bc_type == "robin"
+    rc_l = epoch.to_dev(bc) if robin else None
+    Lg_l = None if robin else epoch.to_dev(
+        apply_sipg(mesh, torch.zeros_like(u), bc))
+    A = _halo_op(epoch, robin_coeff=rc_l)
+    fof, dfof = problem.fof(), problem.dfof()
+
+    def residual(u_l):
+        r = A(u_l) + apply_mass_fof(epoch.mesh, u_l, fof)
+        if Lg_l is not None:
+            r = r + Lg_l
+        return epoch.real_rows(r)
+
+    def jac_solve(u0_l, rhs_l, rtol):
+        coeff = epoch.real_rows(fof_lin_coeff(epoch.mesh, u0_l, dfof))
+        res = (fcg_solve if ksp == "fcg" else cg_solve)(
+            lambda v: A(v) + apply_mass_coeff(epoch.mesh, coeff, v), rhs_l,
+            atol=0.0, rtol=rtol, max_iter=ksp_iters, dot=comm.dot)
+        krylov_its.append(res.iterations)
+        return res.x
+
+    res = newton_solve(
+        residual, jac_solve, epoch.to_dev(u), params,
+        callback=(None if callback is None else
+                  lambda k, u_k, fn: callback(k, epoch.to_host(u_k), fn)),
+        dot=comm.dot)
+    return res._replace(u=epoch.to_host(res.u))
+
+
+# ---------------------------------------------------------------------------
 # Nonlinear problems (Newton–Krylov outer loop)
 # ---------------------------------------------------------------------------
 #
@@ -948,6 +1288,9 @@ class CDSProblem:
     def residual(self, mesh, u, bc):
         return self.mod.residual(mesh, u, bc, self.params)
 
+    def fof(self):
+        return self.mod.fof(self.params)
+
     def dfof(self):
         return self.mod.dfof(self.params)
 
@@ -979,6 +1322,9 @@ class OkendonProblem:
 
     def residual(self, mesh, u, bc):
         return self.mod.residual(mesh, u, bc, self.params)
+
+    def fof(self):
+        return self.mod.fof(self.params)
 
     def dfof(self):
         return self.mod.dfof(self.params)
@@ -1014,6 +1360,9 @@ class TwoPuncturesProblem:
 
     def residual(self, mesh, u, bc):
         return self.mod.residual(mesh, u, self.params, bc)
+
+    def fof(self):
+        return self.mod.fof(self.params)
 
     def dfof(self):
         return self.mod.dfof(self.params)
@@ -1070,6 +1419,11 @@ def run_nonlinear(opts: Options, problem, *, device) -> DriverResult:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     _refuse_unported(opts)
+    par = ParallelContext.from_options(
+        opts, device, refuse=_parallel_refusals(opts, nonlinear=True))
+    if par is not None:
+        device = par.device
+    rank0 = par is None or par.rank == 0
 
     geom = geometry_from_options(opts)
     level = opts.get_int("initial_mesh", "min_level", required=True)
@@ -1203,7 +1557,7 @@ def run_nonlinear(opts: Options, problem, *, device) -> DriverResult:
             return res.x
 
         def newton_cb(k, u_k, fnorm):
-            if k % ckpt.every_n == 0:
+            if k % ckpt.every_n == 0 and rank0:
                 ckpt.save_midsolve(forest, it, k, u_k, deg)
 
         _sync(device)
@@ -1213,6 +1567,11 @@ def run_nonlinear(opts: Options, problem, *, device) -> DriverResult:
             fnorm = float(torch.sqrt(torch.sum(F * F)))
             res = NewtonResult(u=u, iterations=0, residual_norm=fnorm,
                                 history=[fnorm])
+        elif par is not None:
+            res = _newton_dist(par.distribute(mesh), problem, mesh, u, bc,
+                               newton_params, ksp=ksp, ksp_iters=ksp_iters,
+                               krylov_its=krylov_its,
+                               callback=newton_cb if ckpt.midsolve else None)
         else:
             res = newton_solve(lambda v: problem.residual(mesh, v, bc),
                                jac_solve, u, newton_params,
@@ -1237,13 +1596,15 @@ def run_nonlinear(opts: Options, problem, *, device) -> DriverResult:
             mesh, u, F, g=g_est, penalty_prefactor=prefactor,
             vol_h=vol_h_from_options(opts),
         ).cpu().numpy()
+        if par is not None:  # rank 0's estimate decides the marks
+            eta2 = par.comm.broadcast(eta2)
         eta2_hist.append(eta2)
         norms.rows[-1]["eta2_sum"] = float(eta2.sum())
 
-        if vtk_base:
+        if vtk_base and rank0:
             write_vtu(f"{vtk_base}_{it}.vtu", mesh, point_fields={"u": u},
                       cell_fields={"eta2": eta2})
-        if ckpt.prefix:
+        if ckpt.prefix and rank0:
             ckpt.save_level(forest, it, {"u": u}, deg, amr_history,
                             extra={"problem": problem.name, "level": it,
                                    "predictor": _predictor_json(sp_state)})
@@ -1267,4 +1628,5 @@ def run_nonlinear(opts: Options, problem, *, device) -> DriverResult:
 
     return DriverResult(mesh=mesh, u=u, norms=norms, solves=solves,
                         eta2_history=eta2_hist, precond=precond,
-                        first_level=it0)
+                        first_level=it0, rank=0 if par is None else par.rank,
+                        parallel="" if par is None else par.note)

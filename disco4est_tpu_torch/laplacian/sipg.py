@@ -91,35 +91,7 @@ def apply_sipg(mesh: MeshData, u, g=None, neighbors: str = "full",
     dudr = [tensor.apply_axis(D, u, l) for l in range(dim)]
 
     # ---- volume stiffness ----------------------------------------------
-    # Au_vol = Σ_lp Dᵀ_lp Vᵀ (w·J·Σ_l g_lp·g_l ⊙ V D_l u)
-    w3 = ops["w3"]
-    if volume_mode == "dense":
-        Gs = ops["Gs"]
-        u_flat = u.reshape(E, -1)
-        t_flat = torch.stack([u_flat @ Gs[l] for l in range(dim)], 1)
-        if mesh.wjgg_c is not None:
-            wjgg_flat = mesh.wjgg_c.to(dtype)[..., None] * w3.reshape(-1)
-        else:
-            wjgg_flat = mesh.wjgg.to(dtype).reshape(E, dim, dim, -1)
-        Au = torch.zeros_like(u)
-        for lp in range(dim):
-            # elementwise: an einsum here is a batched GEMV over E·nq^dim
-            s_flat = (wjgg_flat[:, lp] * t_flat).sum(1)
-            Au = Au + (s_flat @ Gs[lp].T).reshape(u.shape)
-    else:
-        t = [vol_interp(mesh, dudr[l]) for l in range(dim)]
-        Au = torch.zeros_like(u)
-        cshape = (E,) + (1,) * dim
-        for lp in range(dim):
-            s = torch.zeros_like(t[0])
-            for l in range(dim):
-                if mesh.wjgg_c is not None:
-                    c = mesh.wjgg_c[:, lp, l].to(dtype).reshape(cshape)
-                    s = s + c * (w3 * t[l])
-                else:
-                    s = s + mesh.wjgg[:, lp, l].to(dtype) * t[l]
-            s = vol_interp(mesh, s, transpose=True)
-            Au = Au + tensor.apply_axis(D.T, s, lp)
+    Au = _volume_stiffness(mesh, u, dudr, ops, volume_mode)
 
     # ---- face sweep (single batch over [E, 2d]) -------------------------
     # Neighbor data is two scalars per face point: the trace u⁺ and the
@@ -205,11 +177,61 @@ def apply_sipg(mesh: MeshData, u, g=None, neighbors: str = "full",
     vt1 = _face_apply(Vq.T, wf * (term1 + term3), dim) * cmask
     vt2 = _face_apply(Vq.T, wf * term2, dim) * cmask[:, :, None]
 
+    Au = _lift_faces(Au, vt1, vt2, D, dim, nl)
+
+    if mesh.hc_elem.shape[0] > 0:
+        Au = Au + _apply_hanging(mesh, u_f, dudr_f, dtype,
+                                 neighbors=neighbors)
+    return Au
+
+
+def _volume_stiffness(mesh: MeshData, u, dudr, ops, volume_mode):
+    """The volume stiffness term of `apply_sipg` (volume_mode "dense" or
+    "tensor"; `dudr` the reference gradient of u, used by "tensor")."""
+    dim = mesh.dim
+    E = u.shape[0]
+    dtype = u.dtype
+    D = ops["D"]
+    # Au_vol = Σ_lp Dᵀ_lp Vᵀ (w·J·Σ_l g_lp·g_l ⊙ V D_l u)
+    w3 = ops["w3"]
+    if volume_mode == "dense":
+        Gs = ops["Gs"]
+        u_flat = u.reshape(E, -1)
+        t_flat = torch.stack([u_flat @ Gs[l] for l in range(dim)], 1)
+        if mesh.wjgg_c is not None:
+            wjgg_flat = mesh.wjgg_c.to(dtype)[..., None] * w3.reshape(-1)
+        else:
+            wjgg_flat = mesh.wjgg.to(dtype).reshape(E, dim, dim, -1)
+        Au = torch.zeros_like(u)
+        for lp in range(dim):
+            # elementwise: an einsum here is a batched GEMV over E·nq^dim
+            s_flat = (wjgg_flat[:, lp] * t_flat).sum(1)
+            Au = Au + (s_flat @ Gs[lp].T).reshape(u.shape)
+    else:
+        t = [vol_interp(mesh, dudr[l]) for l in range(dim)]
+        Au = torch.zeros_like(u)
+        cshape = (E,) + (1,) * dim
+        for lp in range(dim):
+            s = torch.zeros_like(t[0])
+            for l in range(dim):
+                if mesh.wjgg_c is not None:
+                    c = mesh.wjgg_c[:, lp, l].to(dtype).reshape(cshape)
+                    s = s + c * (w3 * t[l])
+                else:
+                    s = s + mesh.wjgg[:, lp, l].to(dtype) * t[l]
+            s = vol_interp(mesh, s, transpose=True)
+            Au = Au + tensor.apply_axis(D.T, s, lp)
+    return Au
+
+
+def _lift_faces(Au, vt1, vt2, D, dim, nl):
+    """Add the face terms vt1 [E, 2d, nfl...] and the symmetry terms vt2
+    [E, 2d, dim, nfl...] of every face into the volume field Au."""
     # lift to volume and accumulate: per face, the tangential Dᵀ terms act
     # within the face plane; the normal-direction Dᵀ of a lifted plane is
     # an outer product with one column of Dᵀ
     Dt = D.T
-    for f in range(nfaces):
+    for f in range(2 * dim):
         dir_, side = divmod(f, 2)
         tang = [d for d in range(dim) if d != dir_]
         a = vt1[:, f]
@@ -221,10 +243,6 @@ def apply_sipg(mesh: MeshData, u, g=None, neighbors: str = "full",
         col_shape = [1] * Au.ndim
         col_shape[axis] = nl
         Au = Au + vt2[:, f, dir_].unsqueeze(axis) * dcol.reshape(col_shape)
-
-    if mesh.hc_elem.shape[0] > 0:
-        Au = Au + _apply_hanging(mesh, u_f, dudr_f, dtype,
-                                 neighbors=neighbors)
     return Au
 
 
@@ -369,6 +387,29 @@ def _row_mat_apply(mats, v, axis_from_back):
     ax = v.ndim - 1 - axis_from_back
     out = torch.einsum("rab,r...b->r...a", mats, torch.movedim(v, ax, -1))
     return torch.movedim(out, -1, ax)
+
+
+def _face_scatter_dynamic(Au, elems, faces, vals, dim, nl, D=None,
+                          term2_l=None):
+    """Add face-nodal rows `vals` [R, nfl...] into the volume rows
+    `elems` of Au where the face id `faces` varies per row (JAX
+    `_face_scatter_dynamic`, `laplacian/sipg.py:376`; only the distributed
+    halo apply uses it): each of the 2·dim faces lifts its rows under a
+    row mask (then Dᵀ along `term2_l` when `D` is given), and every row is
+    added into its element in a fixed order, through the element's face
+    slot (`ops.rows.add_face_rows`).  JAX adds with `.at[].add`, which an
+    `index_add` would run as atomics on a card (ROADMAP C10).  An
+    (element, face) pair may repeat only on rows whose values are zero."""
+    R = vals.shape[0]
+    mshape = (R,) + (1,) * (vals.ndim - 1)
+    vol = None
+    for f in range(2 * dim):
+        mask = (faces == f).to(vals.dtype).reshape(mshape)
+        contrib = tensor.face_scatter(vals * mask, f, dim, nl)
+        if D is not None:
+            contrib = tensor.apply_axis(D.T, contrib, term2_l)
+        vol = contrib if vol is None else vol + contrib
+    return add_face_rows(Au, vol, elems, faces, 2 * dim)
 
 
 @functools.lru_cache(maxsize=None)

@@ -57,6 +57,19 @@ def face_slice(u, face: int, dim: int):
     return u.select(axis, 0 if side == 0 else u.shape[axis] - 1)
 
 
+def face_scatter(face_vals, face: int, dim: int, n: int):
+    """Lift: place `face_vals[..., n_{dim-1}, ..., n_1]` on the face plane
+    of a zero volume field `[..., n_dim, ..., n_1]` (JAX
+    `ops/tensor.face_scatter`)."""
+    dir_, side = divmod(face, 2)
+    axis = face_vals.ndim - dim + 1 + (dim - 1 - dir_)
+    shape = list(face_vals.shape)
+    shape.insert(axis, n)
+    out = face_vals.new_zeros(shape)
+    out.select(axis, 0 if side == 0 else n - 1).copy_(face_vals)
+    return out
+
+
 def np_face_slice_indices(face: int, dim: int, n: int) -> np.ndarray:
     """Flat volume-node indices of a face plane (x-fastest ordering).
     Host-side helper for building gather maps."""

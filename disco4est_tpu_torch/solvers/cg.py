@@ -25,7 +25,7 @@ class CGResult(NamedTuple):
     residual_norm: float
 
 
-def _dot(a, b):
+def _local_dot(a, b):
     return torch.dot(a.reshape(-1), b.reshape(-1))
 
 
@@ -40,10 +40,14 @@ def cg_solve(
     max_iter: int = 10000,
     resume_state: tuple | None = None,
     return_state: bool = False,
+    dot: Callable | None = None,
 ):
     """Solve A x = b.  `A` and the optional preconditioner `M` are
-    matrix-free callables on tensors shaped like `b`.  Returns the
-    `CGResult`, and with `return_state` also the state to resume from."""
+    matrix-free callables on tensors shaped like `b`; `dot` replaces the
+    local dot product (the distributed solves pass their global one).
+    Returns the `CGResult`, and with `return_state` also the state to
+    resume from."""
+    _dot = dot or _local_dot
     if resume_state is None:
         x = torch.zeros_like(b) if x0 is None else x0
         r = b - A(x)

@@ -16,17 +16,20 @@ import numpy as np
 import torch
 
 
-def _dot(a, b):
+def _local_dot(a, b):
     return torch.dot(a.reshape(-1), b.reshape(-1))
 
 
-def cg_eigs(A: Callable, b, iters: int = 10):
+def cg_eigs(A: Callable, b, iters: int = 10, dot: Callable | None = None):
     """Run `iters` CG iterations on A x = b and estimate the extreme
-    eigenvalues of A from the CG tridiagonal (Lanczos) matrix.
+    eigenvalues of A from the CG tridiagonal (Lanczos) matrix; `dot`
+    replaces the local dot product (the distributed set-up passes its
+    global one).
 
     Returns (lmin, lmax) as host floats.  The reference feeds
     lmax·multiplier and lmax/ratio into the Chebyshev smoother
     (`d4est_solver_multigrid_smoother_cheby.h:13-26`)."""
+    _dot = dot or _local_dot
     r = b
     p = r
     rr = _dot(r, r)
@@ -56,10 +59,10 @@ def cg_eigs(A: Callable, b, iters: int = 10):
 def power_method(A: Callable, v0, iters: int = 100):
     """Largest eigenvalue via power iteration (`d4est_power_method.c`);
     a 0-d tensor on `v0`'s device."""
-    v = v0 / torch.sqrt(_dot(v0, v0))
+    v = v0 / torch.sqrt(_local_dot(v0, v0))
     lam = torch.zeros((), dtype=v0.dtype, device=v0.device)
     for _ in range(iters):
         w = A(v)
-        lam = _dot(v, w) / _dot(v, v)
-        v = w / torch.sqrt(_dot(w, w))
+        lam = _local_dot(v, w) / _local_dot(v, v)
+        v = w / torch.sqrt(_local_dot(w, w))
     return lam

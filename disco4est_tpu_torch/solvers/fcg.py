@@ -26,7 +26,7 @@ class FCGResult(NamedTuple):
     residual_norm: float
 
 
-def _dot(a, b):
+def _local_dot(a, b):
     return torch.dot(a.reshape(-1), b.reshape(-1))
 
 
@@ -41,10 +41,14 @@ def fcg_solve(
     max_iter: int = 1000,
     resume_state: tuple | None = None,
     return_state: bool = False,
+    dot: Callable | None = None,
 ):
     """Flexible CG (Notay variant, one-direction truncation) with the
-    optional, possibly variable, preconditioner `M`.  Returns the
-    `FCGResult`, and with `return_state` also the state to resume from."""
+    optional, possibly variable, preconditioner `M`; `dot` replaces the
+    local dot product (the distributed solves pass their global one).
+    Returns the `FCGResult`, and with `return_state` also the state to
+    resume from."""
+    _dot = dot or _local_dot
     M = M or (lambda v: v)
 
     bnorm = float(torch.sqrt(_dot(b, b)))

@@ -37,7 +37,7 @@ class MixedResult(NamedTuple):
     residual_norm: float
 
 
-def _norm(a) -> float:
+def _local_norm(a) -> float:
     return float(torch.sqrt(torch.dot(a.reshape(-1), a.reshape(-1))))
 
 
@@ -54,6 +54,7 @@ def mixed_refine_solve(
     atol: float = 5e-15,
     rtol: float = 1e-14,
     max_outer: int = 60,
+    dot: Callable | None = None,
 ) -> MixedResult:
     """Solve A x = b to f64 accuracy with f32 inner solves.
 
@@ -61,7 +62,14 @@ def mixed_refine_solve(
     either `inner_solve(r32) -> (d32, iterations)`
     (`structured.make_inner_solve` has this shape) or, by default, CG on
     `A32` (defaults to `A` evaluated on f32 inputs), preconditioned by
-    `M32` if given."""
+    `M32` if given.  `dot` replaces the local dot product in the norms
+    and the default inner CG (the distributed solve passes its global
+    one)."""
+    if dot is not None:
+        def _norm(a) -> float:
+            return float(torch.sqrt(dot(a, a)))
+    else:
+        _norm = _local_norm
     x = torch.zeros_like(b) if x0 is None else x0
     if inner_solve is None:
         A32_ = A32 or (lambda v: A(v.to(b.dtype)).to(F32))
@@ -69,7 +77,7 @@ def mixed_refine_solve(
         def inner_solve(r32):
             res = cg_solve(
                 A32_, r32, M=M32, atol=0.0, rtol=inner_rtol,
-                max_iter=inner_max_iter,
+                max_iter=inner_max_iter, dot=dot,
             )
             return res.x, res.iterations
 

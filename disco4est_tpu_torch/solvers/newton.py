@@ -37,7 +37,7 @@ class NewtonResult(NamedTuple):
     history: list
 
 
-def _norm(F) -> float:
+def _local_norm(F) -> float:
     return float(torch.sqrt(torch.sum(F * F)))
 
 
@@ -47,10 +47,18 @@ def newton_solve(
     u0,
     params: NewtonParams = NewtonParams(),
     callback: Callable | None = None,  # (it, u, fnorm) per Newton iterate
+    dot: Callable | None = None,
 ) -> NewtonResult:
     """Newton iterates from `u0` until ‖F‖ < atol or < rtol·‖F(u0)‖.
     `callback` runs after every accepted step (the reference checkpoints
-    there every n iterations, `d4est_solver_newton_petsc.c:232-245`)."""
+    there every n iterations, `d4est_solver_newton_petsc.c:232-245`).
+    `dot` replaces the local ‖F‖ (the distributed solve passes its global
+    dot product)."""
+    if dot is not None:
+        def _norm(F) -> float:
+            return float(torch.sqrt(dot(F, F)))
+    else:
+        _norm = _local_norm
     u = u0
     F = residual(u)
     fnorm = _norm(F)

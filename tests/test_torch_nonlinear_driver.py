@@ -16,8 +16,7 @@ package's tests pin (f64, CPU), without rerunning the JAX trajectories:
   `tests/test_regression_digits.py:268` to 1e-10, the marking included;
 - BoyenYork and MultiPuncture as `tests/test_breadth.py:68-113`;
 - TwoPunctures, Okendon and Stamm through the port's CLI;
-- the options the nonlinear path does not port raise, naming their
-  ROADMAP item (A13b, A14, A15).
+- `[parallelism] enable = 1` on one process raises, as in JAX.
 """
 
 import contextlib
@@ -513,15 +512,18 @@ NONLINEAR_OPTIONS = CDS_OPTIONS.replace("num_of_amr_steps = 1",
 # The preconditioners run since ROADMAP A13, the K-slot Schwarz variant
 # since A13b and IO, checkpoints, restart and the timings option since A14
 # (held to the JAX driver in `tests/test_torch_precond_driver.py`,
-# `test_torch_kslot.py` and `test_torch_restart.py`); the case left refuses
-# `[parallelism]` (A15).
+# `test_torch_kslot.py` and `test_torch_restart.py`), `[parallelism]`
+# (A15) one process per rank (`tests/test_torch_dist_driver.py`); the case
+# left asks one process for more ranks than it has, which raises as the
+# JAX driver does (`disco4est_tpu/driver.py:487-490`).
 @pytest.mark.parametrize("edit,item", [
-    (("[quadrature]", "[parallelism]\nenable = 1\n[quadrature]"), "A15"),
+    (("[quadrature]", "[parallelism]\nenable = 1\n[quadrature]"),
+     "more than one rank"),
     # the ids these cases had before the A14 cases went
 ], ids=["edit2-A15"])
 def test_nonlinear_unported_options_raise(edit, item):
     opts = Options.load(NONLINEAR_OPTIONS.replace(*edit))
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(ValueError, match=item):
         driver.run_nonlinear(opts, driver.CDSProblem(opts), device="cpu")
 
 

@@ -23,8 +23,9 @@ the forest digest of each level.
   ψ_analytic boundary data, ROADMAP C11), but for the last step under the
   Chebyshev preconditioner, which stops on the forcing term and moves
   with rounding (within 2 iterations, the test says why);
-- the refusals: `[parallelism]` with a preconditioner names A15, an
-  unknown smoother or bottom solver raises the JAX driver's `ValueError`
+- the refusals: `[parallelism]` with a preconditioner never drops to one
+  device (ROADMAP C6), an unknown smoother or bottom solver raises the
+  JAX driver's `ValueError`
   (`subdomain_chunk > 0`, the K-slot variant, runs since ROADMAP A13b:
   `tests/test_torch_kslot.py`).
 """
@@ -189,12 +190,22 @@ def _linear_opts(edit):
 
 
 @pytest.mark.parametrize("pc", ["multigrid", "schwarz", "cheby"])
-def test_parallelism_with_a_preconditioner_names_a15(pc):
-    """No silent drop to one device (ROADMAP C6)."""
+def test_parallelism_with_a_preconditioner_names_a15(pc, monkeypatch):
+    """No silent drop to one device (ROADMAP C6): one process refuses
+    `enable = 1`, as the JAX driver does; in a world of two ranks the
+    Schwarz and Chebyshev preconditioners, which have no distributed form,
+    raise before any rank joins a group (multigrid runs distributed, A15:
+    `tests/test_torch_dist_driver.py`)."""
     opts = _linear_opts(("pc_type = multigrid",
                          f"pc_type = {pc}\n[parallelism]\nenable = 1"))
-    with pytest.raises(NotImplementedError, match="A15"):
+    with pytest.raises(ValueError, match="more than one rank"):
         driver.run_poisson(opts, SinxProblem, device="cpu")
+    if pc != "multigrid":
+        for k, v in dict(WORLD_SIZE="2", RANK="0", LOCAL_RANK="0",
+                         MASTER_ADDR="127.0.0.1", MASTER_PORT="1").items():
+            monkeypatch.setenv(k, v)
+        with pytest.raises(NotImplementedError, match="C6"):
+            driver.run_poisson(opts, SinxProblem, device="cpu")
 
 
 @pytest.mark.parametrize("edit,what", [
