@@ -8,10 +8,11 @@ and `nvcc`.  Phases, one or more lines each; any failure exits non-zero:
 
 1. the device, and `nvidia-smi --query-gpu=name,power.limit`;
 2. the build of the three CUDA kernels from `disco4est_tpu_torch/csrc/`
-   (one `nvcc` each, all started together), with their register,
+   (one `nvcc` each, all started together; each SIPG library holds its
+   f32 and its bf16 instances), with their build seconds, register,
    shared-memory and spill lines, and the count of tensor-core
    instructions (HGMMA/HMMA) in each SIPG library's SASS, which must not
-   be 0 (B1 and B2 run split-TF32 `wgmma` products);
+   be 0 (B1 and B2 run split-TF32 and bf16 `wgmma` products);
 3. B1, the structured kernel, against its plain PyTorch version and
    against the f64 GEMM-form apply, on bricks of several degrees and
    levels, the shapes of phases 4 and 5 among them (rel ≤ 5e-6), with the
@@ -49,9 +50,11 @@ and `nvcc`.  Phases, one or more lines each; any failure exits non-zero:
 8. the two kernel-timing tools end to end on the card
    (`tools.time_fused` in its three modes at deg 7 / level 4 and mode
    fused at deg 3 / level 5, `tools.exp_kernel_design`), their lines
-   echoed; B1, B2 and B3 must each have launched there, the tools' own
-   error lines must be within the tolerances above, and TF32 must be off
-   again afterwards;
+   echoed; B1, B2 and B3 must each have launched there, in f32 and (B1,
+   B2) in bf16, the tools' own f32 error lines must be within the
+   tolerances above, their bf16 error lines (the bf16 apply against the
+   f32 GEMM form) above 5e-6 and at most 1e-2, and TF32 must be off again
+   afterwards;
 9. the AMR loop through the CLI entry (`run_poisson`'s epochs: mesh
    build, solve, estimate, mark, refine + balance, field transfer), one
    line per epoch with its elements, DOF, degree histogram, hanging
@@ -243,8 +246,11 @@ and `nvcc`.  Phases, one or more lines each; any failure exits non-zero:
        and wall) and the bytes an apply exchanges on 2 and 4 ranks; the
        sharded V-cycle at level 5 against the global one (1e-10) and its
        Lanczos bounds (1e-12); the driver's distributed CG at level 5
-       against the one-process CG (the same count, true residuals, the
-       L2 within `DIST_FORM_REL`);
+       against the one-process CG (the same count, true residuals) and
+       C17's witness, the same CG in one process on the general form
+       (`apply_sipg(..., volume_mode="dense")`): the L2 within 1e-10 of
+       the witness's, the witness within `DIST_FORM_REL` of the
+       GEMM-form CG's and JAX's;
    (b) the CLI on 2 and 4 ranks sharing the card (`backend = auto`, which
        takes gloo there and says so): `tests/test_driver_distributed.py`'s
        sinx hp smooth_pred against the one-process run and the JAX
@@ -255,21 +261,44 @@ and `nvcc`.  Phases, one or more lines each; any failure exits non-zero:
        (b)), each norm line against the same driver on a world of one
        rank in this process (1e-11 relative after an f64 CG, else
        1e-10), and against the one-process run and JAX's one-device pins
-       within `DIST_FORM_REL`; every solve on the halo program, each
-       run's wall and solve lines printed; B1, B2 and B3 launch 0 times
-       in this process's runs of (a) and (b);
+       within `DIST_FORM_REL`; the full-width sinx and multigrid runs
+       also against ROADMAP C17's witness, the same driver in one process
+       on the general form of the operator (`apply_sipg` off its
+       GEMM-form fast path, as the halo program computes it), at 1e-10;
+       every solve on the halo program, each run's wall and solve lines
+       printed; B1, B2 and B3 launch 0 times in this process's runs of
+       (a) and (b);
    (c) the errors: `backend = nccl` on 2 ranks of one card raises the
        port's error (in seconds, through the CLI), and the C6 and C2
        combinations raise `NotImplementedError` before any rank joins a
        group.
 
+16. the bf16 mode of B1 and B2 (`precision="bf16"`, the TPU kernels'
+   default; TF32 off for the plain versions):
+   (a) both bf16 kernels against their plain bf16 versions (2e-4
+       relative L2, 1e-3 relative max) and the f64 apply (an L2 error at
+       most 1.25x the plain version's), at every degree, on nblk-3
+       bricks, at ragged E and on phase 6's meshes;
+   (b) both bf16 kernels timed at deg 7 / level 4 and deg 3 / level 5
+       beside the f32 kernels and the plain bf16 versions, against their
+       bf16 bound (bytes over 3.35 TB/s, flop over 989 TFLOP/s);
+   (c) phase 9 (a)'s sinx mixed solve at deg 3 with the bf16 inner solve
+       (`make_inner_solve(precision="bf16")`) at level 4 and at phase 5's
+       level 5, then with the plain bf16 version as the inner apply: the
+       outer and inner counts, outer residuals, true residual, wall,
+       fallback flag and B1's launches per precision (bf16 > 0, f32 0);
+       pinned (`BF16_SOLVES`): level 4 converges, level 5 diverges and
+       the driver would fall back to f64 CG (ROADMAP C19), whose L2, or
+       the bf16 solve's, is held to JAX's at `LEVEL5_REL`.
+
 `python3 chip_smoke.py --nccl=N` on a machine with N cards runs phase 15
 (b)'s CLI with one rank a card (`backend = auto` takes NCCL there) and
 prints the result line.
 
-Then one JSON line of the kernels (`{"kernels": [...]}`; B1 and B2 once
-per timed size, each with the launches of a run at that size: phase 5
-for B1 at deg 3 / level 5, phase 8 for the rest) and, last, the result line
+Then one JSON line of the kernels (`{"kernels": [...]}`; B1 and B2 in
+f32 and in bf16 once per timed size, each with the launches of a run at
+that size: phase 5 for B1 at deg 3 / level 5 in f32, phase 16 (c)'s
+level-5 solve in bf16, phase 8 for the rest) and, last, the result line
 `{"ok": true, "device": {...}}`.  Without a CUDA device the script fails
 before printing any result.
 """
@@ -361,6 +390,43 @@ PEAK_F32 = 67e12
 PEAK_TF32 = 495e12
 PEAK_BYTES = 3.35e12
 SPLIT_PRODUCTS = 3  # the split-TF32 scheme issues three TF32 products
+# phase 16, the bf16 mode of B1 and B2 (ROADMAP B4): each bf16 kernel
+# against its plain bf16 version (the same rounding points: bf16(u),
+# bf16 traces and weights, bf16(Z), f32 sums; only the order of the f32
+# sums differs, and bf16(Z) may round the other way where the traces'
+# f32 product runs in another order), and against the f64 apply: its L2
+# error at most 1.25x the plain version's on the same input
+BF16_REL_L2, BF16_REL_MAX = 2e-4, 1e-3
+BF16_F64_RATIO = 1.25
+PEAK_BF16 = 989e12  # dense bf16 tensor-core peak, H100 SXM at 700 W
+# B1 (deg, level, x1): every degree at level 1 on the unit cube, nblk 3
+# bricks (a power-of-two and a non-power-of-two cw; deg 5: two column
+# sub-blocks, deg 6 and 7: two warpgroups split the columns), and the two
+# timed sizes
+BF16_CASES = ([(d, 1, (1.0, 1.0, 1.0)) for d in range(1, 8)]
+              + [(2, 1, (1.0, 2.0, 4.0)), (3, 2, (1.0, 1.0, 3.0)),
+                 (5, 1, (1.0, 2.0, 4.0)), (6, 1, (1.5, 1.0, 0.7)),
+                 (7, 1, (1.0, 2.0, 4.0)), (7, 4, (1.0, 1.0, 1.0)),
+                 (3, 5, (1.0, 1.0, 1.0))])
+# B2: phase 6's meshes, every degree, and ragged element counts (E = 24 and
+# 65: a ragged last tile; the 65-tree brick has tree ids past 15)
+BF16_FUSED_CASES = (FUSED_CASES
+                    + [(d, 1, (1.0, 1.0, 1.0), (1, 1, 1)) for d in
+                       (1, 4, 5, 6)]
+                    + [(d, lv, (float(t[0]), 1.0, 1.0), t)
+                       for d in (2, 7) for lv, t in ((1, (3, 1, 1)),
+                                                     (0, (65, 1, 1)))])
+BF16_TOOL_MAX = 1e-2  # phase 8: the bf16 apply against the f32 GEMM form
+# (c) the sinx mixed solve at deg 3 with the bf16 inner solve: per level,
+# its outer steps, inner iterations (within BF16_INNER_REL), whether the
+# driver would fall back to f64 CG (pinned from the first card run), and the
+# JAX L2 that the solve, or its fallback, must meet at LEVEL5_REL
+BF16_MAX_OUTER = 60  # the driver's mixed_max_outer default
+BF16_INNER_REL = 0.02
+BF16_SOLVES = {
+    4: dict(outer=11, inner=1063, fallback=False, l2=AMR_PINS["a"][0][3]),
+    5: dict(outer=3, inner=363, fallback=True, l2=LEVEL5_L2),
+}
 
 SINX_OPTIONS = """
 [initial_mesh]
@@ -1180,13 +1246,14 @@ def phase_tools(torch):
     from disco4est_tpu_torch.tools import exp_kernel_design as X
     from disco4est_tpu_torch.tools import time_fused
 
-    rels, launches = {}, {}
+    rels, launches, rels_bf16, launches_bf16 = {}, {}, {}, {}
     # (mode, deg, level): the default size, then B2 at the main path's
     # size, so that each size's row has its own launch count
     runs = [("fused", 7, 4), ("phases", 7, 4), ("structured", 7, 4),
             ("fused", 3, 5)]
     for mode, deg, level in runs:
         S.KERNEL_LAUNCHES = fused.KERNEL_LAUNCHES = 0
+        S.KERNEL_LAUNCHES_BF16 = fused.KERNEL_LAUNCHES_BF16 = 0
         lines = _tool_lines(time_fused.main, [
             "--mode", mode, "--deg", str(deg), "--level", str(level),
             "--device", "cuda"])
@@ -1196,20 +1263,31 @@ def phase_tools(torch):
         rels[(mode, deg, level)] = _rel_from(lines, "rel err [^:]*:")
         launches[(mode, deg, level)] = (S.KERNEL_LAUNCHES
                                         + fused.KERNEL_LAUNCHES)
+        rels_bf16[(mode, deg, level)] = _rel_from(lines,
+                                                  "bf16 rel err [^:]*:")
+        launches_bf16[(mode, deg, level)] = (S.KERNEL_LAUNCHES_BF16
+                                             + fused.KERNEL_LAUNCHES_BF16)
     X.KERNEL_LAUNCHES = 0
     lines = _tool_lines(X.main, ["--device", "cuda"])
     rels["axis"] = _rel_from(lines, r"rel err vs plain \(one apply\)")
     torch.cuda.synchronize()
     launches["axis"] = X.KERNEL_LAUNCHES
     print(f"[8] launches in the tools: {launches}; errors {rels}")
-    for name, n in launches.items():
+    print(f"[8] bf16 launches in the tools: {launches_bf16}; bf16 errors "
+          f"against the f32 GEMM form {rels_bf16}")
+    for name, n in list(launches.items()) + list(launches_bf16.items()):
         check(n > 0, f"the tools never launched the {name} kernel")
     check(all(v <= REL_TOL for k, v in rels.items() if k != "axis"),
           f"tool errors above {REL_TOL}: {rels}")
+    # the bf16 applies sit at the bf16 rounding, 3e-3 to 4e-3 relative L2
+    # from f32 in JAX's own kernels; far above the f32 bound
+    check(all(REL_TOL < v <= BF16_TOOL_MAX for v in rels_bf16.values()),
+          f"bf16 tool errors outside ({REL_TOL}, {BF16_TOOL_MAX}]: "
+          f"{rels_bf16}")
     check(rels["axis"] <= AXIS_TOL, f"E4 error above {AXIS_TOL}: {rels}")
     check(torch.backends.cuda.matmul.allow_tf32 is False,
           "TF32 was left on after the probe")
-    return launches
+    return launches, launches_bf16
 
 
 def forest_digest(forest):
@@ -2901,11 +2979,19 @@ DIST_RUNS = [("sinx_hp", 4), ("sinx_l5", 4), ("mg_l5", 2), ("hp_l4", 2),
 # one-process run (the GEMM form of the apply) and JAX's one-device pins
 # the bound is DIST_FORM_REL: the two f64 forms of one operator (the halo
 # apply's quadrature-point face terms, the GEMM form) give discrete
-# solutions ~4e-13 apart (max norm, relative; (a) prints it), which
-# moves a level-5 L2 error of 4.5e-10 by ~2e-6 relative, more than
-# LEVEL5_REL; the world-1 run shows the gap comes with the form
+# solutions ~4e-13 apart (max norm, relative; (a) prints it), which moves
+# a level-5 L2 error of 4.5e-10 by ~2e-6 relative, more than LEVEL5_REL.
+# ROADMAP C17's witness shows it: a one-process CG on the general form
+# ends on the distributed CG's L2 bit for bit, and 2.14e-6 from the
+# GEMM-form CG's and from JAX's (measured on an H100)
 DIST_CG_REL, DIST_REL = 1e-11, 1e-10
 DIST_FORM_REL = 1e-5
+# ROADMAP C17: (a)'s distributed CG against its witness, a one-process f64
+# CG on the general form (`c17_witness`), and every line of (b)'s
+# full-width sinx runs against theirs, the same driver in one process on
+# the general form (`_witness_run`)
+DIST_WITNESS_REL = 1e-10
+DIST_WITNESS_RUNS = ("sinx_l5", "mg_l5")
 DIST_APPLY_REL = 1e-12  # (a) a halo apply against the global one, f64
 DIST_VCYCLE_REL = 1e-10  # (a) the sharded V-cycle against the global one
 DIST_RANK_TIMEOUT = 300  # seconds a CLI rank may take
@@ -3274,21 +3360,69 @@ def dist_in_process(torch, np, card, ctx):
           f"solve {LEVEL5_L2!r}); true residuals ||b - A x|| {true[1]:.3e} "
           f"/ {true[0]:.3e}; max |x_dist - x_one| / max |x_one| "
           f"{_rel_t(torch, x, one.x):.2e}")
+    l2w, wit, t_wit = c17_witness(torch, mesh5, rhs)
+    rel_w = abs(l2[1] - l2w) / l2w
+    rel_form = abs(l2[0] - l2w) / l2w
+    rel_jax = abs(l2w - LEVEL5_L2) / LEVEL5_L2
+    print(f"[15] (a) C17 witness, one-process f64 CG on the general form "
+          f"(volume_mode = dense): {wit.iterations} iterations, "
+          f"{t_wit:.3f} s; L2 {l2w!r}; the distributed CG's L2 rel "
+          f"{rel_w:.2e} (bound {DIST_WITNESS_REL:.0e}), max |x_dist - "
+          f"x_wit| / max |x_wit| {_rel_t(torch, x, wit.x):.2e}; the "
+          f"GEMM-form one-process CG's rel {rel_form:.2e} and JAX's "
+          f"{rel_jax:.2e} (bound {DIST_FORM_REL:.0e})")
     # both stop on their recursive residual (ROADMAP C15): the same
     # count, true residuals under the mixed solve's fallback floor, the L2
-    # within DIST_FORM_REL (two forms of the operator)
+    # on the witness's; the witness within DIST_FORM_REL of the GEMM form
+    # and JAX (the operator's two f64 forms)
     check(info.path == "cg-halo" and info.iterations == one.iterations
-          and max(true) <= 1e-10 * (1.0 + bnorm)
-          and abs(l2[1] - l2[0]) <= DIST_FORM_REL * l2[0],
-          f"(a) distributed CG: {info.line(0)}, L2 {l2}, true {true}")
+          and max(true) <= 1e-10 * (1.0 + bnorm) and rel_w <= DIST_WITNESS_REL
+          and rel_form <= DIST_FORM_REL and rel_jax <= DIST_FORM_REL,
+          f"(a) distributed CG: {info.line(0)}, L2 {l2}, witness {l2w}, "
+          f"true {true}")
+
+
+def _witness_run(torch, name):
+    """C17's witness of a full-width run: `_one_process` with the general
+    form of the operator (`apply_sipg` off its GEMM-form fast path, the
+    form the halo program computes) on every apply; its L2 per level and
+    its seconds."""
+    from unittest import mock
+
+    with mock.patch("disco4est_tpu_torch.laplacian.sipg.fast_path_available",
+                    lambda *a, **k: False):
+        return _one_process(torch, name)
+
+
+def c17_witness(torch, mesh, rhs):
+    """ROADMAP C17's witness: the distributed CG's solve in one process on
+    the general form of the operator (`apply_sipg(..., volume_mode =
+    "dense")`: quadrature-point face terms, as the halo program has them,
+    off the GEMM-form fast path).  Returns its sinx L2 error, the solve's
+    result and its seconds."""
+    from disco4est_tpu_torch.io.norms import norm_L2
+    from disco4est_tpu_torch.laplacian.sipg import apply_sipg
+    from disco4est_tpu_torch.problems.poisson import SinxProblem
+    from disco4est_tpu_torch.solvers.cg import cg_solve
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wit = cg_solve(lambda v: apply_sipg(mesh, v, volume_mode="dense"), rhs,
+                   x0=torch.zeros_like(rhs), atol=5e-15, rtol=1e-20,
+                   max_iter=100000)
+    torch.cuda.synchronize()
+    l2 = float(norm_L2(mesh, wit.x - mesh.init_field(SinxProblem.analytic)))
+    return l2, wit, time.perf_counter() - t0
 
 
 def dist_cli(torch, tmp, ctx, runs=DIST_RUNS):
     """(b) The CLI on n ranks (`backend = auto`: gloo when they share the
     card, NCCL on a card each), each norm line against its one-process
     reference: the driver on the world of one rank `ctx` at full width,
-    the one-process run otherwise."""
-    world1 = {}
+    the one-process run otherwise; the full-width sinx runs also against
+    C17's witness, the same driver in one process on the general form of
+    the operator (`_witness_run`)."""
+    world1, witness = {}, {}
     for name, n in runs:
         problem = "cds" if name.startswith("cds") else "sinx"
         one, t_one = _one_process(torch, name)
@@ -3331,6 +3465,18 @@ def dist_cli(torch, tmp, ctx, runs=DIST_RUNS):
         check(all(abs(a - b) <= _path_rel(st) * abs(b)
                   for a, b, st in zip(got, ref, steps)),
               f"(b) {name} on {n} ranks: {got} against {ref}")
+        if name in DIST_WITNESS_RUNS:
+            if name not in witness:
+                witness[name] = _witness_run(torch, name)
+            wit, t_wit = witness[name]
+            rel_w = [abs(a - b) / abs(b) for a, b in zip(got, wit)]
+            print(f"[15] (b)   C17's witness (one process, general form, "
+                  f"{t_wit:.2f} s): L2 {wit}; rel {rel_w} (bound "
+                  f"{DIST_WITNESS_REL:.0e})")
+            check(len(wit) == len(got)
+                  and max(rel_w) <= DIST_WITNESS_REL,
+                  f"(b) {name} on {n} ranks: {got} against the witness's "
+                  f"{wit}")
         far = DIST_FORM_REL if full else None
         for other in (one, pins or []):
             check(all(abs(a - b) <= (far or _path_rel(st)) * abs(b)
@@ -3434,6 +3580,279 @@ def phase_dist(torch, np, card):
     print(f"[15] phase wall {time.perf_counter() - t_phase:.1f} s")
 
 
+def _rel_l2_max(torch, a, ref):
+    d = (a.double() - ref.double())
+    r = ref.double()
+    return (float(torch.linalg.norm(d.reshape(-1))
+                  / torch.linalg.norm(r.reshape(-1))),
+            float(d.abs().max() / r.abs().max()))
+
+
+def sipg_pass_cost_bf16(E, nv, nblk, tw, extra_bytes=0):
+    """Flop and bytes of the bf16 fused pass: the flop of `sipg_pass_cost`;
+    u, cw and scal read (f32), the bf16 traces and weights read once, Au
+    written once (f32), plus `extra_bytes` of tables."""
+    flop = 2.0 * E * nv * (nblk * nv + tw)
+    nbytes = (4 * (2 * E * nv + E * nblk + E * 24)
+              + 2 * (E * tw + nv * nblk * nv + tw * nv) + extra_bytes)
+    return flop, nbytes
+
+
+def bound_ms_bf16(flop, nbytes):
+    """The least time of the bf16 pass on the card: the larger of the
+    bytes over the memory rate and the flop over the dense bf16 peak."""
+    t_ops, t_bytes = flop / PEAK_BF16, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def _bf16_check(torch, np, tag, kernel, plain, f64):
+    """(a) One bf16 kernel against its plain version and the f64 apply;
+    returns the max abs error against the plain version."""
+    out = kernel()
+    ref = plain()
+    ref64 = f64()
+    torch.cuda.synchronize()
+    l2, rmax = _rel_l2_max(torch, out, ref)
+    e_k = _rel_l2_max(torch, out, ref64)[0]
+    e_p = _rel_l2_max(torch, ref, ref64)[0]
+    abs_err = float((out - ref).abs().max())
+    print(f"[16] (a) {tag}: kernel vs plain bf16 rel L2 {l2:.3e}, rel max "
+          f"{rmax:.3e} (abs {abs_err:.3e}); vs f64 rel L2 kernel {e_k:.3e}, "
+          f"plain {e_p:.3e} (ratio {e_k / e_p:.3f})")
+    check(np.isfinite(l2) and l2 <= BF16_REL_L2 and rmax <= BF16_REL_MAX,
+          f"(a) {tag}: bf16 kernel vs plain rel L2 {l2}, max {rmax}")
+    check(np.isfinite(e_k) and e_k <= BF16_F64_RATIO * e_p,
+          f"(a) {tag}: bf16 kernel's f64 error {e_k} above "
+          f"{BF16_F64_RATIO} x the plain version's {e_p}")
+    return abs_err
+
+
+def bf16_kernels(torch, np, card):
+    """(a) and (b): both bf16 kernels against their plain versions and the
+    f64 apply, then timed at the two sizes beside the f32 kernels."""
+    from disco4est_tpu_torch.geometry.brick import BrickGeometry
+    from disco4est_tpu_torch.laplacian import fused
+    from disco4est_tpu_torch.laplacian import structured as S
+    from disco4est_tpu_torch.laplacian.fast import _apply_orth
+    from disco4est_tpu_torch.mesh.builder import build_mesh
+    from disco4est_tpu_torch.mesh.tree import Forest
+
+    dev = torch.device("cuda")
+    max_abs = {"B1": 0.0, "B2": 0.0}
+    timing = {}
+    for deg, level, x1 in BF16_CASES:
+        geom = BrickGeometry(x1=x1, dim=3)
+        mesh = build_mesh(geom, Forest.uniform(geom.conn, level), deg=deg,
+                          device=dev)
+        sb = S.build_structured(mesh)
+        E, nl = mesh.n_elements, deg + 1
+        u = torch.as_tensor(
+            np.random.default_rng(1600 + 10 * deg + level).standard_normal(
+                (E, sb.nv)), dtype=torch.float32, device=dev)
+        tr = S.compute_traces_lex(sb, u, "bf16").contiguous()
+        f64 = lambda: S.to_lex(sb, _apply_orth(  # noqa: E731
+            mesh, S.from_lex(sb, u.double()).reshape((E,) + (nl,) * 3)
+        ).reshape(E, -1))
+        max_abs["B1"] = max(max_abs["B1"], _bf16_check(
+            torch, np, f"B1 deg {deg} level {level} x1 {x1} E {E} nblk "
+            f"{sb.nblk}", lambda: S.lex_apply_cuda_bf16(sb, u, tr),
+            lambda: S.lex_apply_plain(sb, u, tr, "bf16"), f64))
+        if (deg, level) not in TIMED_CASES or x1 != (1.0, 1.0, 1.0):
+            continue
+        tr32 = S.compute_traces_lex(sb, u).contiguous()
+        fm = fused.build_fused(mesh)
+        u2 = S.from_lex(sb, u).contiguous()
+        trf = fused.scaled_traces(u2, fm.W_tr, fm.drstn, "bf16").contiguous()
+        trf32 = fused.scaled_traces(u2, fm.W_tr, fm.drstn).contiguous()
+        timing[(deg, level)] = bf16_timing(torch, card, deg, level, E, sb.nv,
+                                           sb.nblk, 12 * nl * nl, {
+            "B1 bf16": lambda: S.lex_apply_cuda_bf16(sb, u, tr),
+            "B1 f32": lambda: S.lex_apply_cuda(sb, u, tr32),
+            "B1 plain bf16": lambda: S.lex_apply_plain(sb, u, tr, "bf16"),
+            "B2 bf16": lambda: fused.fused_apply_cuda_bf16(fm, u2, trf),
+            "B2 f32": lambda: fused.fused_apply_cuda(fm, u2, trf32),
+            "B2 plain bf16": lambda: fused.fused_apply_plain(fm, u2, trf,
+                                                             "bf16"),
+        })
+    for deg, level, x1, trees in BF16_FUSED_CASES:
+        geom = BrickGeometry(x1=x1, n_trees_per_dim=trees, dim=3)
+        mesh = build_mesh(geom, Forest.uniform(geom.conn, level), deg=deg,
+                          device=dev)
+        fm = fused.build_fused(mesh)
+        E, nl = mesh.n_elements, deg + 1
+        u = torch.as_tensor(
+            np.random.default_rng(1700 + 10 * deg + level).standard_normal(
+                (E, fm.nv)), dtype=torch.float32, device=dev)
+        tr = fused.scaled_traces(u, fm.W_tr, fm.drstn, "bf16").contiguous()
+        max_abs["B2"] = max(max_abs["B2"], _bf16_check(
+            torch, np, f"B2 deg {deg} level {level} x1 {x1} trees {trees} "
+            f"E {E} nblk {fm.nblk}",
+            lambda: fused.fused_apply_cuda_bf16(fm, u, tr),
+            lambda: fused.fused_apply_plain(fm, u, tr, "bf16"),
+            lambda: _apply_orth(mesh, u.double().reshape(
+                (E,) + (nl,) * 3)).reshape(E, -1)))
+    check(set(timing) == set(TIMED_CASES), "(b) timed case missing")
+    return max_abs, timing
+
+
+def bf16_timing(torch, card, deg, level, E, nv, nblk, tw, fns):
+    """(b) The bf16 and f32 kernels and the plain bf16 versions of B1 and
+    B2 at one size, in alternating rounds; the bf16 kernels against their
+    bf16 bound.  Returns each bf16 kernel's numbers for the kernels line."""
+    for fn in fns.values():  # warm-up
+        fn()
+    torch.cuda.synchronize()
+    t = {k: [] for k in fns}
+    for order in (list(fns), list(fns)[::-1]) * 2:
+        for k in order:
+            t[k].append(_time_ms(torch, fns[k]))
+    t = {k: _median(v) for k, v in t.items()}
+    out = {}
+    for name, extra in (("B1", 0), ("B2", 4 * E * 6)):
+        flop, nbytes = sipg_pass_cost_bf16(E, nv, nblk, tw, extra)
+        bms, by = bound_ms_bf16(flop, nbytes)
+        ms = t[f"{name} bf16"]
+        print(f"[16] (b) {name} deg {deg} level {level} (E {E}) on {card}: "
+              f"bf16 kernel {ms:.4f} ms, f32 kernel {t[f'{name} f32']:.4f} ms"
+              f", plain bf16 {t[f'{name} plain bf16']:.4f} ms; bf16 bound "
+              f"{bms:.4f} ms by {by} ({flop / 1e9:.2f} GFLOP, "
+              f"{nbytes / 1e6:.1f} MB; {bms / ms:.1%} of it)")
+        out[name] = dict(ms=ms, plain_ms=t[f"{name} plain bf16"],
+                         bound_ms=bms, bound_by=by,
+                         f32_ms=t[f"{name} f32"])
+    return out
+
+
+def _bf16_inner(S, sb, apply32):
+    """`structured.make_inner_solve(sb, precision="bf16")`'s closure with
+    the inner apply `apply32` (the kernel's, or its plain version's)."""
+    from disco4est_tpu_torch.solvers.cg import cg_solve
+
+    def inner(r32):
+        b_lex = S.to_lex(sb, r32.reshape(sb.n_elements, -1))
+        res = cg_solve(apply32, b_lex, atol=0.0, rtol=1e-3, max_iter=400)
+        return S.from_lex(sb, res.x).reshape(r32.shape), res.iterations
+
+    return inner
+
+
+def bf16_mixed_solve(torch, card, level):
+    """(c) Phase 9 (a)'s sinx mixed solve at deg 3 on the level-`level`
+    brick (phase 5's at level 5) with the bf16 inner solve:
+    `mixed_refine_solve` with `structured.make_inner_solve(sb,
+    precision="bf16")`, the call of the driver's structured path (which
+    passes the f32 default); then the same solve with the plain bf16
+    version as the inner apply, and, where the driver would fall back, its
+    f64 CG.  Prints the outer and inner counts, the outer residuals, the
+    true residual, the wall, the fallback flag and B1's launches per
+    precision; returns the kernel solve's bf16 launches."""
+    from disco4est_tpu_torch.geometry.brick import BrickGeometry
+    from disco4est_tpu_torch.io.norms import norm_L2
+    from disco4est_tpu_torch.laplacian import structured as S
+    from disco4est_tpu_torch.laplacian.sipg import (
+        apply_sipg,
+        build_rhs_with_strong_bc,
+    )
+    from disco4est_tpu_torch.mesh.builder import build_mesh
+    from disco4est_tpu_torch.mesh.tree import Forest
+    from disco4est_tpu_torch.problems.poisson import SinxProblem
+    from disco4est_tpu_torch.solvers.cg import cg_solve
+    from disco4est_tpu_torch.solvers.mixed import mixed_refine_solve
+
+    geom = BrickGeometry(dim=3)
+    mesh = build_mesh(geom, Forest.uniform(geom.conn, level), deg=3,
+                      device="cuda")
+    sb = S.build_structured(mesh)
+    rhs = build_rhs_with_strong_bc(
+        mesh, mesh.init_field(SinxProblem.rhs),
+        mesh.boundary_values(SinxProblem.boundary))
+    u_a = mesh.init_field(SinxProblem.analytic)
+    bnorm = float(torch.linalg.norm(rhs.reshape(-1)))
+    pin = BF16_SOLVES[level]
+
+    def solve(tag, inner):
+        its, hist = [], []
+
+        def inner_rec(r32):
+            d, it = inner(r32)
+            its.append(int(it))
+            return d, it
+
+        def A(v):
+            out = apply_sipg(mesh, v)
+            hist.append(float(torch.linalg.norm((rhs - out).reshape(-1))))
+            return out
+
+        S.KERNEL_LAUNCHES = S.KERNEL_LAUNCHES_BF16 = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = mixed_refine_solve(A, rhs, x0=torch.zeros_like(rhs),
+                                 inner_solve=inner_rec, atol=5e-15,
+                                 rtol=1e-20, max_outer=BF16_MAX_OUTER)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(bf16=S.KERNEL_LAUNCHES_BF16, f32=S.KERNEL_LAUNCHES)
+        true = float(torch.linalg.norm((rhs - apply_sipg(mesh, res.x))
+                                       .reshape(-1)))
+        fallback = (res.outer_iterations >= BF16_MAX_OUTER
+                    or res.residual_norm > 1e-10 * (1.0 + bnorm))
+        print(f"[16] (c) level {level}, {tag}: {res.outer_iterations} outer "
+              f"steps, inner iterations {its} (total {res.inner_iterations})"
+              "; outer residuals (each trial step's) "
+              + ", ".join(f"{h:.3e}" for h in hist)
+              + f"; true ||b - A u|| {true:.3e} (rhs norm {bnorm:.3e}); "
+              f"wall {wall:.3f} s; fallback {'yes' if fallback else 'no'}; "
+              f"B1 launches {launches}")
+        return res, fallback, launches
+
+    res, fallback, launches = solve(
+        f"bf16 kernel inner CG on {card}",
+        S.make_inner_solve(sb, rtol=1e-3, max_iter=400, precision="bf16"))
+    _, fallback_p, launches_p = solve(
+        "plain bf16 inner CG", _bf16_inner(
+            S, sb, lambda v: S.apply_structured_plain(sb, v, "bf16")))
+    check(launches["bf16"] > 0 and launches["f32"] == 0
+          and not any(launches_p.values()),
+          f"(c) level {level}: B1 launches {launches}, plain {launches_p}")
+    inner = res.inner_iterations
+    check(res.outer_iterations == pin["outer"]
+          and abs(inner - pin["inner"]) <= BF16_INNER_REL * pin["inner"]
+          and fallback == fallback_p == pin["fallback"],
+          f"(c) level {level}: {res.outer_iterations} outer steps, {inner} "
+          f"inner iterations, fallback {fallback} (plain {fallback_p}); "
+          f"pinned {pin}")
+    x, how = res.x, "the bf16 mixed solve"
+    if fallback:
+        # what the driver does then (`driver._solve`'s plain_solve)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cg = cg_solve(lambda v: apply_sipg(mesh, v), rhs,
+                      x0=torch.zeros_like(rhs), atol=5e-15, rtol=1e-20,
+                      max_iter=100000)
+        torch.cuda.synchronize()
+        x, how = cg.x, (f"the f64 CG fallback ({cg.iterations} iterations, "
+                        f"{time.perf_counter() - t0:.3f} s)")
+    l2 = float(norm_L2(mesh, x - u_a))
+    rel = abs(l2 - pin["l2"]) / pin["l2"]
+    print(f"[16] (c) level {level}: L2 of {how} {l2!r} (rel to JAX "
+          f"{rel:.3e})")
+    check(rel <= LEVEL5_REL, f"(c) level {level}: L2 {l2} vs {pin['l2']}")
+    return launches["bf16"]
+
+
+def phase_bf16(torch, np, card):
+    """Phase 16: the bf16 mode of B1 and B2 on the card."""
+    t0 = time.perf_counter()
+    check(torch.backends.cuda.matmul.allow_tf32 is False,
+          "the plain versions need TF32 off")
+    max_abs, timing = bf16_kernels(torch, np, card)
+    launches = {level: bf16_mixed_solve(torch, card, level)
+                for level in sorted(BF16_SOLVES)}
+    print(f"[16] phase wall {time.perf_counter() - t0:.1f} s")
+    return max_abs, timing, launches[5]
+
+
 def main():
     import numpy as np
     import torch
@@ -3452,7 +3871,7 @@ def main():
     b1_launches, level5_l2, fcg5 = phase_real_size(torch)
     b2_abs, b2 = phase_fused(torch, np, card)
     b3_abs, b3 = phase_axis(torch, np, card)
-    tool_launches = phase_tools(torch)
+    tool_launches, tool_launches_bf16 = phase_tools(torch)
     phase_amr(torch, np, card, level5_l2, b1[(3, 5)]["ms"])
     phase_curved(torch, np, card)
     tp11 = phase_nonlinear(torch, np, card)
@@ -3460,6 +3879,7 @@ def main():
     phase_geometry(torch, np, card, schwarz_b)
     phase_io(torch, np, card)
     phase_dist(torch, np, card)
+    bf16_abs, bf16, bf16_launches = phase_bf16(torch, np, card)
 
     csrc = "disco4est_tpu_torch/csrc/"
     # B1 and B2 have one entry per timed size; each entry's launches are
@@ -3482,6 +3902,26 @@ def main():
             replaces="disco4est_tpu/laplacian/pallas_sipg.py:131",
             launches=tool_launches[("fused", deg, level)],
             max_abs_err=b2_abs, library_ms=None, **b2[(deg, level)]))
+    # the bf16 kernels: B1's launches at deg 3 / level 5 are those of the
+    # bf16 mixed solve (phase 16 (c)), the rest the tools' (phase 8); the
+    # f32 kernels' times of the same run beside them (`f32_ms`)
+    b1_bf16_runs = {(7, 4): tool_launches_bf16[("structured", 7, 4)],
+                    (3, 5): bf16_launches}
+    for deg, level in TIMED_CASES:
+        size = f"deg {deg} / level {level}"
+        kernels.append(dict(
+            name=f"structured_apply bf16 ({size})", route="cuda",
+            source=csrc + "structured_apply.cu",
+            replaces="disco4est_tpu/laplacian/structured.py:190",
+            launches=b1_bf16_runs[(deg, level)], max_abs_err=bf16_abs["B1"],
+            library_ms=None, **bf16[(deg, level)]["B1"]))
+        kernels.append(dict(
+            name=f"fused_apply bf16 ({size})", route="cuda",
+            source=csrc + "fused_apply.cu",
+            replaces="disco4est_tpu/laplacian/pallas_sipg.py:131",
+            launches=tool_launches_bf16[("fused", deg, level)],
+            max_abs_err=bf16_abs["B2"], library_ms=None,
+            **bf16[(deg, level)]["B2"]))
     kernels += [
         dict(name="axis_apply", route="cuda",
              source=csrc + "axis_apply.cu",

@@ -1,5 +1,6 @@
 // Fused SIPG apply on any conforming orthogonal affine mesh, for NVIDIA
-// Hopper (sm_90a), split-TF32 products on the tensor cores.
+// Hopper (sm_90a), split-TF32 products on the tensor cores, or bf16
+// products (precision="bf16").
 //
 // Replaces the Pallas TPU kernel `_kernel` of
 // `disco4est_tpu/laplacian/pallas_sipg.py` (phase B of
@@ -27,9 +28,10 @@
 // 32.5 MB of traffic (u, traces, Au, the weights, the tables).  With the
 // products in split TF32 (three TF32 tensor-core products per f32 product,
 // 495 TFLOP/s dense) the operations bound p = 7 (32.5 us) and the bytes
-// bound p = 3 at E = 32768 (13.8 us).  The design is that of
-// `sipg_gemm.cuh`; only the neighbor policy differs from the structured
-// kernel.
+// bound p = 3 at E = 32768 (13.8 us).  In bf16 (989 TFLOP/s dense, traces
+// in 2 bytes) the bytes bound both: ~24.9 MB (7.4 us) at p = 7 and ~33.5
+// MB (10.0 us) at p = 3.  The design is that of `sipg_gemm.cuh`; only the
+// neighbor policy differs from the structured kernel.
 
 #include "sipg_gemm.cuh"
 
@@ -45,18 +47,30 @@ struct RowTable {
 
 }  // namespace
 
-// Plain C entry point (bound with ctypes).  All pointers are device
-// pointers to contiguous arrays: u [E, nv], tr [E, tw], meta [E, 28]
-// (`fused.sipg_meta`: the per-face scalars and cw), wpack (B split and
-// packed by `fused.pack_sipg_weights`), out [E, nv] (f32) and nbr_row
-// [E, 6] (int32, each in [0, 6E)).  Returns the cudaError_t of the launch
-// (0 on success).
+// Plain C entry points (bound with ctypes).  All pointers are device
+// pointers to contiguous arrays: u [E, nv] (f32), tr [E, tw], meta [E, 28]
+// (`fused.sipg_meta`: the per-face scalars and cw, f32), wpack (B packed by
+// `fused.pack_sipg_weights`), out [E, nv] (f32) and nbr_row [E, 6] (int32,
+// each in [0, 6E)).  Returns the cudaError_t of the launch (0 on success).
+// `d4est_fused_apply` takes f32 traces and the split-TF32 pack;
+// `d4est_fused_apply_bf16` (the TPU kernel's precision="bf16") bf16 traces
+// and the bf16 pack of `fused.pack_sipg_weights_bf16`.
 extern "C" int d4est_fused_apply(const float* u, const float* tr,
                                  const int* nbr_row, const float* meta,
                                  const float* wpack, float* out, int E,
                                  int nl, int nblk, void* stream) {
   RowTable t;
   t.nbr_row = nbr_row;
-  return d4est::launch_sipg(u, tr, meta, wpack, out, E, nl, nblk, t,
-                            static_cast<cudaStream_t>(stream));
+  return d4est::launch_sipg<false>(u, tr, meta, wpack, out, E, nl, nblk, t,
+                                   static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int d4est_fused_apply_bf16(const float* u, const void* tr,
+                                      const int* nbr_row, const float* meta,
+                                      const void* wpack, float* out, int E,
+                                      int nl, int nblk, void* stream) {
+  RowTable t;
+  t.nbr_row = nbr_row;
+  return d4est::launch_sipg<true>(u, tr, meta, wpack, out, E, nl, nblk, t,
+                                  static_cast<cudaStream_t>(stream));
 }

@@ -71,13 +71,36 @@
 //   registers, masked at the ragged last tile and the padded columns.
 // Degrees 1-7 and nblk in {1, 3} are compiled as separate instances, so
 // every index is a constant.
+//
+// The bf16 mode (BF16 = true; the Pallas kernels' precision="bf16", the
+// TPU's default) multiplies bf16 operands with f32 sums, at the rounding
+// points of the TPU kernels: u is read in f32 and rounded to bf16 (RNE)
+// as A is generated; the traces arrive in bf16 (phase A's f32 product
+// rounded once, read by both sides of every face), Z is formed in f32
+// from them and the f32 scalars with the plain version's roundings, and
+// rounded once to bf16; B is packed in bf16 (`fused.pack_sipg_weights_bf16`,
+// core matrices of 8 rows x 16 bytes, no hi/lo split).  A 16-column K
+// chunk is one k16 bf16 product (`wgmma_bf16.cuh`), still started from
+// zero in `part` and added to `total` in IEEE f32.  cw is applied after
+// the product, as the TPU kernels do (cw * (bf16(u) @ bf16(W_b))), not
+// folded into A, where bf16(cw * u) would move the apply by as much as
+// the bf16 error itself: each volume block of K is padded with zero
+// columns to whole chunks, so that a chunk lies in one volume block or in
+// the face block, and a thread adds cw[e, b] * part of a volume chunk
+// (part of a face chunk) for the two element rows it holds.  Trace
+// lanes are fetched 8 bytes (four lanes) at a time at even nl, and as
+// the aligned 4-byte word that holds the lane at odd nl (an odd lane
+// count a face), whose half the generation then picks.
+// Every f32 instance is the same code as without the mode.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "wgmma_bf16.cuh"
 #include "wgmma_tf32.cuh"
 
 namespace d4est {
@@ -90,12 +113,15 @@ constexpr int kKC = 16;        // K columns a chunk: two k8 products
 constexpr int kMetaW = 28;
 constexpr int kSmemMax = 232448;  // dynamic shared memory of one block
 
-template <int NL, int NBLK>
+template <int NL, int NBLK, bool BF16 = false>
 struct Cfg {
   static constexpr int NV = NL * NL * NL;
   static constexpr int NFL = NL * NL;
   static constexpr int TW = kFaces * 2 * NFL;
-  static constexpr int KVOL = NBLK * NV;
+  // K columns of one volume block: nv, or in bf16 mode nv padded with zero
+  // columns to whole chunks (cw is applied after each chunk's product)
+  static constexpr int NVK = BF16 ? (NV + kKC - 1) / kKC * kKC : NV;
+  static constexpr int KVOL = NBLK * NVK;
   static constexpr int K = KVOL + TW;
   static constexpr int NCH = (K + kKC - 1) / kKC;  // K chunks
   static constexpr bool SPLIT_N = NV > 256;  // warpgroups split the columns
@@ -119,8 +145,12 @@ struct Cfg {
   static constexpr int RPP = THREADS / KQ;     // element rows of one pass
   static constexpr int NPASS = BM / RPP;       // passes over a chunk's rows
   static constexpr int SB = NL == 8 ? 2 : 3;        // B stages
-  static constexpr int B_CHUNK = 2 * NP * kKC;      // floats, hi and lo
-  static constexpr int A_STAGE = 2 * BM * kKC;
+  // floats of one row of a chunk tile (kKC f32 or kKC bf16 values) and
+  // the tiles a chunk holds (TF32 hi and lo, or the bf16 values)
+  static constexpr int ROW_F = BF16 ? kKC / 2 : kKC;
+  static constexpr int PARTS = BF16 ? 1 : 2;
+  static constexpr int B_CHUNK = PARTS * NP * ROW_F;  // floats
+  static constexpr int A_STAGE = PARTS * BM * ROW_F;
   static constexpr int RAW_STAGE = NPASS * 4 * VEC * THREADS;
   static constexpr int META = BM * kMetaW;
   static constexpr int OFF_A = SB * B_CHUNK;
@@ -155,22 +185,63 @@ __device__ __forceinline__ int tile_index(int row, int k) {
   return ((row >> 3) * (kKC / 4) + (k >> 2)) * 32 + (row & 7) * 4 + (k & 3);
 }
 
+// The bf16 tiles: 8x8 core matrices (8 rows of 16 bytes), the two of a
+// row group's 16 K columns 128 bytes apart (leading byte offset), row
+// groups 256 bytes apart (stride byte offset).
+__device__ __forceinline__ uint64_t tile_desc_bf16(const float* p) {
+  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) |
+         ((uint64_t)(128 >> 4) << 16) | ((uint64_t)(256 >> 4) << 32);
+}
+
+// Offset (bf16 values) of entry (row, k) of a [rows, kKC] bf16 tile.
+__device__ __forceinline__ int tile_index_bf16(int row, int k) {
+  return ((row >> 3) * (kKC / 8) + (k >> 3)) * 64 + (row & 7) * 8 + (k & 7);
+}
+
+__device__ __forceinline__ uint16_t bf16_bits(float x) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(x));
+}
+
+// N consecutive bf16 lanes from a fetch slot, as floats.  N = 4: the 8
+// bytes of four lanes.  N = 1: the aligned 4-byte word that holds the
+// lane, whose high half it is when `odd` (the lane's index is odd).
+template <int N>
+__device__ __forceinline__ void bf16_lanes(float (&x)[N], const float* slot,
+                                           bool odd) {
+  if constexpr (N == 4) {
+    const uint2 w = *reinterpret_cast<const uint2*>(slot);
+    x[0] = __uint_as_float(w.x << 16);
+    x[1] = __uint_as_float(w.x & 0xFFFF0000u);
+    x[2] = __uint_as_float(w.y << 16);
+    x[3] = __uint_as_float(w.y & 0xFFFF0000u);
+  } else {
+    const uint32_t w = __float_as_uint(slot[0]);
+    x[0] = __uint_as_float(odd ? w & 0xFFFF0000u : w << 16);
+  }
+}
+
 __device__ __forceinline__ float tf32_rna(float x) {
   uint32_t r;
   asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
   return __uint_as_float(r);
 }
 
-// Copy of BYTES (4 or 16) from global to shared memory, zero-filled when
-// `valid` is false (then nothing is read).  16-byte copies go through L2
-// only (.cg): the small L1 beside this much shared memory only slowed them.
+// Copy of BYTES (4, 8 or 16) from global to shared memory, zero-filled
+// when `valid` is false (then nothing is read).  16-byte copies go through
+// L2 only (.cg): the small L1 beside this much shared memory only slowed
+// them.
 template <int BYTES>
-__device__ __forceinline__ void cp_async(float* dst, const float* src,
+__device__ __forceinline__ void cp_async(float* dst, const void* src,
                                          bool valid) {
   if constexpr (BYTES == 16) {
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(
                      smem_addr(dst)),
                  "l"(src), "r"(valid ? 16 : 0)
+                 : "memory");
+  } else if constexpr (BYTES == 8) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;" ::"r"(
+                     smem_addr(dst)),
+                 "l"(src), "r"(valid ? 8 : 0)
                  : "memory");
   } else {
     asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(
@@ -254,12 +325,15 @@ __device__ __forceinline__ void bulk_load(float* dst, const float* src,
       : "memory");
 }
 
-template <int NL, int NBLK, class Nbr>
-__global__ void __launch_bounds__(Cfg<NL, NBLK>::THREADS, 1) sipg_gemm_kernel(
-    const float* __restrict__ u, const float* __restrict__ tr,
-    const float* __restrict__ meta, const float* __restrict__ wpack,
-    float* __restrict__ out, int E, int splits, Nbr nbr) {
-  using C = Cfg<NL, NBLK>;
+// `tr` and `wpack` hold f32 values, or bf16 values in bf16 mode.
+template <int NL, int NBLK, bool BF16, class Nbr>
+__global__ void __launch_bounds__(Cfg<NL, NBLK, BF16>::THREADS, 1)
+    sipg_gemm_kernel(const float* __restrict__ u,
+                     const float* __restrict__ tr,
+                     const float* __restrict__ meta,
+                     const float* __restrict__ wpack,
+                     float* __restrict__ out, int E, int splits, Nbr nbr) {
+  using C = Cfg<NL, NBLK, BF16>;
   constexpr int VEC = C::VEC;
   extern __shared__ __align__(128) float smem[];
   float* const sB = smem;
@@ -350,13 +424,16 @@ __global__ void __launch_bounds__(Cfg<NL, NBLK>::THREADS, 1) sipg_gemm_kernel(
       }
       const int k = w.c * kKC + kq * VEC;
       if (k < C::KVOL) {
-        const int m = k % C::NV;
+        const int m = k % C::NVK;
+        // (bf16 mode: a padding column has no source; A gets a zero)
+        if (!BF16 || m < C::NV) {
 #pragma unroll
-        for (int p = 0; p < C::NPASS; ++p) {
-          const int e = w.e0 + row0 + p * C::RPP;
-          const bool ok = e < E;
-          cp_async<4 * VEC>(slot(raw, p, 0),
-                            ok ? u + (long long)e * C::NV + m : u, ok);
+          for (int p = 0; p < C::NPASS; ++p) {
+            const int e = w.e0 + row0 + p * C::RPP;
+            const bool ok = e < E;
+            cp_async<4 * VEC>(slot(raw, p, 0),
+                              ok ? u + (long long)e * C::NV + m : u, ok);
+          }
         }
       } else if (k < C::K) {
         const int jz = k - C::KVOL;
@@ -369,14 +446,37 @@ __global__ void __launch_bounds__(Cfg<NL, NBLK>::THREADS, 1) sipg_gemm_kernel(
           const int e = w.e0 + row0 + p * C::RPP;
           const bool ok = e < E;
           const bool has_nb = nrow[p] >= 0;
-          const float* own = tr + (long long)e * C::TW + f * (2 * C::NFL) + i;
-          const float* nb = tr + (long long)nrow[p] * (2 * C::NFL) + i;
-          cp_async<4 * VEC>(slot(raw, p, 0), ok ? own : tr, ok);
-          cp_async<4 * VEC>(slot(raw, p, 2), has_nb ? nb : tr, has_nb);
-          if (!is_s2n) {
-            cp_async<4 * VEC>(slot(raw, p, 1), ok ? own + C::NFL : tr, ok);
-            cp_async<4 * VEC>(slot(raw, p, 3), has_nb ? nb + C::NFL : tr,
-                              has_nb);
+          if constexpr (BF16) {
+            // lane indices into tr seen as bf16 values; VEC = 1 fetches
+            // the aligned word that holds the lane (E * tw is even there)
+            const uint16_t* t16 = reinterpret_cast<const uint16_t*>(tr);
+            const long long own = (long long)e * C::TW + f * (2 * C::NFL) + i;
+            const long long nb = (long long)nrow[p] * (2 * C::NFL) + i;
+            auto fetch = [&](int q, long long at, bool valid) {
+              if constexpr (VEC == 4) {
+                cp_async<8>(slot(raw, p, q), valid ? t16 + at : t16, valid);
+              } else {
+                cp_async<4>(slot(raw, p, q), valid ? t16 + (at & ~1LL) : t16,
+                            valid);
+              }
+            };
+            fetch(0, own, ok);
+            fetch(2, nb, has_nb);
+            if (!is_s2n) {
+              fetch(1, own + C::NFL, ok);
+              fetch(3, nb + C::NFL, has_nb);
+            }
+          } else {
+            const float* own =
+                tr + (long long)e * C::TW + f * (2 * C::NFL) + i;
+            const float* nb = tr + (long long)nrow[p] * (2 * C::NFL) + i;
+            cp_async<4 * VEC>(slot(raw, p, 0), ok ? own : tr, ok);
+            cp_async<4 * VEC>(slot(raw, p, 2), has_nb ? nb : tr, has_nb);
+            if (!is_s2n) {
+              cp_async<4 * VEC>(slot(raw, p, 1), ok ? own + C::NFL : tr, ok);
+              cp_async<4 * VEC>(slot(raw, p, 3), has_nb ? nb + C::NFL : tr,
+                                has_nb);
+            }
           }
         }
       }
@@ -398,6 +498,69 @@ __global__ void __launch_bounds__(Cfg<NL, NBLK>::THREADS, 1) sipg_gemm_kernel(
     const int jz = k - C::KVOL;
     const int f = jz / (2 * C::NFL);
     const bool is_s2n = jz - f * (2 * C::NFL) >= C::NFL;
+    if constexpr (BF16) {
+      // A in bf16: bf16(u) in a volume block (zero in its padding
+      // columns), bf16(Z) in the face block.  Z is formed with explicit
+      // roundings in the order of the plain version (`fused.face_terms`):
+      // IEEE multiplies and adds, t13's last product and its sum one FMA
+      // (as XLA's CPU code forms it in the reference's interpreted
+      // kernels), so that its bf16 rounding is that of the plain version.
+      uint16_t* a16 = reinterpret_cast<uint16_t*>(sA + (g & 1) * C::A_STAGE);
+      const int lane = jz - f * (2 * C::NFL);
+      const int i = is_s2n ? lane - C::NFL : lane;
+      const bool odd_u = i & 1, odd_dn = (i + C::NFL) & 1;
+#pragma unroll
+      for (int p = 0; p < C::NPASS; ++p) {
+        const int m = row0 + p * C::RPP;
+        float a[VEC];
+        if (k < C::KVOL) {
+          const Lanes<VEC> own = lds<VEC>(slot(raw, p, 0));
+          const bool real = k % C::NVK < C::NV;
+#pragma unroll
+          for (int v = 0; v < VEC; ++v) a[v] = real ? own.v[v] : 0.f;
+        } else if (k < C::K) {
+          const float* sc = ms + m * kMetaW + f * 4;
+          const float drstn = sc[0], sj = sc[1], sig = sc[2], bnd = sc[3];
+          const bool boundary = bnd > 0.f;
+          float u_m[VEC], u_n[VEC];
+          bf16_lanes<VEC>(u_m, slot(raw, p, 0), odd_u);
+          bf16_lanes<VEC>(u_n, slot(raw, p, 2), odd_u);
+          if (is_s2n) {
+            const float c = __fmul_rn(__fmul_rn(-0.5f, 1.f + bnd), sj);
+#pragma unroll
+            for (int v = 0; v < VEC; ++v) {
+              const float jump = __fsub_rn(u_m[v], boundary ? 0.f : u_n[v]);
+              a[v] = __fmul_rn(__fmul_rn(c, drstn), jump);
+            }
+          } else {
+            float dn_m[VEC], dn_n[VEC];
+            bf16_lanes<VEC>(dn_m, slot(raw, p, 1), odd_dn);
+            bf16_lanes<VEC>(dn_n, slot(raw, p, 3), odd_dn);
+            const float hs = __fmul_rn(-0.5f, sj), ss = __fmul_rn(sj, sig);
+#pragma unroll
+            for (int v = 0; v < VEC; ++v) {
+              const float jump = __fsub_rn(u_m[v], boundary ? 0.f : u_n[v]);
+              const float dn_p = boundary ? -dn_m[v] : dn_n[v];
+              a[v] = __fmaf_rn(ss, jump,
+                               __fmul_rn(hs, __fsub_rn(dn_m[v], dn_p)));
+            }
+          }
+        } else {
+#pragma unroll
+          for (int v = 0; v < VEC; ++v) a[v] = 0.f;
+        }
+        uint16_t* dst = a16 + tile_index_bf16(m, kq * VEC);
+        if constexpr (VEC == 4) {
+          *reinterpret_cast<uint2*>(dst) = make_uint2(
+              bf16_bits(a[0]) | (uint32_t)bf16_bits(a[1]) << 16,
+              bf16_bits(a[2]) | (uint32_t)bf16_bits(a[3]) << 16);
+        } else {
+          dst[0] = bf16_bits(a[0]);
+        }
+      }
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      return;
+    }
 #pragma unroll
     for (int p = 0; p < C::NPASS; ++p) {
       const int m = row0 + p * C::RPP;
@@ -487,37 +650,69 @@ __global__ void __launch_bounds__(Cfg<NL, NBLK>::THREADS, 1) sipg_gemm_kernel(
 #pragma unroll
   for (int i = 0; i < C::WN / 2; ++i) total[i] = 0.f;
 
-  const int a_off = C::SPLIT_N ? 0 : wg * 64 * kKC;  // this warpgroup's rows
-  const int b_off = C::SPLIT_N ? wg * C::WN * kKC : 0;  // and columns
+  const int a_off = C::SPLIT_N ? 0 : wg * 64 * C::ROW_F;  // this warpgroup's
+  const int b_off = C::SPLIT_N ? wg * C::WN * C::ROW_F : 0;  // rows, columns
   for (int g = 0; g < nchunks; ++g) {
     const int s = g % C::SB;
     mbar_wait(&bars[s], (g / C::SB) & 1);
     chunk_barrier();
     if (tid == 0) load_b(g + C::SB - 1);  // into the stage chunk g-1 left
 
-    const float* a_hi = sA + (g & 1) * C::A_STAGE + a_off;
-    const float* a_lo = a_hi + C::BM * kKC;
-#pragma unroll
-    for (int sb = 0; sb < C::NS; ++sb) {
-      const float* b_hi = sB + s * C::B_CHUNK + b_off + sb * C::SW * kKC;
-      const float* b_lo = b_hi + C::NP * kKC;
-      asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-#pragma unroll
-      for (int st = 0; st < kKC / 8; ++st) {
-        const int off = st * 64;  // two core matrices along K
-        Wgmma<C::SW>::mma(part, tile_desc(a_hi + off), tile_desc(b_hi + off),
-                          st > 0 ? 1 : 0);
-        Wgmma<C::SW>::mma(part, tile_desc(a_hi + off), tile_desc(b_lo + off),
-                          1);
-        Wgmma<C::SW>::mma(part, tile_desc(a_lo + off), tile_desc(b_hi + off),
-                          1);
+    if constexpr (BF16) {
+      // the chunk's factor for each of the thread's two accumulator rows
+      // (r and r + 8 of the warpgroup's 64): cw[e, b] after a chunk of
+      // volume block b, 1 after a face chunk
+      const Where w = where(g);
+      const int k0 = w.c * kKC;
+      float scale[2] = {1.f, 1.f};
+      if (k0 < C::KVOL) {
+        const float* ms = sMeta + (w.lt & 1) * C::META;
+        const int r = (C::SPLIT_N ? 0 : wg * 64) + 16 * ((tid % 128) / 32) +
+                      (tid % 32) / 4;
+        const int b = k0 / C::NVK;
+        scale[0] = ms[r * kMetaW + 4 * kFaces + b];
+        scale[1] = ms[(r + 8) * kMetaW + 4 * kFaces + b];
       }
-      asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-      if (sb == 0) stage_next(g);
-      asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+      const float* a16 = sA + (g & 1) * C::A_STAGE + a_off;
 #pragma unroll
-      for (int i = 0; i < C::SW / 2; ++i) {
-        total[sb * (C::SW / 2) + i] += part[i];
+      for (int sb = 0; sb < C::NS; ++sb) {
+        const float* b16 = sB + s * C::B_CHUNK + b_off + sb * C::SW * C::ROW_F;
+        asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+        WgmmaBf16<C::SW>::mma(part, tile_desc_bf16(a16), tile_desc_bf16(b16),
+                              0);
+        asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+        if (sb == 0) stage_next(g);
+        asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+#pragma unroll
+        for (int i = 0; i < C::SW / 2; ++i) {
+          total[sb * (C::SW / 2) + i] += scale[(i >> 1) & 1] * part[i];
+        }
+      }
+    } else {
+      const float* a_hi = sA + (g & 1) * C::A_STAGE + a_off;
+      const float* a_lo = a_hi + C::BM * kKC;
+#pragma unroll
+      for (int sb = 0; sb < C::NS; ++sb) {
+        const float* b_hi = sB + s * C::B_CHUNK + b_off + sb * C::SW * kKC;
+        const float* b_lo = b_hi + C::NP * kKC;
+        asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+#pragma unroll
+        for (int st = 0; st < kKC / 8; ++st) {
+          const int off = st * 64;  // two core matrices along K
+          Wgmma<C::SW>::mma(part, tile_desc(a_hi + off), tile_desc(b_hi + off),
+                            st > 0 ? 1 : 0);
+          Wgmma<C::SW>::mma(part, tile_desc(a_hi + off), tile_desc(b_lo + off),
+                            1);
+          Wgmma<C::SW>::mma(part, tile_desc(a_lo + off), tile_desc(b_hi + off),
+                            1);
+        }
+        asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+        if (sb == 0) stage_next(g);
+        asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+#pragma unroll
+        for (int i = 0; i < C::SW / 2; ++i) {
+          total[sb * (C::SW / 2) + i] += part[i];
+        }
       }
     }
 
@@ -559,12 +754,12 @@ __global__ void __launch_bounds__(Cfg<NL, NBLK>::THREADS, 1) sipg_gemm_kernel(
   }
 }
 
-template <int NL, int NBLK, class Nbr>
+template <int NL, int NBLK, bool BF16, class Nbr>
 int launch_instance(const float* u, const float* tr, const float* meta,
                     const float* wpack, float* out, int E, const Nbr& nbr,
                     cudaStream_t stream) {
-  using C = Cfg<NL, NBLK>;
-  auto kernel = sipg_gemm_kernel<NL, NBLK, Nbr>;
+  using C = Cfg<NL, NBLK, BF16>;
+  auto kernel = sipg_gemm_kernel<NL, NBLK, BF16, Nbr>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
@@ -591,19 +786,22 @@ int launch_instance(const float* u, const float* tr, const float* meta,
 
 // Picks the (nl, nblk) instance and launches it on `stream`.  `meta` is
 // the per-element table of `fused.sipg_meta` and `wpack` B as
-// `fused.pack_sipg_weights` lays it out.  Returns the cudaError_t of the
-// launch (0 on success).
-template <class Nbr>
-int launch_sipg(const float* u, const float* tr, const float* meta,
-                const float* wpack, float* out, int E, int nl, int nblk,
+// `fused.pack_sipg_weights` lays it out (bf16 mode: the bf16 traces and
+// `fused.pack_sipg_weights_bf16`).  Returns the cudaError_t of the launch
+// (0 on success).
+template <bool BF16, class Nbr>
+int launch_sipg(const float* u, const void* tr, const float* meta,
+                const void* wpack, float* out, int E, int nl, int nblk,
                 const Nbr& nbr, cudaStream_t s) {
   if (E <= 0) return (int)cudaErrorInvalidValue;
-#define D4EST_CASE(NL_)                                                    \
-  case NL_:                                                                \
-    if (nblk == 1)                                                         \
-      return launch_instance<NL_, 1>(u, tr, meta, wpack, out, E, nbr, s); \
-    if (nblk == 3)                                                         \
-      return launch_instance<NL_, 3>(u, tr, meta, wpack, out, E, nbr, s); \
+  const float* t = static_cast<const float*>(tr);
+  const float* w = static_cast<const float*>(wpack);
+#define D4EST_CASE(NL_)                                                   \
+  case NL_:                                                               \
+    if (nblk == 1)                                                        \
+      return launch_instance<NL_, 1, BF16>(u, t, meta, w, out, E, nbr, s); \
+    if (nblk == 3)                                                        \
+      return launch_instance<NL_, 3, BF16>(u, t, meta, w, out, E, nbr, s); \
     return (int)cudaErrorInvalidValue;
   switch (nl) {
     D4EST_CASE(2)

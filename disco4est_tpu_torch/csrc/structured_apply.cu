@@ -1,5 +1,5 @@
 // Fused structured SIPG apply for NVIDIA Hopper (sm_90a), split-TF32
-// products on the tensor cores.
+// products on the tensor cores, or bf16 products (precision="bf16").
 //
 // Replaces the Pallas TPU kernel `_kernel_lex` of
 // `disco4est_tpu/laplacian/structured.py` (the inner f32 apply of the
@@ -20,7 +20,10 @@
 // dense) the operations bound p = 7 (32.5 us at E = 4096) and the bytes
 // bound p = 3 (13.5 us at E = 32768, the main path's solve).  The split
 // keeps f32 accuracy: the kernel is held to 5e-6 relative against f64,
-// and the inner CG keeps its iteration count.
+// and the inner CG keeps its iteration count.  In bf16 (one product per
+// f32 product at 989 TFLOP/s dense, traces in 2 bytes) the bytes bound
+// both sizes: 5.37 GFLOP (5.4 us) against ~24.8 MB (7.4 us) at p = 7, and
+// 1.07 GFLOP (1.1 us) against ~32.7 MB (9.8 us) at p = 3.
 //
 // What the design does about it: see `sipg_gemm.cuh` (wgmma products, A
 // generated once per element tile, bulk-copied B chunks and cp.async A
@@ -57,23 +60,47 @@ struct FaceShift {
 
 }  // namespace
 
-// Plain C entry point (bound with ctypes).  All pointers are device
-// pointers to contiguous f32 arrays: u [E, nv], tr [E, tw], meta [E, 28]
-// (`fused.sipg_meta`: the per-face scalars and cw), wpack (B split and
-// packed by `fused.pack_sipg_weights`), out [E, nv].  `delta` and `opp`
-// are host arrays of 6 ints.  Returns the cudaError_t of the launch (0 on
-// success).
-extern "C" int d4est_structured_apply(const float* u, const float* tr,
-                                      const float* meta, const float* wpack,
-                                      float* out, int E, int nl, int nblk,
-                                      const int* delta, const int* opp,
-                                      void* stream) {
+namespace {
+
+template <bool BF16>
+int structured_apply(const float* u, const void* tr, const float* meta,
+                     const void* wpack, float* out, int E, int nl, int nblk,
+                     const int* delta, const int* opp, void* stream) {
   FaceShift fs;
   for (int f = 0; f < d4est::kFaces; ++f) {
     fs.delta[f] = delta[f];
     fs.opp[f] = opp[f];
   }
   fs.E = E;
-  return d4est::launch_sipg(u, tr, meta, wpack, out, E, nl, nblk, fs,
-                            static_cast<cudaStream_t>(stream));
+  return d4est::launch_sipg<BF16>(u, tr, meta, wpack, out, E, nl, nblk, fs,
+                                  static_cast<cudaStream_t>(stream));
+}
+
+}  // namespace
+
+// Plain C entry points (bound with ctypes).  All pointers are device
+// pointers to contiguous arrays: u [E, nv] (f32), tr [E, tw], meta [E, 28]
+// (`fused.sipg_meta`: the per-face scalars and cw, f32), wpack (B packed by
+// `fused.pack_sipg_weights`), out [E, nv] (f32).  `delta` and `opp` are
+// host arrays of 6 ints.  Returns the cudaError_t of the launch (0 on
+// success).  `d4est_structured_apply` takes f32 traces and the split-TF32
+// pack; `d4est_structured_apply_bf16` (the TPU kernel's precision="bf16")
+// bf16 traces and the bf16 pack of `fused.pack_sipg_weights_bf16`.
+extern "C" int d4est_structured_apply(const float* u, const float* tr,
+                                      const float* meta, const float* wpack,
+                                      float* out, int E, int nl, int nblk,
+                                      const int* delta, const int* opp,
+                                      void* stream) {
+  return structured_apply<false>(u, tr, meta, wpack, out, E, nl, nblk, delta,
+                                 opp, stream);
+}
+
+extern "C" int d4est_structured_apply_bf16(const float* u, const void* tr,
+                                           const float* meta,
+                                           const void* wpack, float* out,
+                                           int E, int nl, int nblk,
+                                           const int* delta, const int* opp,
+                                           void* stream) {
+  return structured_apply<true>(u, tr, meta, wpack, out, E, nl, nblk, delta,
+                                opp, stream);
 }

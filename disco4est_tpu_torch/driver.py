@@ -480,7 +480,10 @@ def run_poisson(opts: Options, problem, *, device) -> DriverResult:
     start at the restart level."""
     device = resolve_device(device)
     # IEEE f32 products everywhere: reduced-precision (TF32) products make
-    # the inner f32 CG diverge, as the JAX package found on the TPU
+    # the inner f32 CG diverge, as the JAX package found on the TPU.  The
+    # SIPG kernels' bf16 mode runs only where a caller asks for
+    # precision="bf16"; the driver's inner solves take the f32 default
+    # (its bf16 inner CG diverges on the level-5 brick, ROADMAP C19)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     _refuse_unported(opts)

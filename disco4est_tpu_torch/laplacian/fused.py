@@ -22,10 +22,17 @@ Two versions of phase B, one function:
 - `fused_apply_plain`: the same arithmetic in plain torch ops.
 
 `apply_fused` takes the plain version only for a tensor on the CPU; for a
-CUDA tensor it launches the kernel or raises.  Only IEEE f32 is ported: the
-bf16 mode of `apply_sipg_pallas` is ROADMAP B4.  The host tables here
-(`_mats`, the per-face scalars, the plain fused pass) are shared with the
-structured apply (`laplacian/structured.py`, `csrc/structured_apply.cu`).
+CUDA tensor it launches the kernel or raises.  Both come in two operand
+precisions, the reference's `precision` argument: "f32" (the default, what
+JAX takes off the TPU; split-TF32 products in the kernel) and "bf16" (the
+TPU's default: bf16 u, traces, Z and weights, f32 sums;
+`fused_apply_cuda_bf16` and `fused_pass_plain(..., precision="bf16")`).
+In bf16 the traces are phase A's f32 product rounded once, and both sides
+of a face read that one array (ROADMAP C18: the TPU kernel recomputes the
+own side and, off the TPU, rounds the two sides differently).  The host
+tables here (`_mats`, the per-face scalars, the plain fused pass) are
+shared with the structured apply (`laplacian/structured.py`,
+`csrc/structured_apply.cu`).
 """
 
 from __future__ import annotations
@@ -42,11 +49,27 @@ from disco4est_tpu_torch.mesh.builder import MeshData
 from disco4est_tpu_torch.util.cuda_build import check_operand, load_library
 
 F32 = torch.float32
+BF16 = torch.bfloat16
 SOURCE = "fused_apply.cu"
+PRECISIONS = ("f32", "bf16")
 
-# Launch counter of the CUDA kernel: the wrapper adds one each time it
-# launches the kernel, so a run can show that it went through it.
+# Launch counters of the CUDA kernel, one per precision: the wrapper adds
+# one each time it launches the kernel, so a run can show that it went
+# through it, and in which precision.
 KERNEL_LAUNCHES = 0
+KERNEL_LAUNCHES_BF16 = 0
+
+
+def check_precision(precision):
+    """Raise ValueError unless `precision` is "f32" or "bf16"."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"unknown precision {precision!r}: expected one of "
+                         f"{PRECISIONS}")
+
+
+def bf16_round(x):
+    """x rounded to bf16 (nearest, ties to even) and kept in f32."""
+    return x.to(F32).to(BF16).to(F32)
 
 
 @functools.lru_cache(maxsize=None)
@@ -90,10 +113,14 @@ def _mats(deg: int, deg_quad: int, quad_key, dim: int, iso: bool):
     )
 
 
-def scaled_traces(u2, W_tr, drstn):
+def scaled_traces(u2, W_tr, drstn, precision="f32"):
     """Own face traces [E, 2d·2·nfl] from u2 [E, nv]: per face
     [u_f | drstn·∂_n u], the dn lanes scaled by the face's own drstn
-    ([E, 2d]), so a gathered row needs no second gather."""
+    ([E, 2d]), so a gathered row needs no second gather.  With
+    precision="bf16" the product and scaling run in u2's dtype and the
+    result is rounded once to bf16 (a bf16 tensor), the one array both
+    sides of every face read."""
+    check_precision(precision)
     E, nfaces = drstn.shape
     tr = (u2 @ W_tr).reshape(E, nfaces, -1)
     nfl = tr.shape[2] // 2
@@ -102,7 +129,8 @@ def scaled_traces(u2, W_tr, drstn):
         lane, torch.ones((), dtype=u2.dtype, device=u2.device),
         drstn[..., None],
     )
-    return tr.reshape(E, -1)
+    tr = tr.reshape(E, -1)
+    return tr.to(BF16) if precision == "bf16" else tr
 
 
 def compute_traces(mesh: MeshData, u):
@@ -145,8 +173,21 @@ def face_scalars(mesh: MeshData):
     return cw_in, scal, drstn
 
 
+class LazyBf16Pack:
+    """The bf16 kernels' B (`pack_sipg_weights_bf16`) of a dataclass with
+    W_vol, W_lift, nblk and a `_W_pack_bf16` field, built at its first
+    use, so that the f32 path does not pay for it each epoch."""
+
+    @property
+    def W_pack_bf16(self) -> torch.Tensor:
+        if self._W_pack_bf16 is None:
+            self._W_pack_bf16 = pack_sipg_weights_bf16(self.W_vol,
+                                                       self.W_lift, self.nblk)
+        return self._W_pack_bf16
+
+
 @dataclasses.dataclass
-class FusedMesh:
+class FusedMesh(LazyBf16Pack):
     """Per-epoch f32 operands of the fused apply (original element
     order)."""
 
@@ -162,6 +203,8 @@ class FusedMesh:
     W_lift: torch.Tensor  # [2d*2*nfl, nv]
     W_pack: torch.Tensor  # B of the kernel, `pack_sipg_weights`
     meta: torch.Tensor  # [E, 28]: the kernel's table rows, `sipg_meta`
+    _W_pack_bf16: torch.Tensor | None = dataclasses.field(default=None,
+                                                          repr=False)
 
     @property
     def n_elements(self) -> int:
@@ -198,24 +241,48 @@ def build_fused(mesh: MeshData) -> FusedMesh:
     )
 
 
-def fused_pass_plain(u2, tr, nb, cw_in, scal, W_vol, W_lift):
+def fused_pass_plain(u2, tr, nb, cw_in, scal, W_vol, W_lift,
+                     precision="f32"):
     """The fused pass in plain torch ops: cw ⊙ (u2 @ W_vol) + Z @ W_lift,
     where Z comes from the own traces tr [E, tw] and, face by face, the
     traces of the neighbor across that face, nb [E, tw].  On boundary
-    faces nb is not read (u+ = 0, dn+ = -dn-)."""
+    faces nb is not read (u+ = 0, dn+ = -dn-).
+
+    precision="bf16" emulates the bf16 kernels' rounding points: u2, the
+    weights and Z rounded to bf16 (tr and nb are bf16 already), cw applied
+    after the product; the products of two bf16 values are exact in f32,
+    so f32 matmuls of the rounded operands give the kernels' products, with
+    f32 sums (not a bf16 matmul, whose sums differ by backend)."""
+    check_precision(precision)
+    if precision == "bf16":
+        u2, W_vol, W_lift = (bf16_round(t) for t in (u2, W_vol, W_lift))
+        tr, nb = tr.to(F32), nb.to(F32)
     E, nv = u2.shape
     nblk = cw_in.shape[1]
     acc = u2 @ W_vol
     au = cw_in[:, 0][:, None] * acc[:, :nv]
     for b in range(1, nblk):
         au = au + cw_in[:, b][:, None] * acc[:, b * nv:(b + 1) * nv]
-    return au + face_terms(tr, nb, scal) @ W_lift
+    Z = face_terms(tr, nb, scal, precision)
+    if precision == "bf16":
+        Z = bf16_round(Z)
+    return au + Z @ W_lift
 
 
-def face_terms(tr, nb, scal):
+def face_terms(tr, nb, scal, precision="f32"):
     """The face block Z [E, tw] of the fused pass, per face [t13 | s2n],
     from the own traces tr, the neighbor's nb (both [E, tw]) and the
-    per-face scalars scal [E, 2d·4]."""
+    per-face scalars scal [E, 2d·4].
+
+    With precision="bf16" (f32 tr and nb holding bf16 values) t13's last
+    product and its sum are one fused multiply-add, one rounding, as
+    XLA's CPU code forms them in the reference's interpreted bf16 kernels
+    and as the bf16 CUDA kernels do (`__fmaf_rn`): Z is rounded to bf16
+    next, and a different f32 rounding of t13 turns ~1 % of its bf16
+    values the other way (4e-4 relative L2 on a level-1 brick of extents
+    (1.5, 1, 0.7) at deg 1).  The product is exact in f64, so the f64 sum
+    rounded to f32 is the fused one (up to a double rounding of ~2^-29
+    odds)."""
     E = tr.shape[0]
     nfaces = scal.shape[1] // 4
     tr3 = tr.reshape(E, nfaces, -1)
@@ -229,7 +296,11 @@ def face_terms(tr, nb, scal):
     dn_p = torch.where(bnd > 0, -dn_m, nb3[..., nfl:])
     c2 = 1.0 + bnd
     jump = u_f - u_p
-    t13 = -0.5 * sj * (dn_m - dn_p) + sj * sig * jump
+    if precision == "bf16":
+        t13 = ((sj * sig).double() * jump.double()
+               + (-0.5 * sj * (dn_m - dn_p)).double()).to(tr.dtype)
+    else:
+        t13 = -0.5 * sj * (dn_m - dn_p) + sj * sig * jump
     s2n = -0.5 * c2 * sj * drstn * jump
     return torch.cat([t13, s2n], dim=2).reshape(E, -1)
 
@@ -252,12 +323,13 @@ def sipg_meta(cw_in, scal):
     return torch.cat([scal.to(F32), cw_in.to(F32), pad], dim=1).contiguous()
 
 
-def sipg_layout(nv: int, nblk: int, tw: int):
+def sipg_layout(nv: int, nblk: int, tw: int, precision="f32"):
     """The padded shape of B in the kernels (`Cfg` of `sipg_gemm.cuh`):
     (NP, NCH), the column count nv rounded up to the warpgroups' widths
     (a multiple of 8, or of 16 where a warpgroup's columns are cut in two
-    halves) and the count of K chunks."""
-    K = nblk * nv + tw
+    halves) and the count of K chunks (bf16: each volume block of K padded
+    to whole chunks, `sipg_block_k`)."""
+    K = nblk * sipg_block_k(nv, precision) + tw
     if nv > 256:
         NP = 2 * ((nv + 15) // 16 * 8)
     elif nv > 128:
@@ -265,6 +337,14 @@ def sipg_layout(nv: int, nblk: int, tw: int):
     else:
         NP = (nv + 7) // 8 * 8
     return NP, -(-K // SIPG_KC)
+
+
+def sipg_block_k(nv: int, precision="f32"):
+    """The K rows of one volume block of B (`Cfg::NVK`): nv, or in bf16
+    nv padded to whole chunks, so that a chunk lies in one volume block or
+    in the face block and cw can be applied after its product."""
+    check_precision(precision)
+    return nv if precision == "f32" else -(-nv // SIPG_KC) * SIPG_KC
 
 
 def tf32_round(x):
@@ -306,6 +386,35 @@ def pack_sipg_weights(W_vol, W_lift, nblk):
     return torch.stack(parts, dim=1).contiguous()
 
 
+def sipg_b_bf16(W_vol, W_lift, nblk):
+    """B of the bf16 kernels, [nblk·NVK + tw, nv] in bf16: the volume
+    blocks of `sipg_b`, each followed by zero rows up to `sipg_block_k`,
+    then W_lift; every entry rounded to bf16 from f32."""
+    nv = W_vol.shape[0]
+    nvk = sipg_block_k(nv, "bf16")
+    pad = torch.zeros((nvk - nv, nv), dtype=F32, device=W_vol.device)
+    rows = []
+    for b in range(nblk):
+        rows += [W_vol[:, b * nv:(b + 1) * nv].to(F32), pad]
+    return torch.cat(rows + [W_lift.to(F32)], dim=0).to(BF16)
+
+
+def pack_sipg_weights_bf16(W_vol, W_lift, nblk):
+    """B of the bf16 kernels (`sipg_b_bf16`) transposed to K-major, padded
+    with zeros (N to NP, K to whole chunks) and cut into K chunks in the
+    kernels' shared-memory image, 8x8 core matrices (8 rows of 16 bytes):
+    [NCH, NP/8, KC/8, 8, 8], bf16.  Entry (chunk c, g, q, r, i) is
+    B[c·KC + 8q + i, 8g + r]."""
+    B = sipg_b_bf16(W_vol, W_lift, nblk)
+    K, nv = B.shape
+    NP, NCH = sipg_layout(nv, nblk, K - nblk * sipg_block_k(nv, "bf16"),
+                          "bf16")
+    Bt = torch.zeros((NP, NCH * SIPG_KC), dtype=BF16, device=B.device)
+    Bt[:nv, :K] = B.T
+    return (Bt.reshape(NP // 8, 8, NCH, SIPG_KC // 8, 8)
+            .permute(2, 0, 3, 1, 4).contiguous())
+
+
 def gather_rows(fm: FusedMesh, tr):
     """The neighbor traces nb [E, tw]: face row `nbr_row` of tr seen as
     [E·2d, 2·nfl] (phase A's exchange, the JAX `tr[rows]`)."""
@@ -314,11 +423,12 @@ def gather_rows(fm: FusedMesh, tr):
     return tr.reshape(E * 2 * fm.dim, -1)[rows].reshape(E, tw)
 
 
-def fused_apply_plain(fm: FusedMesh, u2, tr):
+def fused_apply_plain(fm: FusedMesh, u2, tr, precision="f32"):
     """Plain torch version of phase B: Au [E, nv] from u2 [E, nv] and the
-    scaled traces tr [E, tw] (row gather, face terms, two GEMMs)."""
+    scaled traces tr [E, tw] (row gather, face terms, two GEMMs); in
+    `precision` (bf16: tr from `scaled_traces(..., "bf16")`)."""
     return fused_pass_plain(u2, tr, gather_rows(fm, tr), fm.cw_in, fm.scal,
-                            fm.W_vol, fm.W_lift)
+                            fm.W_vol, fm.W_lift, precision)
 
 
 def check_sipg_operands(dim, deg, nblk, E, dev):
@@ -336,22 +446,54 @@ def check_sipg_operands(dim, deg, nblk, E, dev):
     return tw
 
 
-def check_sipg_weights(W_pack, nv, nblk, tw, dev):
+def check_sipg_weights(W_pack, nv, nblk, tw, dev, precision="f32"):
     """The packed B operand's check, shared by both kernel wrappers."""
-    NP, NCH = sipg_layout(nv, nblk, tw)
-    check_operand("W_pack", W_pack, (NCH, 2, NP // 8, SIPG_KC // 4, 8, 4),
-                  dev, F32)
+    NP, NCH = sipg_layout(nv, nblk, tw, precision)
+    if precision == "f32":
+        check_operand("W_pack", W_pack,
+                      (NCH, 2, NP // 8, SIPG_KC // 4, 8, 4), dev, F32)
+    else:
+        check_operand("W_pack_bf16", W_pack,
+                      (NCH, NP // 8, SIPG_KC // 8, 8, 8), dev, BF16)
 
 
 @functools.lru_cache(maxsize=None)
 def _load():
     lib = load_library(SOURCE)
-    fn = lib.d4est_fused_apply
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
-        ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
+    for fn in (lib.d4est_fused_apply, lib.d4est_fused_apply_bf16):
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
+            ctypes.c_void_p,
+        ]
+        fn.restype = ctypes.c_int
     return lib
+
+
+def _fused_launch(fm: FusedMesh, u2, tr, precision):
+    """Check the operands and launch the kernel of `precision`."""
+    dev = u2.device
+    E, nv, nblk = fm.n_elements, fm.nv, fm.nblk
+    tw = check_sipg_operands(fm.dim, fm.deg, nblk, E, dev)
+    bf16 = precision == "bf16"
+    check_operand("u", u2, (E, nv), dev, F32)
+    check_operand("tr", tr, (E, tw), dev, BF16 if bf16 else F32)
+    check_operand("meta", fm.meta, (E, SIPG_META_W), dev, F32)
+    W_pack = fm.W_pack_bf16 if bf16 else fm.W_pack
+    check_sipg_weights(W_pack, nv, nblk, tw, dev, precision)
+    check_operand("nbr_row", fm.nbr_row, (E, 6), dev, torch.int32)
+    lib = _load()
+    fn = lib.d4est_fused_apply_bf16 if bf16 else lib.d4est_fused_apply
+    out = torch.empty((E, nv), dtype=F32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(
+            u2.data_ptr(), tr.data_ptr(), fm.nbr_row.data_ptr(),
+            fm.meta.data_ptr(), W_pack.data_ptr(), out.data_ptr(), E,
+            fm.deg + 1, nblk, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"fused {precision} kernel launch failed: CUDA "
+                           f"error {err}")
+    return out
 
 
 def fused_apply_cuda(fm: FusedMesh, u2, tr):
@@ -359,49 +501,47 @@ def fused_apply_cuda(fm: FusedMesh, u2, tr):
     as `fused_apply_plain`; raises on anything the kernel does not take and
     on a failed launch."""
     global KERNEL_LAUNCHES
-    dev = u2.device
-    E, nv, nblk = fm.n_elements, fm.nv, fm.nblk
-    tw = check_sipg_operands(fm.dim, fm.deg, nblk, E, dev)
-    for name, t, shape in (
-        ("u", u2, (E, nv)), ("tr", tr, (E, tw)),
-        ("meta", fm.meta, (E, SIPG_META_W)),
-    ):
-        check_operand(name, t, shape, dev, F32)
-    check_sipg_weights(fm.W_pack, nv, nblk, tw, dev)
-    check_operand("nbr_row", fm.nbr_row, (E, 6), dev, torch.int32)
-    fn = _load().d4est_fused_apply
-    out = torch.empty((E, nv), dtype=F32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(
-            u2.data_ptr(), tr.data_ptr(), fm.nbr_row.data_ptr(),
-            fm.meta.data_ptr(), fm.W_pack.data_ptr(), out.data_ptr(), E,
-            fm.deg + 1, nblk, stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"fused kernel launch failed: CUDA error {err}")
+    out = _fused_launch(fm, u2, tr, "f32")
     KERNEL_LAUNCHES += 1
     return out
 
 
-def apply_fused(fm: FusedMesh, u):
-    """Au in f32, input shape kept.  On a CUDA tensor this launches the
+def fused_apply_cuda_bf16(fm: FusedMesh, u2, tr):
+    """Phase B in bf16 on the card: launches `d4est_fused_apply_bf16` of
+    `csrc/fused_apply.cu` on u2 [E, nv] f32 and the bf16 traces tr [E, tw]
+    of `scaled_traces(..., "bf16")`.  Same contract as
+    `fused_apply_plain(..., precision="bf16")`; raises on anything the
+    kernel does not take and on a failed launch."""
+    global KERNEL_LAUNCHES_BF16
+    out = _fused_launch(fm, u2, tr, "bf16")
+    KERNEL_LAUNCHES_BF16 += 1
+    return out
+
+
+def apply_fused(fm: FusedMesh, u, precision="f32"):
+    """Au with f32 output values, input shape kept, products in
+    `precision` ("f32" or "bf16").  On a CUDA tensor this launches the
     hand-written kernel (or raises); on a CPU tensor it runs the plain
     version."""
+    check_precision(precision)
     dev = u.device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"apply_fused: unsupported device {dev}")
     u2 = u.reshape(fm.n_elements, fm.nv).to(F32).contiguous()
-    tr = scaled_traces(u2, fm.W_tr, fm.drstn)
+    tr = scaled_traces(u2, fm.W_tr, fm.drstn, precision)
     if dev.type == "cpu":
-        out = fused_apply_plain(fm, u2, tr)
+        out = fused_apply_plain(fm, u2, tr, precision)
+    elif precision == "bf16":
+        out = fused_apply_cuda_bf16(fm, u2, tr.contiguous())
     else:
         out = fused_apply_cuda(fm, u2, tr.contiguous())
     return out.reshape(u.shape).to(u.dtype)
 
 
-def apply_sipg_fused(mesh: MeshData, u):
-    """The whole fused apply u → Au (the JAX `apply_sipg_pallas` with
-    precision="f32"): the same discrete operator as `fast.apply_sipg_fast`
-    on meshes that pass `fused_path_available(mesh, None)`."""
-    return apply_fused(build_fused(mesh), u)
+def apply_sipg_fused(mesh: MeshData, u, precision="f32"):
+    """The whole fused apply u → Au (the JAX `apply_sipg_pallas` with the
+    same `precision`): the same discrete operator as `fast.apply_sipg_fast`
+    on meshes that pass `fused_path_available(mesh, None)`, with bf16
+    products and f32 sums in "bf16"."""
+    check_precision(precision)
+    return apply_fused(build_fused(mesh), u, precision)

@@ -8,14 +8,17 @@ Port of `tools/time_pallas.py`.  From the root of a checkout:
 on a uniform brick of that level and degree, in f32.  Modes (the JAX
 tool's `main`, `phases` and `structured`):
 
-- `fused`: the relative error of `fused.apply_sipg_fused` against the f32
-  GEMM-form apply (`fast._apply_orth`); per-apply µs and GDOF/s of
-  `fast_f32` and `fused_f32` (B2's whole apply, trace GEMM included); and
-  B2's fused pass alone, given the traces.  The JAX tool's `pallas_bf16`
-  row waits for the reduced-precision kernels (ROADMAP B4).
+- `fused`: the relative error (max |Δ| / max |ref|) of
+  `fused.apply_sipg_fused` in f32 against the f32 GEMM-form apply
+  (`fast._apply_orth`), then that of the bf16 apply (the JAX tool's first
+  line, with the relative L2 beside it); per-apply µs and GDOF/s of
+  `fast_f32`, `fused_bf16` and `fused_f32` (B2's whole apply, trace GEMM
+  included; the JAX tool's `xla_fast`, `pallas_bf16` and `pallas_f32`);
+  and B2's fused pass alone, given the traces, in f32 and bf16.
 - `phases`: phase A (trace GEMM and scaling) plus the neighbor-row gather,
   and phase A alone.
-- `structured`: the structured apply (kernel B1) against `_apply_orth`.
+- `structured`: the structured apply (kernel B1) against `_apply_orth`, in
+  f32 and bf16 (`structured_bf16`).
 
 Every time is per apply: a chain of `--inner` applies timed by
 `timing.timeit`.  With `--device=cpu` every apply takes its plain version,
@@ -43,6 +46,11 @@ def _rel(out, ref):
     return float((out - ref).abs().max() / ref.abs().max())
 
 
+def _rel_l2(out, ref):
+    return float(torch.linalg.norm((out - ref).reshape(-1))
+                 / torch.linalg.norm(ref.reshape(-1)))
+
+
 def _chain(fn, inner):
     """v ← fn(v), `inner` times (the JAX tool's `fori_loop`)."""
     def run(v):
@@ -61,7 +69,7 @@ def _repeat(fn, inner):
 
 
 def _row(name, dt, dof):
-    print(f"{name:12s}: {dt * 1e6:8.1f} us/apply   {dof / dt / 1e9:7.2f} GDOF/s")
+    print(f"{name:15s}: {dt * 1e6:8.1f} us/apply   {dof / dt / 1e9:7.2f} GDOF/s")
 
 
 def run_fused(mesh, u, inner, device):
@@ -70,16 +78,30 @@ def run_fused(mesh, u, inner, device):
     ref = _apply_orth(mesh, u)
     out = fused.apply_fused(fm, u)
     print(f"rel err fused_f32 vs fast_f32: {_rel(out, ref):.3e}")
+    out = fused.apply_fused(fm, u, precision="bf16")
+    print(f"bf16 rel err fused_bf16 vs fast_f32: {_rel(out, ref):.3e} "
+          f"(L2 {_rel_l2(out, ref):.3e})")
     dof = u.numel()
-    for name, fn in (("fast_f32", lambda v: _apply_orth(mesh, v)),
-                     ("fused_f32", lambda v: fused.apply_fused(fm, v))):
+    for name, fn in (
+        ("fast_f32", lambda v: _apply_orth(mesh, v)),
+        ("fused_bf16", lambda v: fused.apply_fused(fm, v, precision="bf16")),
+        ("fused_f32", lambda v: fused.apply_fused(fm, v)),
+    ):
         _row(name, timeit(_chain(fn, inner), u, device=device) / inner, dof)
     u2 = u.reshape(E, -1)
-    tr = fused.scaled_traces(u2, fm.W_tr, fm.drstn)
-    pass_fn = (fused.fused_apply_cuda if device.type == "cuda"
-               else fused.fused_apply_plain)
-    dt = timeit(_repeat(pass_fn, inner), fm, u2, tr, device=device) / inner
-    _row("fused_pass", dt, dof)
+    cuda = device.type == "cuda"
+    for name, precision, kernel in (
+        ("fused_pass", "f32", fused.fused_apply_cuda),
+        ("fused_pass_bf16", "bf16", fused.fused_apply_cuda_bf16),
+    ):
+        tr = fused.scaled_traces(u2, fm.W_tr, fm.drstn, precision)
+        if cuda:
+            fn = kernel
+        else:
+            def fn(fm, u2, tr, precision=precision):
+                return fused.fused_apply_plain(fm, u2, tr, precision)
+        dt = timeit(_repeat(fn, inner), fm, u2, tr, device=device) / inner
+        _row(name, dt, dof)
 
 
 def run_phases(mesh, u, inner, device):
@@ -107,8 +129,14 @@ def run_structured(mesh, u, inner, device):
     ref = _apply_orth(mesh, u).reshape(E, -1)
     out = S.from_lex(sb, S.apply_structured(sb, u_lex))
     print(f"structured rel err vs fast_f32: {_rel(out, ref):.3e}")
-    fn = _chain(lambda v: S.apply_structured(sb, v), inner)
-    _row("structured", timeit(fn, u_lex, device=device) / inner, u.numel())
+    out = S.from_lex(sb, S.apply_structured(sb, u_lex, precision="bf16"))
+    print(f"bf16 rel err structured_bf16 vs fast_f32: {_rel(out, ref):.3e} "
+          f"(L2 {_rel_l2(out, ref):.3e})")
+    for name, precision in (("structured", "f32"),
+                            ("structured_bf16", "bf16")):
+        fn = _chain(lambda v, p=precision: S.apply_structured(sb, v, p),
+                    inner)
+        _row(name, timeit(fn, u_lex, device=device) / inner, u.numel())
 
 
 MODES = {"fused": run_fused, "phases": run_phases,

@@ -7,6 +7,12 @@
   `tests/test_structured.py` and `tests/test_pallas_sipg.py`, at every
   degree 1-7, on nblk-3 bricks and at ragged element counts (24, 65);
   and they leave the TF32 flag of `torch.matmul` as they found it;
+- the bf16 mode of B1 and B2 (precision="bf16", one bf16 k16 product a
+  chunk): against the plain bf16 version to 2e-4 relative L2 and 1e-3
+  relative max, and against the f64 apply no further than 1.25x the
+  plain version's L2 error, at every degree, nblk 3 and E = 24, 65; a
+  launch leaves the TF32 flag alone and counts as a bf16 launch; the
+  wrappers refuse f32 traces, wrong shapes and CPU tensors;
 - B3, the three-axis apply (`csrc/axis_apply.cu`): against its plain
   version to 1e-5 relative (f32 rounding over three 8-term sums, summed
   in another order);
@@ -234,6 +240,118 @@ def test_fused_wrapper_checks_its_inputs(cuda_device):
     with pytest.raises(ValueError, match="int32"):
         fused.fused_apply_cuda(
             dataclasses.replace(fm, nbr_row=fm.nbr_row.long()), u, tr)
+
+
+# the bf16 kernels (precision="bf16") against their plain bf16 versions:
+# the same rounding points, the f32 sums in another order (bf16(Z) may
+# round the other way where an f32 operation runs in another order); and
+# against the f64 apply: an L2 error at most 1.25x the plain version's
+BF16_REL_L2, BF16_REL_MAX, BF16_F64_RATIO = 2e-4, 1e-3, 1.25
+
+
+def _l2_max(a, ref):
+    d, r = a.double() - ref.double(), ref.double()
+    return (float(torch.linalg.norm(d.reshape(-1))
+                  / torch.linalg.norm(r.reshape(-1))),
+            float(d.abs().max() / r.abs().max()))
+
+
+def _check_bf16(kernel, plain, ref64):
+    out, ref = kernel(), plain()
+    torch.cuda.synchronize()
+    l2, rmax = _l2_max(out, ref)
+    assert l2 <= BF16_REL_L2 and rmax <= BF16_REL_MAX, (l2, rmax)
+    assert (_l2_max(out, ref64)[0]
+            <= BF16_F64_RATIO * _l2_max(ref, ref64)[0])
+
+
+def _check_both_bf16(mesh, deg, structured=True):
+    E = mesh.n_elements
+    u = torch.as_tensor(
+        np.random.default_rng(E + deg).standard_normal((E, (deg + 1) ** 3)),
+        dtype=torch.float32, device=mesh.device)
+    ref64 = _apply_orth(mesh, u.double().reshape((E,) + (deg + 1,) * 3)
+                        ).reshape(E, -1)
+    fm = fused.build_fused(mesh)
+    tr = fused.scaled_traces(u, fm.W_tr, fm.drstn, "bf16").contiguous()
+    before = fused.KERNEL_LAUNCHES, fused.KERNEL_LAUNCHES_BF16
+    _check_bf16(lambda: fused.fused_apply_cuda_bf16(fm, u, tr),
+                lambda: fused.fused_apply_plain(fm, u, tr, "bf16"), ref64)
+    assert (fused.KERNEL_LAUNCHES, fused.KERNEL_LAUNCHES_BF16) == (
+        before[0], before[1] + 1)
+    if structured:
+        sb = S.build_structured(mesh)
+        u_lex = S.to_lex(sb, u)
+        trl = S.compute_traces_lex(sb, u_lex, "bf16").contiguous()
+        before = S.KERNEL_LAUNCHES, S.KERNEL_LAUNCHES_BF16
+        _check_bf16(lambda: S.apply_structured(sb, u_lex, "bf16"),
+                    lambda: S.lex_apply_plain(sb, u_lex, trl, "bf16"),
+                    S.to_lex(sb, ref64))
+        assert (S.KERNEL_LAUNCHES, S.KERNEL_LAUNCHES_BF16) == (
+            before[0], before[1] + 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("deg", range(1, 8))
+def test_bf16_kernels_every_degree(cuda_device, deg):
+    """Each bf16 (nl, nblk = 1) instance through both neighbor policies,
+    on the unit cube at level 1 (E = 8)."""
+    _check_both_bf16(_mesh(deg, 1, (1.0, 1.0, 1.0), cuda_device), deg)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("deg,x1", [(2, (1.0, 2.0, 4.0)),
+                                    (5, (1.0, 2.0, 4.0)),
+                                    (6, (1.5, 1.0, 0.7)),
+                                    (7, (1.0, 1.0, 3.0))])
+def test_bf16_kernels_nblk3(cuda_device, deg, x1):
+    """nblk 3 in bf16: cw applied after each volume block's chunks, with
+    power-of-two and other cw."""
+    _check_both_bf16(_mesh(deg, 1, x1, cuda_device), deg)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("deg", [2, 7])
+@pytest.mark.parametrize("trees", [(3, 1, 1), (65, 1, 1)])
+def test_bf16_kernels_ragged_element_count(cuda_device, deg, trees):
+    level = 1 if trees == (3, 1, 1) else 0
+    mesh = _mesh(deg, level, tuple(float(t) for t in trees), cuda_device,
+                 trees)
+    _check_both_bf16(mesh, deg)
+
+
+@pytest.mark.gpu
+def test_bf16_kernels_leave_the_tf32_flag_alone(cuda_device):
+    mesh = _mesh(3, 1, (1.0, 1.0, 1.0), cuda_device)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    try:
+        for flag in (False, True, False):
+            torch.backends.cuda.matmul.allow_tf32 = flag
+            u = torch.ones((mesh.n_elements, 64), device=cuda_device)
+            fused.apply_fused(fused.build_fused(mesh), u, precision="bf16")
+            S.apply_structured(S.build_structured(mesh), u, "bf16")
+            torch.cuda.synchronize()
+            assert torch.backends.cuda.matmul.allow_tf32 is flag
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+@pytest.mark.gpu
+def test_bf16_wrappers_check_their_inputs(cuda_device):
+    mesh = _mesh(2, 1, (1.0, 1.0, 1.0), cuda_device)
+    fm, sb = fused.build_fused(mesh), S.build_structured(mesh)
+    u = torch.zeros((fm.n_elements, fm.nv), device=cuda_device)
+    tr = fused.scaled_traces(u, fm.W_tr, fm.drstn, "bf16")
+    for launch, obj in ((fused.fused_apply_cuda_bf16, fm),
+                        (S.lex_apply_cuda_bf16, sb)):
+        with pytest.raises(ValueError, match="bfloat16"):
+            launch(obj, u, tr.float())
+        with pytest.raises(ValueError, match="shape"):
+            launch(obj, u, tr[:-1].contiguous())
+        with pytest.raises(ValueError, match="float32"):
+            launch(obj, u.double(), tr)
+        with pytest.raises(ValueError, match="CUDA"):
+            launch(obj, u.cpu(), tr.cpu())
 
 
 @pytest.mark.gpu

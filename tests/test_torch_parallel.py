@@ -584,3 +584,50 @@ def test_amr_epoch_rank_count_invariance():
         assert np.array_equal(log, one[0]) and (log < 0).any()
         assert torch.equal(x, eight[0][1])
     assert float((eight[0][1] - one[1]).abs().max()) < 1e-12
+
+
+def test_c17_witness_general_form_cg_matches_the_distributed_cg():
+    """ROADMAP C17's witness at a small size (sinx, deg 2, level 2): the
+    driver's distributed f64 CG on two thread ranks (the halo program's
+    quadrature-point face terms) lands on the L2 error of a one-process
+    f64 CG through the general form (`apply_sipg(..., volume_mode=
+    "dense")`, off the GEMM-form fast path) to 1e-10 relative, the bound
+    `chip_smoke.py` phase 15 holds at level 5; the GEMM-form CG, the
+    operator's other f64 form, is within `DIST_FORM_REL` (1e-5) of both."""
+    from disco4est_tpu_torch import driver
+    from disco4est_tpu_torch.geometry.brick import BrickGeometry
+    from disco4est_tpu_torch.io.norms import norm_L2
+    from disco4est_tpu_torch.laplacian.sipg import (
+        apply_sipg,
+        build_rhs_with_strong_bc,
+    )
+    from disco4est_tpu_torch.mesh.builder import build_mesh
+    from disco4est_tpu_torch.mesh.tree import Forest
+    from disco4est_tpu_torch.problems.poisson import SinxProblem
+    from disco4est_tpu_torch.solvers.cg import cg_solve
+
+    geom = BrickGeometry(dim=3)
+    mesh = build_mesh(geom, Forest.uniform(geom.conn, 2), deg=2,
+                      device="cpu")
+    rhs = build_rhs_with_strong_bc(
+        mesh, mesh.init_field(SinxProblem.rhs),
+        mesh.boundary_values(SinxProblem.boundary))
+    x0 = torch.zeros_like(rhs)
+    kw = dict(x0=x0, atol=5e-15, rtol=1e-20, max_iter=100000)
+    witness = cg_solve(lambda v: apply_sipg(mesh, v, volume_mode="dense"),
+                       rhs, **kw)
+    gemm = cg_solve(lambda v: apply_sipg(mesh, v), rhs, **kw)
+
+    def rank(comm):
+        ep = driver.ParallelContext(comm).distribute(mesh)
+        return driver._solve_dist(ep, rhs, x0, hp=False, use_mixed=False,
+                                  ksp="cg", mixed_opts={})
+
+    (info, x), (_, x1) = C.ThreadGroup(2).run(rank)
+    assert info.path == "cg-halo" and torch.equal(x, x1)
+    u_a = mesh.init_field(SinxProblem.analytic)
+    l2 = {k: float(norm_L2(mesh, v - u_a))
+          for k, v in (("dist", x), ("witness", witness.x),
+                       ("gemm", gemm.x))}
+    assert abs(l2["dist"] - l2["witness"]) <= 1e-10 * l2["witness"], l2
+    assert abs(l2["gemm"] - l2["witness"]) <= 1e-5 * l2["witness"], l2

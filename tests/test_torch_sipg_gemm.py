@@ -12,8 +12,9 @@
   the JAX `apply_sipg_fast`) to 5e-6 relative, the kernels' bound, at
   degrees 1-7 and on an nblk-3 brick.  With one TF32 product it misses
   that bound by orders at degree 7: the tolerance has teeth.
-- The committed `csrc/wgmma_tf32.cuh` is what `util/gen_wgmma.py` writes,
-  and `fused.sipg_layout` agrees with the kernels' `Cfg`.
+- The committed `csrc/wgmma_tf32.cuh` and `csrc/wgmma_bf16.cuh` are what
+  `util/gen_wgmma.py` writes, and `fused.sipg_layout` agrees with the
+  kernels' `Cfg`.
 
 The kernels themselves run on the card in `tests/test_torch_kernel.py`.
 """
@@ -160,3 +161,4 @@ def test_layout_matches_the_kernel_config(nl):
 
 def test_wgmma_header_is_generated():
     assert gen_wgmma.OUT.read_text() == gen_wgmma.render()
+    assert gen_wgmma.OUT_BF16.read_text() == gen_wgmma.render("bf16")

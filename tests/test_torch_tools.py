@@ -75,8 +75,12 @@ def test_time_fused_on_cpu(capsys, mode, first):
         assert lines[2].startswith("phaseA only")
     else:
         assert _error(lines, "rel err [^:]*:") <= F32_TOL
-        assert all("us/apply" in line for line in lines[2:])
-    assert len(lines) == {"fused": 5, "phases": 3, "structured": 3}[mode]
+        # the bf16 apply's error, as the JAX tool's first line: the bf16
+        # rounding (3.2e-3 relative max here), far above f32's
+        assert lines[2].startswith("bf16 rel err ")
+        assert F32_TOL < _error(lines[2:], "bf16 rel err [^:]*:") <= 1e-2
+        assert all("us/apply" in line for line in lines[3:])
+    assert len(lines) == {"fused": 8, "phases": 3, "structured": 5}[mode]
 
 
 def test_exp_kernel_design_on_cpu(capsys):
