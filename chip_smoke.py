@@ -12,7 +12,10 @@ and `nvcc`.  Phases, one or more lines each; any failure exits non-zero:
    f32 and its bf16 instances), with their build seconds, register,
    shared-memory and spill lines, and the count of tensor-core
    instructions (HGMMA/HMMA) in each SIPG library's SASS, which must not
-   be 0 (B1 and B2 run split-TF32 and bf16 `wgmma` products);
+   be 0 (B1 and B2 run split-TF32 and bf16 `wgmma` products); then each
+   bf16 instance (nl, nblk) of each SIPG library on a line of its own,
+   with its HGMMA count, which must not be 0 either, and its ptxas
+   register and spill lines;
 3. B1, the structured kernel, against its plain PyTorch version and
    against the f64 GEMM-form apply, on bricks of several degrees and
    levels, the shapes of phases 4 and 5 among them (rel ≤ 5e-6), with the
@@ -281,7 +284,8 @@ and `nvcc`.  Phases, one or more lines each; any failure exits non-zero:
        bricks, at ragged E and on phase 6's meshes;
    (b) both bf16 kernels timed at deg 7 / level 4 and deg 3 / level 5
        beside the f32 kernels and the plain bf16 versions, against their
-       bf16 bound (bytes over 3.35 TB/s, flop over 989 TFLOP/s);
+       bf16 bound (bytes over 3.35 TB/s, flop over 989 TFLOP/s), with
+       the CTAs, the K-split and the K chunks (steps) a CTA runs;
    (c) phase 9 (a)'s sinx mixed solve at deg 3 with the bf16 inner solve
        (`make_inner_solve(precision="bf16")`) at level 4 and at phase 5's
        level 5, then with the plain bf16 version as the inner apply: the
@@ -424,8 +428,10 @@ BF16_TOOL_MAX = 1e-2  # phase 8: the bf16 apply against the f32 GEMM form
 BF16_MAX_OUTER = 60  # the driver's mixed_max_outer default
 BF16_INNER_REL = 0.02
 BF16_SOLVES = {
-    4: dict(outer=11, inner=1063, fallback=False, l2=AMR_PINS["a"][0][3]),
-    5: dict(outer=3, inner=363, fallback=True, l2=LEVEL5_L2),
+    # (the inner counts follow the kernels' order of summation: the
+    # per-chunk sums of an earlier design took 1063 and 363, PERF.md)
+    4: dict(outer=11, inner=1104, fallback=False, l2=AMR_PINS["a"][0][3]),
+    5: dict(outer=3, inner=342, fallback=True, l2=LEVEL5_L2),
 }
 
 SINX_OPTIONS = """
@@ -868,19 +874,59 @@ def phase_build():
         for line in seen:
             print("    ptxas:", line)
         if m is not X:  # the two SIPG libraries run on the tensor cores
-            n = tensor_core_instructions(cuda_build, lib)
+            per_fn = tensor_core_instructions(cuda_build, lib)
+            n = sum(per_fn.values())
             print(f"[2] {lib.name}: {n} tensor-core instructions "
                   f"(HGMMA/HMMA) in cuobjdump -sass")
             check(n > 0, f"{lib.name} has no tensor-core instruction")
+            bf16_instances(lib.name, per_fn, log)
+
+
+# the mangled name of an instance of the bf16 kernel: (nl, nblk)
+BF16_INSTANCE = re.compile(r"sipg_bf16_kernelILi(\d)ELi(\d)E")
 
 
 def tensor_core_instructions(cuda_build, lib):
-    """The count of HGMMA and HMMA instructions in the library's SASS."""
+    """The count of HGMMA and HMMA instructions in the library's SASS, per
+    function (mangled name)."""
     tool = pathlib.Path(cuda_build.nvcc_path()).with_name("cuobjdump")
     proc = subprocess.run([str(tool), "-sass", str(lib)],
                           capture_output=True, text=True, timeout=300)
     check(proc.returncode == 0, f"cuobjdump failed: {proc.stderr[-2000:]}")
-    return len(re.findall(r"\bH(?:GMMA|MMA)\.", proc.stdout))
+    counts, fn = {}, ""
+    for line in proc.stdout.splitlines():
+        head = re.search(r"Function : (\S+)", line)
+        if head:
+            fn = head.group(1)
+            counts.setdefault(fn, 0)
+        counts[fn] = counts.get(fn, 0) + len(
+            re.findall(r"\bH(?:GMMA|MMA)\.", line))
+    return counts
+
+
+def bf16_instances(lib_name, per_fn, log):
+    """Phase 2's lines on the bf16 instances of one SIPG library: each
+    (nl, nblk) instance's HGMMA count (which must not be 0) and its ptxas
+    register and spill lines."""
+    ptxas, fn = {}, None
+    for line in log:
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            fn = entry.group(1)
+        elif fn and ("registers" in line or "spill" in line):
+            ptxas.setdefault(fn, []).append(line.split(":", 1)[-1].strip())
+    seen = 0
+    for fn, n in sorted(per_fn.items()):
+        inst = BF16_INSTANCE.search(fn)
+        if not inst:
+            continue
+        seen += 1
+        nl, nblk = inst.groups()
+        print(f"[2] {lib_name} bf16 nl {nl} nblk {nblk}: {n} HGMMA; "
+              + "; ".join(ptxas.get(fn, ["no ptxas line"])))
+        check(n > 0, f"{lib_name}: bf16 instance nl {nl} nblk {nblk} has "
+              "no tensor-core instruction")
+    check(seen == 14, f"{lib_name}: {seen} bf16 instances, expected 14")
 
 
 def bound_ms(flop, nbytes, split=False):
@@ -3665,8 +3711,9 @@ def bf16_kernels(torch, np, card):
         u2 = S.from_lex(sb, u).contiguous()
         trf = fused.scaled_traces(u2, fm.W_tr, fm.drstn, "bf16").contiguous()
         trf32 = fused.scaled_traces(u2, fm.W_tr, fm.drstn).contiguous()
+        plans = {"B1": S.lex_bf16_plan(sb), "B2": fused.fused_bf16_plan(fm)}
         timing[(deg, level)] = bf16_timing(torch, card, deg, level, E, sb.nv,
-                                           sb.nblk, 12 * nl * nl, {
+                                           sb.nblk, 12 * nl * nl, plans, {
             "B1 bf16": lambda: S.lex_apply_cuda_bf16(sb, u, tr),
             "B1 f32": lambda: S.lex_apply_cuda(sb, u, tr32),
             "B1 plain bf16": lambda: S.lex_apply_plain(sb, u, tr, "bf16"),
@@ -3696,10 +3743,12 @@ def bf16_kernels(torch, np, card):
     return max_abs, timing
 
 
-def bf16_timing(torch, card, deg, level, E, nv, nblk, tw, fns):
+def bf16_timing(torch, card, deg, level, E, nv, nblk, tw, plans, fns):
     """(b) The bf16 and f32 kernels and the plain bf16 versions of B1 and
     B2 at one size, in alternating rounds; the bf16 kernels against their
-    bf16 bound.  Returns each bf16 kernel's numbers for the kernels line."""
+    bf16 bound, with their launch plans (`fused.bf16_plan`: CTAs, splits
+    and the K chunks a CTA runs).  Returns each bf16 kernel's numbers for
+    the kernels line."""
     for fn in fns.values():  # warm-up
         fn()
     torch.cuda.synchronize()
@@ -3713,11 +3762,14 @@ def bf16_timing(torch, card, deg, level, E, nv, nblk, tw, fns):
         flop, nbytes = sipg_pass_cost_bf16(E, nv, nblk, tw, extra)
         bms, by = bound_ms_bf16(flop, nbytes)
         ms = t[f"{name} bf16"]
+        plan = plans[name]
         print(f"[16] (b) {name} deg {deg} level {level} (E {E}) on {card}: "
               f"bf16 kernel {ms:.4f} ms, f32 kernel {t[f'{name} f32']:.4f} ms"
               f", plain bf16 {t[f'{name} plain bf16']:.4f} ms; bf16 bound "
               f"{bms:.4f} ms by {by} ({flop / 1e9:.2f} GFLOP, "
-              f"{nbytes / 1e6:.1f} MB; {bms / ms:.1%} of it)")
+              f"{nbytes / 1e6:.1f} MB; {bms / ms:.1%} of it); {plan['grid']}"
+              f" CTAs, splits {plan['splits']}, {plan['steps']} K chunks "
+              f"a CTA ({1e3 * ms / plan['steps']:.3f} us a chunk)")
         out[name] = dict(ms=ms, plain_ms=t[f"{name} plain bf16"],
                          bound_ms=bms, bound_by=by,
                          f32_ms=t[f"{name} f32"])

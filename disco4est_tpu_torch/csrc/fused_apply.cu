@@ -74,3 +74,10 @@ extern "C" int d4est_fused_apply_bf16(const float* u, const void* tr,
   return d4est::launch_sipg<true>(u, tr, meta, wpack, out, E, nl, nblk, t,
                                   static_cast<cudaStream_t>(stream));
 }
+
+// The bf16 kernel's launch plan at E elements: plan[0..2] = grid (CTAs),
+// splits (CTAs sharing a tile's K chunks), K chunks the busiest CTA runs.
+extern "C" int d4est_fused_apply_bf16_plan(int E, int nl, int nblk,
+                                           int* plan) {
+  return d4est::plan_sipg_bf16<RowTable>(E, nl, nblk, plan);
+}

@@ -72,26 +72,64 @@
 // Degrees 1-7 and nblk in {1, 3} are compiled as separate instances, so
 // every index is a constant.
 //
-// The bf16 mode (BF16 = true; the Pallas kernels' precision="bf16", the
-// TPU's default) multiplies bf16 operands with f32 sums, at the rounding
-// points of the TPU kernels: u is read in f32 and rounded to bf16 (RNE)
-// as A is generated; the traces arrive in bf16 (phase A's f32 product
-// rounded once, read by both sides of every face), Z is formed in f32
-// from them and the f32 scalars with the plain version's roundings, and
-// rounded once to bf16; B is packed in bf16 (`fused.pack_sipg_weights_bf16`,
-// core matrices of 8 rows x 16 bytes, no hi/lo split).  A 16-column K
-// chunk is one k16 bf16 product (`wgmma_bf16.cuh`), still started from
-// zero in `part` and added to `total` in IEEE f32.  cw is applied after
+// The bf16 mode (`sipg_bf16_kernel`, `CfgBf16`; the Pallas kernels'
+// precision="bf16", the TPU's default) multiplies bf16 operands with f32
+// sums, at the rounding points of the TPU kernels: u is read in f32 and
+// rounded to bf16 (RNE) as A is generated; the traces arrive in bf16
+// (phase A's f32 product rounded once, read by both sides of every face),
+// Z is formed in f32 from them and the f32 scalars with the plain
+// version's roundings, and rounded once to bf16; B is packed in bf16
+// (`fused.pack_sipg_weights_bf16`, no hi/lo split); cw is applied after
 // the product, as the TPU kernels do (cw * (bf16(u) @ bf16(W_b))), not
 // folded into A, where bf16(cw * u) would move the apply by as much as
-// the bf16 error itself: each volume block of K is padded with zero
-// columns to whole chunks, so that a chunk lies in one volume block or in
-// the face block, and a thread adds cw[e, b] * part of a volume chunk
-// (part of a face chunk) for the two element rows it holds.  Trace
-// lanes are fetched 8 bytes (four lanes) at a time at even nl, and as
-// the aligned 4-byte word that holds the lane at odd nl (an odd lane
-// count a face), whose half the generation then picks.
-// Every f32 instance is the same code as without the mode.
+// the bf16 error itself.  In bf16 the bytes bound both sizes (7.4 us at
+// p = 7, E = 4096; 9.8 us at p = 3, E = 32768) and one k16 product is a
+// few tens of ns, so the f32 design's chain of short chunk steps, each a
+// block-wide barrier, a product, a wait and a drain, would leave the
+// tensor cores idle.  The bf16 mode has a main loop of its own:
+// - Warp specialization.  Producer warpgroups fetch the A
+//   sources (u, own and neighbor trace lanes, as in f32: RS chunks ahead
+//   into cp.async slots private to the thread; a tile's table rows by bulk
+//   copy into one of two buffers, refilled once every producer warp has
+//   released it), generate bf16 A chunks into a ring of S (4-8) stages and
+//   stage each B chunk beside its A chunk by bulk copy.  Two consumer
+//   warpgroups only issue the products and add up.  Each stage has a full
+//   mbarrier (one arrival a producer warp after its stores and a proxy
+//   fence, and the B copy's bytes) and an empty one (one arrival a
+//   consumer warpgroup once its products of the stage are done); there is
+//   no block-wide barrier, and the producer warps do not wait for each
+//   other.  Waits sleep on the barrier (`ring_wait`).  There are four
+//   producer warpgroups at nv <= 64, two up to 128 columns, and one where
+//   the sums are large (nv > 128), with `setmaxnreg` moving registers to
+//   the consumers.
+// - A chunk is kKCB = 32 K columns (64-byte rows, two k16 products a
+//   column sub-block), 8x8 core matrices without swizzle.  64 columns
+//   would leave fewer than three ring stages at p = 7 (72 KB a stage) and
+//   miss the shared memory by 2 KB at p = 3.
+// - Block-long sums.  The tensor cores' sum runs on through every chunk
+//   of a unit (scale_d = 0 at its first product only), with one commit
+//   group in flight while the next chunk's is issued (wait_group 1).  At
+//   the end of volume block b the accumulator is scaled in registers by
+//   cw[e, b], or by cw[e, b] / cw[e, b+1] where block b + 1 follows, whose
+//   own factor completes it (nblk = 3: a separate `part` per block would
+//   need 224-256 floats a thread at p >= 5).  The face chunks then add
+//   into the same accumulator.  The tensor cores truncate, so the sum
+//   drifts by ~1e-6 relative over K = 1280 columns: far inside the bf16
+//   kernels' 2e-4 bound, so the f32 design's restart every chunk is gone.
+// - As in f32: the tile shapes (BM = 64 and the warpgroups splitting the
+//   columns at nv > 256, BM = 128 and the rows otherwise), the persistent
+//   grid (a unit is one tile and 1/splits of its K chunks), the ragged
+//   last tile, each volume block of K padded with zero columns to whole
+//   chunks, trace lanes fetched 2 * VEC bytes at a time at even nl and as
+//   the aligned 4-byte word that holds the lane at odd nl (an odd lane
+//   count a face), whose half the generation then picks.  B is read from
+//   L2 for every tile (1.3 MB at p = 7): sharing it across a cluster of
+//   two CTAs by multicast bulk copies, or across 128-row tiles cut into
+//   two column parts, measured slower on an H100 (PERF.md).
+// What paces it (PERF.md, `tools/ablate_sipg.py`): the producers, at ~1
+// us a chunk a CTA, most of it the fetch and generation of A through
+// shared memory; the tensor cores wait.
+// The f32 instances do not share this loop and are unchanged.
 
 #pragma once
 
@@ -113,15 +151,12 @@ constexpr int kKC = 16;        // K columns a chunk: two k8 products
 constexpr int kMetaW = 28;
 constexpr int kSmemMax = 232448;  // dynamic shared memory of one block
 
-template <int NL, int NBLK, bool BF16 = false>
+template <int NL, int NBLK>
 struct Cfg {
   static constexpr int NV = NL * NL * NL;
   static constexpr int NFL = NL * NL;
   static constexpr int TW = kFaces * 2 * NFL;
-  // K columns of one volume block: nv, or in bf16 mode nv padded with zero
-  // columns to whole chunks (cw is applied after each chunk's product)
-  static constexpr int NVK = BF16 ? (NV + kKC - 1) / kKC * kKC : NV;
-  static constexpr int KVOL = NBLK * NVK;
+  static constexpr int KVOL = NBLK * NV;
   static constexpr int K = KVOL + TW;
   static constexpr int NCH = (K + kKC - 1) / kKC;  // K chunks
   static constexpr bool SPLIT_N = NV > 256;  // warpgroups split the columns
@@ -145,12 +180,8 @@ struct Cfg {
   static constexpr int RPP = THREADS / KQ;     // element rows of one pass
   static constexpr int NPASS = BM / RPP;       // passes over a chunk's rows
   static constexpr int SB = NL == 8 ? 2 : 3;        // B stages
-  // floats of one row of a chunk tile (kKC f32 or kKC bf16 values) and
-  // the tiles a chunk holds (TF32 hi and lo, or the bf16 values)
-  static constexpr int ROW_F = BF16 ? kKC / 2 : kKC;
-  static constexpr int PARTS = BF16 ? 1 : 2;
-  static constexpr int B_CHUNK = PARTS * NP * ROW_F;  // floats
-  static constexpr int A_STAGE = PARTS * BM * ROW_F;
+  static constexpr int B_CHUNK = 2 * NP * kKC;  // floats: TF32 hi and lo
+  static constexpr int A_STAGE = 2 * BM * kKC;
   static constexpr int RAW_STAGE = NPASS * 4 * VEC * THREADS;
   static constexpr int META = BM * kMetaW;
   static constexpr int OFF_A = SB * B_CHUNK;
@@ -183,41 +214,6 @@ __device__ __forceinline__ uint64_t tile_desc(const float* p) {
 // Offset (floats) of entry (row, k) of a [rows, kKC] K-major tile.
 __device__ __forceinline__ int tile_index(int row, int k) {
   return ((row >> 3) * (kKC / 4) + (k >> 2)) * 32 + (row & 7) * 4 + (k & 3);
-}
-
-// The bf16 tiles: 8x8 core matrices (8 rows of 16 bytes), the two of a
-// row group's 16 K columns 128 bytes apart (leading byte offset), row
-// groups 256 bytes apart (stride byte offset).
-__device__ __forceinline__ uint64_t tile_desc_bf16(const float* p) {
-  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) |
-         ((uint64_t)(128 >> 4) << 16) | ((uint64_t)(256 >> 4) << 32);
-}
-
-// Offset (bf16 values) of entry (row, k) of a [rows, kKC] bf16 tile.
-__device__ __forceinline__ int tile_index_bf16(int row, int k) {
-  return ((row >> 3) * (kKC / 8) + (k >> 3)) * 64 + (row & 7) * 8 + (k & 7);
-}
-
-__device__ __forceinline__ uint16_t bf16_bits(float x) {
-  return __bfloat16_as_ushort(__float2bfloat16_rn(x));
-}
-
-// N consecutive bf16 lanes from a fetch slot, as floats.  N = 4: the 8
-// bytes of four lanes.  N = 1: the aligned 4-byte word that holds the
-// lane, whose high half it is when `odd` (the lane's index is odd).
-template <int N>
-__device__ __forceinline__ void bf16_lanes(float (&x)[N], const float* slot,
-                                           bool odd) {
-  if constexpr (N == 4) {
-    const uint2 w = *reinterpret_cast<const uint2*>(slot);
-    x[0] = __uint_as_float(w.x << 16);
-    x[1] = __uint_as_float(w.x & 0xFFFF0000u);
-    x[2] = __uint_as_float(w.y << 16);
-    x[3] = __uint_as_float(w.y & 0xFFFF0000u);
-  } else {
-    const uint32_t w = __float_as_uint(slot[0]);
-    x[0] = __uint_as_float(odd ? w & 0xFFFF0000u : w << 16);
-  }
 }
 
 __device__ __forceinline__ float tf32_rna(float x) {
@@ -291,8 +287,9 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar))
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count = 1) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(count)
                : "memory");
 }
 
@@ -325,15 +322,14 @@ __device__ __forceinline__ void bulk_load(float* dst, const float* src,
       : "memory");
 }
 
-// `tr` and `wpack` hold f32 values, or bf16 values in bf16 mode.
-template <int NL, int NBLK, bool BF16, class Nbr>
-__global__ void __launch_bounds__(Cfg<NL, NBLK, BF16>::THREADS, 1)
+template <int NL, int NBLK, class Nbr>
+__global__ void __launch_bounds__(Cfg<NL, NBLK>::THREADS, 1)
     sipg_gemm_kernel(const float* __restrict__ u,
                      const float* __restrict__ tr,
                      const float* __restrict__ meta,
                      const float* __restrict__ wpack,
                      float* __restrict__ out, int E, int splits, Nbr nbr) {
-  using C = Cfg<NL, NBLK, BF16>;
+  using C = Cfg<NL, NBLK>;
   constexpr int VEC = C::VEC;
   extern __shared__ __align__(128) float smem[];
   float* const sB = smem;
@@ -424,16 +420,13 @@ __global__ void __launch_bounds__(Cfg<NL, NBLK, BF16>::THREADS, 1)
       }
       const int k = w.c * kKC + kq * VEC;
       if (k < C::KVOL) {
-        const int m = k % C::NVK;
-        // (bf16 mode: a padding column has no source; A gets a zero)
-        if (!BF16 || m < C::NV) {
+        const int m = k % C::NV;
 #pragma unroll
-          for (int p = 0; p < C::NPASS; ++p) {
-            const int e = w.e0 + row0 + p * C::RPP;
-            const bool ok = e < E;
-            cp_async<4 * VEC>(slot(raw, p, 0),
-                              ok ? u + (long long)e * C::NV + m : u, ok);
-          }
+        for (int p = 0; p < C::NPASS; ++p) {
+          const int e = w.e0 + row0 + p * C::RPP;
+          const bool ok = e < E;
+          cp_async<4 * VEC>(slot(raw, p, 0),
+                            ok ? u + (long long)e * C::NV + m : u, ok);
         }
       } else if (k < C::K) {
         const int jz = k - C::KVOL;
@@ -446,37 +439,15 @@ __global__ void __launch_bounds__(Cfg<NL, NBLK, BF16>::THREADS, 1)
           const int e = w.e0 + row0 + p * C::RPP;
           const bool ok = e < E;
           const bool has_nb = nrow[p] >= 0;
-          if constexpr (BF16) {
-            // lane indices into tr seen as bf16 values; VEC = 1 fetches
-            // the aligned word that holds the lane (E * tw is even there)
-            const uint16_t* t16 = reinterpret_cast<const uint16_t*>(tr);
-            const long long own = (long long)e * C::TW + f * (2 * C::NFL) + i;
-            const long long nb = (long long)nrow[p] * (2 * C::NFL) + i;
-            auto fetch = [&](int q, long long at, bool valid) {
-              if constexpr (VEC == 4) {
-                cp_async<8>(slot(raw, p, q), valid ? t16 + at : t16, valid);
-              } else {
-                cp_async<4>(slot(raw, p, q), valid ? t16 + (at & ~1LL) : t16,
-                            valid);
-              }
-            };
-            fetch(0, own, ok);
-            fetch(2, nb, has_nb);
-            if (!is_s2n) {
-              fetch(1, own + C::NFL, ok);
-              fetch(3, nb + C::NFL, has_nb);
-            }
-          } else {
-            const float* own =
-                tr + (long long)e * C::TW + f * (2 * C::NFL) + i;
-            const float* nb = tr + (long long)nrow[p] * (2 * C::NFL) + i;
-            cp_async<4 * VEC>(slot(raw, p, 0), ok ? own : tr, ok);
-            cp_async<4 * VEC>(slot(raw, p, 2), has_nb ? nb : tr, has_nb);
-            if (!is_s2n) {
-              cp_async<4 * VEC>(slot(raw, p, 1), ok ? own + C::NFL : tr, ok);
-              cp_async<4 * VEC>(slot(raw, p, 3), has_nb ? nb + C::NFL : tr,
-                                has_nb);
-            }
+          const float* own =
+              tr + (long long)e * C::TW + f * (2 * C::NFL) + i;
+          const float* nb = tr + (long long)nrow[p] * (2 * C::NFL) + i;
+          cp_async<4 * VEC>(slot(raw, p, 0), ok ? own : tr, ok);
+          cp_async<4 * VEC>(slot(raw, p, 2), has_nb ? nb : tr, has_nb);
+          if (!is_s2n) {
+            cp_async<4 * VEC>(slot(raw, p, 1), ok ? own + C::NFL : tr, ok);
+            cp_async<4 * VEC>(slot(raw, p, 3), has_nb ? nb + C::NFL : tr,
+                              has_nb);
           }
         }
       }
@@ -498,69 +469,6 @@ __global__ void __launch_bounds__(Cfg<NL, NBLK, BF16>::THREADS, 1)
     const int jz = k - C::KVOL;
     const int f = jz / (2 * C::NFL);
     const bool is_s2n = jz - f * (2 * C::NFL) >= C::NFL;
-    if constexpr (BF16) {
-      // A in bf16: bf16(u) in a volume block (zero in its padding
-      // columns), bf16(Z) in the face block.  Z is formed with explicit
-      // roundings in the order of the plain version (`fused.face_terms`):
-      // IEEE multiplies and adds, t13's last product and its sum one FMA
-      // (as XLA's CPU code forms it in the reference's interpreted
-      // kernels), so that its bf16 rounding is that of the plain version.
-      uint16_t* a16 = reinterpret_cast<uint16_t*>(sA + (g & 1) * C::A_STAGE);
-      const int lane = jz - f * (2 * C::NFL);
-      const int i = is_s2n ? lane - C::NFL : lane;
-      const bool odd_u = i & 1, odd_dn = (i + C::NFL) & 1;
-#pragma unroll
-      for (int p = 0; p < C::NPASS; ++p) {
-        const int m = row0 + p * C::RPP;
-        float a[VEC];
-        if (k < C::KVOL) {
-          const Lanes<VEC> own = lds<VEC>(slot(raw, p, 0));
-          const bool real = k % C::NVK < C::NV;
-#pragma unroll
-          for (int v = 0; v < VEC; ++v) a[v] = real ? own.v[v] : 0.f;
-        } else if (k < C::K) {
-          const float* sc = ms + m * kMetaW + f * 4;
-          const float drstn = sc[0], sj = sc[1], sig = sc[2], bnd = sc[3];
-          const bool boundary = bnd > 0.f;
-          float u_m[VEC], u_n[VEC];
-          bf16_lanes<VEC>(u_m, slot(raw, p, 0), odd_u);
-          bf16_lanes<VEC>(u_n, slot(raw, p, 2), odd_u);
-          if (is_s2n) {
-            const float c = __fmul_rn(__fmul_rn(-0.5f, 1.f + bnd), sj);
-#pragma unroll
-            for (int v = 0; v < VEC; ++v) {
-              const float jump = __fsub_rn(u_m[v], boundary ? 0.f : u_n[v]);
-              a[v] = __fmul_rn(__fmul_rn(c, drstn), jump);
-            }
-          } else {
-            float dn_m[VEC], dn_n[VEC];
-            bf16_lanes<VEC>(dn_m, slot(raw, p, 1), odd_dn);
-            bf16_lanes<VEC>(dn_n, slot(raw, p, 3), odd_dn);
-            const float hs = __fmul_rn(-0.5f, sj), ss = __fmul_rn(sj, sig);
-#pragma unroll
-            for (int v = 0; v < VEC; ++v) {
-              const float jump = __fsub_rn(u_m[v], boundary ? 0.f : u_n[v]);
-              const float dn_p = boundary ? -dn_m[v] : dn_n[v];
-              a[v] = __fmaf_rn(ss, jump,
-                               __fmul_rn(hs, __fsub_rn(dn_m[v], dn_p)));
-            }
-          }
-        } else {
-#pragma unroll
-          for (int v = 0; v < VEC; ++v) a[v] = 0.f;
-        }
-        uint16_t* dst = a16 + tile_index_bf16(m, kq * VEC);
-        if constexpr (VEC == 4) {
-          *reinterpret_cast<uint2*>(dst) = make_uint2(
-              bf16_bits(a[0]) | (uint32_t)bf16_bits(a[1]) << 16,
-              bf16_bits(a[2]) | (uint32_t)bf16_bits(a[3]) << 16);
-        } else {
-          dst[0] = bf16_bits(a[0]);
-        }
-      }
-      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-      return;
-    }
 #pragma unroll
     for (int p = 0; p < C::NPASS; ++p) {
       const int m = row0 + p * C::RPP;
@@ -650,69 +558,37 @@ __global__ void __launch_bounds__(Cfg<NL, NBLK, BF16>::THREADS, 1)
 #pragma unroll
   for (int i = 0; i < C::WN / 2; ++i) total[i] = 0.f;
 
-  const int a_off = C::SPLIT_N ? 0 : wg * 64 * C::ROW_F;  // this warpgroup's
-  const int b_off = C::SPLIT_N ? wg * C::WN * C::ROW_F : 0;  // rows, columns
+  const int a_off = C::SPLIT_N ? 0 : wg * 64 * kKC;  // this warpgroup's
+  const int b_off = C::SPLIT_N ? wg * C::WN * kKC : 0;  // rows, columns
   for (int g = 0; g < nchunks; ++g) {
     const int s = g % C::SB;
     mbar_wait(&bars[s], (g / C::SB) & 1);
     chunk_barrier();
     if (tid == 0) load_b(g + C::SB - 1);  // into the stage chunk g-1 left
 
-    if constexpr (BF16) {
-      // the chunk's factor for each of the thread's two accumulator rows
-      // (r and r + 8 of the warpgroup's 64): cw[e, b] after a chunk of
-      // volume block b, 1 after a face chunk
-      const Where w = where(g);
-      const int k0 = w.c * kKC;
-      float scale[2] = {1.f, 1.f};
-      if (k0 < C::KVOL) {
-        const float* ms = sMeta + (w.lt & 1) * C::META;
-        const int r = (C::SPLIT_N ? 0 : wg * 64) + 16 * ((tid % 128) / 32) +
-                      (tid % 32) / 4;
-        const int b = k0 / C::NVK;
-        scale[0] = ms[r * kMetaW + 4 * kFaces + b];
-        scale[1] = ms[(r + 8) * kMetaW + 4 * kFaces + b];
+    const float* a_hi = sA + (g & 1) * C::A_STAGE + a_off;
+    const float* a_lo = a_hi + C::BM * kKC;
+#pragma unroll
+    for (int sb = 0; sb < C::NS; ++sb) {
+      const float* b_hi = sB + s * C::B_CHUNK + b_off + sb * C::SW * kKC;
+      const float* b_lo = b_hi + C::NP * kKC;
+      asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+#pragma unroll
+      for (int st = 0; st < kKC / 8; ++st) {
+        const int off = st * 64;  // two core matrices along K
+        Wgmma<C::SW>::mma(part, tile_desc(a_hi + off), tile_desc(b_hi + off),
+                          st > 0 ? 1 : 0);
+        Wgmma<C::SW>::mma(part, tile_desc(a_hi + off), tile_desc(b_lo + off),
+                          1);
+        Wgmma<C::SW>::mma(part, tile_desc(a_lo + off), tile_desc(b_hi + off),
+                          1);
       }
-      const float* a16 = sA + (g & 1) * C::A_STAGE + a_off;
+      asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+      if (sb == 0) stage_next(g);
+      asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
 #pragma unroll
-      for (int sb = 0; sb < C::NS; ++sb) {
-        const float* b16 = sB + s * C::B_CHUNK + b_off + sb * C::SW * C::ROW_F;
-        asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-        WgmmaBf16<C::SW>::mma(part, tile_desc_bf16(a16), tile_desc_bf16(b16),
-                              0);
-        asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-        if (sb == 0) stage_next(g);
-        asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-#pragma unroll
-        for (int i = 0; i < C::SW / 2; ++i) {
-          total[sb * (C::SW / 2) + i] += scale[(i >> 1) & 1] * part[i];
-        }
-      }
-    } else {
-      const float* a_hi = sA + (g & 1) * C::A_STAGE + a_off;
-      const float* a_lo = a_hi + C::BM * kKC;
-#pragma unroll
-      for (int sb = 0; sb < C::NS; ++sb) {
-        const float* b_hi = sB + s * C::B_CHUNK + b_off + sb * C::SW * kKC;
-        const float* b_lo = b_hi + C::NP * kKC;
-        asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-#pragma unroll
-        for (int st = 0; st < kKC / 8; ++st) {
-          const int off = st * 64;  // two core matrices along K
-          Wgmma<C::SW>::mma(part, tile_desc(a_hi + off), tile_desc(b_hi + off),
-                            st > 0 ? 1 : 0);
-          Wgmma<C::SW>::mma(part, tile_desc(a_hi + off), tile_desc(b_lo + off),
-                            1);
-          Wgmma<C::SW>::mma(part, tile_desc(a_lo + off), tile_desc(b_hi + off),
-                            1);
-        }
-        asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-        if (sb == 0) stage_next(g);
-        asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-#pragma unroll
-        for (int i = 0; i < C::SW / 2; ++i) {
-          total[sb * (C::SW / 2) + i] += part[i];
-        }
+      for (int i = 0; i < C::SW / 2; ++i) {
+        total[sb * (C::SW / 2) + i] += part[i];
       }
     }
 
@@ -754,12 +630,633 @@ __global__ void __launch_bounds__(Cfg<NL, NBLK, BF16>::THREADS, 1)
   }
 }
 
-template <int NL, int NBLK, bool BF16, class Nbr>
+// ---------------------------------------------------------------------------
+// The bf16 mode: its own main loop (the header's last section).
+
+constexpr int kKCB = 32;  // K columns of a bf16 chunk: two k16 products
+
+template <int NL, int NBLK>
+struct CfgBf16 {
+  static constexpr int NV = NL * NL * NL;
+  static constexpr int NFL = NL * NL;
+  static constexpr int TW = kFaces * 2 * NFL;
+  // the tile shapes of `Cfg`: the two consumer warpgroups split a tile's
+  // columns where nv > 256 (BM = 64) and its rows otherwise (BM = 128);
+  // a warpgroup's WN columns go in NS sub-blocks of SW
+  static constexpr bool SPLIT_N = Cfg<NL, NBLK>::SPLIT_N;
+  static constexpr int WN = Cfg<NL, NBLK>::WN;
+  static constexpr int NS = Cfg<NL, NBLK>::NS;
+  static constexpr int SW = Cfg<NL, NBLK>::SW;
+  static constexpr int NP = Cfg<NL, NBLK>::NP;
+  static constexpr int BM = Cfg<NL, NBLK>::BM;
+  // producer warpgroups (they fetch and generate A: four where the
+  // consumers' sums are small, nv <= 64, and two up to 128 columns; one
+  // where `setmaxnreg` must give the consumers more), then two consumer
+  // warpgroups
+  static constexpr int NPW = WN <= 64 ? 4 : WN <= 128 ? 2 : 1;
+  static constexpr int NPT = 128 * NPW;
+  static constexpr int THREADS = NPT + 256;
+  // registers a thread after `setmaxnreg` where one producer warpgroup
+  // gives its share to the consumers' accumulators (384 threads)
+  static constexpr int PROD_REGS = 104;
+  static constexpr int CONS_REGS = 200;
+  // A producer thread fetches and generates VEC consecutive K columns of an
+  // element: trace lanes in copies of 2 * VEC bytes (VEC = 1: the aligned
+  // 4-byte word that holds the lane), u in two copies of VEC / 2 floats.
+  static constexpr int VEC = (NV % 8 == 0 && NFL % 8 == 0)   ? 8
+                             : (NV % 4 == 0 && NFL % 4 == 0) ? 4
+                                                             : 1;
+  static constexpr int SLB = VEC == 1 ? 4 : 2 * VEC;  // bytes of a slot
+  // each volume block of K padded with zero columns to whole chunks
+  static constexpr int NVK = (NV + kKCB - 1) / kKCB * kKCB;
+  static constexpr int CPB = NVK / kKCB;  // chunks of a volume block
+  static constexpr int KVOL = NBLK * NVK;
+  static constexpr int K = KVOL + TW;
+  static constexpr int NCH = (K + kKCB - 1) / kKCB;
+  static constexpr int KQ = kKCB / VEC;     // threads on one element row
+  static constexpr int RPP = NPT / KQ;      // element rows of one pass
+  static constexpr int NPASS = BM / RPP;    // passes over a chunk's rows
+  // bytes: a ring stage (the A chunk, then the B chunk), a raw stage (four
+  // cp.async slots a thread and pass: one chunk's A sources), a tile's
+  // table rows
+  static constexpr int A_BYTES = BM * kKCB * 2;
+  static constexpr int B_BYTES = NP * kKCB * 2;
+  static constexpr int STAGE = A_BYTES + B_BYTES;
+  static constexpr int RAW = NPASS * 4 * NPT * SLB;
+  static constexpr int META = BM * kMetaW * 4;
+  static constexpr int FIX = 2 * META + 160;  // two table buffers, barriers
+  // three raw stages where they fit beside three ring stages, else two;
+  // then as many ring stages as fit, up to 8
+  static constexpr int RS =
+      FIX + 3 * STAGE + 3 * RAW <= kSmemMax ? 3 : 2;
+  static constexpr int S_FIT = (kSmemMax - FIX - RS * RAW) / STAGE;
+  static constexpr int S = S_FIT < 8 ? S_FIT : 8;
+  static constexpr int OFF_RAW = S * STAGE;
+  static constexpr int OFF_META = OFF_RAW + RS * RAW;
+  static constexpr int OFF_BAR = OFF_META + 2 * META;
+  static constexpr int SMEM_BYTES = OFF_BAR + (2 * S + 4) * 8;
+  static_assert(S >= 3 && RS >= 2 && RS <= NCH, "ring and raw stages");
+  static_assert(SMEM_BYTES <= kSmemMax, "shared memory of one block");
+  static_assert(NPASS * RPP == BM && NVK % VEC == 0, "producer passes");
+  static_assert(NPW > 1 || 128 * PROD_REGS + 256 * CONS_REGS <= 65536,
+                "register split");
+};
+
+// Matrix descriptor of a K-major bf16 tile without swizzle: 8x8 core
+// matrices (8 rows of 16 bytes), the two of a k16 step 128 bytes apart
+// (leading byte offset), row groups kKCB / 8 core matrices = 512 bytes
+// apart (stride byte offset).  k16 step j starts 256 * j bytes in.
+__device__ __forceinline__ uint64_t tile_desc_bf16(const void* p) {
+  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) |
+         ((uint64_t)(128 >> 4) << 16) | ((uint64_t)((16 * kKCB) >> 4) << 32);
+}
+
+// Offset (bf16 values) of entry (row, k) of a [rows, kKCB] bf16 tile.
+__device__ __forceinline__ int tile_index_bf16(int row, int k) {
+  return ((row >> 3) * (kKCB / 8) + (k >> 3)) * 64 + (row & 7) * 8 + (k & 7);
+}
+
+__device__ __forceinline__ uint16_t bf16_bits(float x) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(x));
+}
+
+// N consecutive bf16 lanes from a fetch slot, as floats: the 2N bytes of
+// N lanes (N = 8, 4), or (N = 1) the aligned 4-byte word that holds the
+// lane, whose high half it is when `odd` (the lane's index is odd).
+template <int N>
+__device__ __forceinline__ void bf16_lanes(float (&x)[N], const void* slot,
+                                           bool odd) {
+  if constexpr (N == 1) {
+    const uint32_t w = *reinterpret_cast<const uint32_t*>(slot);
+    x[0] = __uint_as_float(odd ? w & 0xFFFF0000u : w << 16);
+  } else {
+    uint32_t w[N / 2];
+    if constexpr (N == 8) {
+      const uint4 q = *reinterpret_cast<const uint4*>(slot);
+      w[0] = q.x, w[1] = q.y, w[2] = q.z, w[3] = q.w;
+    } else {
+      const uint2 q = *reinterpret_cast<const uint2*>(slot);
+      w[0] = q.x, w[1] = q.y;
+    }
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) {
+      x[2 * i] = __uint_as_float(w[i] << 16);
+      x[2 * i + 1] = __uint_as_float(w[i] & 0xFFFF0000u);
+    }
+  }
+}
+
+// N consecutive floats from two slots of N / 2 each (N = 1: one slot).
+template <int N>
+__device__ __forceinline__ void f32_lanes(float (&x)[N], const void* s0,
+                                          const void* s1) {
+  if constexpr (N == 1) {
+    x[0] = *reinterpret_cast<const float*>(s0);
+  } else {
+    const float* a = reinterpret_cast<const float*>(s0);
+    const float* b = reinterpret_cast<const float*>(s1);
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) x[i] = a[i], x[N / 2 + i] = b[i];
+  }
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// mbar_wait for the ring.  A waiting thread sleeps until the phase
+// completes (the suspend-time hint, 10 ms, keeps it from polling, so a
+// waiting warp leaves its issue slots to the producers); a wait that
+// outlasts 4 s traps, so that a fault in the protocol fails the launch
+// instead of holding the card.
+__device__ __forceinline__ void ring_wait(uint64_t* bar, int parity) {
+  uint32_t done = 0;
+  uint64_t t0 = 0;
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2, %3;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity), "r"(10000000)
+        : "memory");
+    if (done) return;
+    if (t0 == 0) {
+      t0 = global_ns();
+    } else if (global_ns() - t0 > 4000000000ull) {
+      __trap();
+    }
+  }
+}
+
+// The bf16 kernel: `tr` the bf16 traces, `wpack` the bf16 B of
+// `fused.pack_sipg_weights_bf16`.
+template <int NL, int NBLK, class Nbr>
+__global__ void __launch_bounds__(CfgBf16<NL, NBLK>::THREADS, 1)
+    sipg_bf16_kernel(const float* __restrict__ u,
+                     const uint16_t* __restrict__ tr,
+                     const float* __restrict__ meta,
+                     const uint8_t* __restrict__ wpack,
+                     float* __restrict__ out, int E, int splits, Nbr nbr) {
+  using C = CfgBf16<NL, NBLK>;
+  constexpr int VEC = C::VEC;
+  extern __shared__ __align__(128) uint8_t smem8[];
+  uint8_t* const ring = smem8;
+  uint8_t* const sRaw = smem8 + C::OFF_RAW;
+  float* const sMeta = reinterpret_cast<float*>(smem8 + C::OFF_META);
+  uint64_t* const full = reinterpret_cast<uint64_t*>(smem8 + C::OFF_BAR);
+  uint64_t* const empty = full + C::S;
+  uint64_t* const meta_bar = empty + C::S;   // a table buffer is full
+  uint64_t* const meta_free = meta_bar + 2;  // and free again
+
+  const int tid = threadIdx.x;
+  // A work unit is one element tile and 1/splits of its K chunks; the
+  // CTA's chunk stream g runs over its units in turn.
+  const int ncu = C::NCH / splits;
+  const int nunits = (E + C::BM - 1) / C::BM * splits;
+  const int my_units =
+      (int)blockIdx.x < nunits ? (nunits - 1 - blockIdx.x) / gridDim.x + 1
+                               : 0;
+  const int nchunks = my_units * ncu;
+
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < C::S; ++s) {
+      mbar_init(&full[s], C::NPT / 32 + 1);  // producer warps, B copy
+      mbar_init(&empty[s], 2);               // consumer warpgroups
+    }
+#pragma unroll
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(&meta_bar[b]);
+      mbar_init(&meta_free[b], C::NPT / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  struct Where {
+    int lt;  // the CTA's unit
+    int cc;  // the chunk within the unit
+    int c;   // the K chunk
+    int e0;  // the tile's first element
+  };
+  // (splits is 1 or 2, so every division here is by a constant)
+  auto where = [&](int g) {
+    Where w;
+    w.lt = splits == 1 ? g / C::NCH : g / (C::NCH / 2);
+    w.cc = g - w.lt * ncu;
+    const int unit = blockIdx.x + w.lt * gridDim.x;
+    const int tile = splits == 1 ? unit : unit >> 1;
+    w.c = (unit - tile * splits) * ncu + w.cc;
+    w.e0 = tile * C::BM;
+    return w;
+  };
+
+  if (tid < C::NPT) {
+    // ----- producers: fetch the A sources, generate A chunks into the
+    // ring, stage the B chunks and the tables
+    if constexpr (C::NPW == 1) {
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(C::PROD_REGS));
+    }
+    const int kq = tid % C::KQ;    // this thread's VEC columns of a chunk
+    const int row0 = tid / C::KQ;  // its first element row; then + RPP
+    const int lane = tid % 32;
+    auto slot = [&](uint8_t* raw, int p, int q) {
+      return raw + ((p * 4 + q) * C::NPT + tid) * C::SLB;
+    };
+
+    // The neighbor face rows of this thread's entries of chunk g (-1:
+    // none, or not a face column) in nrow, looked up two chunks ahead
+    // (nrow_next holds chunk g + 1's), so that a table read is in flight
+    // while the thread works.
+    int nrow[C::NPASS], nrow_next[C::NPASS];
+    auto lookup_rows = [&](int g, int (&rows)[C::NPASS]) {
+      const Where w = where(g);
+      const int jz = w.c * kKCB + kq * VEC - C::KVOL;
+      const bool face = g < nchunks && jz >= 0 && jz < C::TW;
+      const int f = face ? jz / (2 * C::NFL) : 0;
+#pragma unroll
+      for (int p = 0; p < C::NPASS; ++p) {
+        const int e = w.e0 + row0 + p * C::RPP;
+        rows[p] = face && e < E ? (int)nbr.row(e, f) : -1;
+      }
+    };
+
+    // Fetch chunk g's A sources into this thread's own slots of raw stage
+    // g % RS (with a unit's first chunk, thread 0 also starts the bulk copy
+    // of the tile's table rows, once every producer warp has released the
+    // buffer's previous rows); one commit group a call, empty past the
+    // end.  Slot q of a face entry: 0 own u, 1 own dn, 2 neighbor u, 3
+    // neighbor dn (lane indices into tr seen as bf16 values); a volume
+    // entry's u takes slots 0 and 1 (a padding column has no source).  The
+    // slots are private to the thread, so waiting for its own groups is
+    // all the synchronization they need.
+    auto issue_raw = [&](int g) {
+      if (g < nchunks) {
+        const Where w = where(g);
+        uint8_t* raw = sRaw + (g % C::RS) * C::RAW;
+        if (w.cc == 0 && tid == 0) {
+          const int rows = E - w.e0 < C::BM ? E - w.e0 : C::BM;
+          if (w.lt >= 2) ring_wait(&meta_free[w.lt & 1], ((w.lt >> 1) + 1) & 1);
+          bulk_load(sMeta + (w.lt & 1) * (C::BM * kMetaW),
+                    meta + (long long)w.e0 * kMetaW, rows * kMetaW * 4,
+                    &meta_bar[w.lt & 1]);
+        }
+        const int kb = w.c * kKCB + kq * VEC;
+        if (kb < C::KVOL) {
+          const int m = kb % C::NVK;
+          if (m < C::NV) {
+#pragma unroll
+            for (int p = 0; p < C::NPASS; ++p) {
+              const int e = w.e0 + row0 + p * C::RPP;
+              const bool ok = e < E;
+              const float* src = ok ? u + (long long)e * C::NV + m : u;
+              cp_async<C::SLB>(reinterpret_cast<float*>(slot(raw, p, 0)), src,
+                               ok);
+              if constexpr (VEC > 1) {
+                cp_async<C::SLB>(reinterpret_cast<float*>(slot(raw, p, 1)),
+                                 ok ? src + VEC / 2 : u, ok);
+              }
+            }
+          }
+        } else if (kb < C::K) {
+          const int jz = kb - C::KVOL;
+          const int f = jz / (2 * C::NFL);
+          const int lane_f = jz - f * (2 * C::NFL);
+          const bool is_s2n = lane_f >= C::NFL;
+          const int i = is_s2n ? lane_f - C::NFL : lane_f;
+#pragma unroll
+          for (int p = 0; p < C::NPASS; ++p) {
+            const int e = w.e0 + row0 + p * C::RPP;
+            const bool ok = e < E;
+            const bool has_nb = nrow[p] >= 0;
+            const long long own = (long long)e * C::TW + f * (2 * C::NFL) + i;
+            const long long nb = (long long)nrow[p] * (2 * C::NFL) + i;
+            auto fetch = [&](int q, long long at, bool valid) {
+              float* dst = reinterpret_cast<float*>(slot(raw, p, q));
+              if constexpr (VEC > 1) {
+                cp_async<C::SLB>(dst, valid ? tr + at : tr, valid);
+              } else {  // E * tw is even, so the word is in range
+                cp_async<4>(dst, valid ? tr + (at & ~1LL) : tr, valid);
+              }
+            };
+            fetch(0, own, ok);
+            fetch(2, nb, has_nb);
+            if (!is_s2n) {
+              fetch(1, own + C::NFL, ok);
+              fetch(3, nb + C::NFL, has_nb);
+            }
+          }
+        }
+      }
+      cp_async_commit();
+#pragma unroll
+      for (int p = 0; p < C::NPASS; ++p) nrow[p] = nrow_next[p];
+      lookup_rows(g + 2, nrow_next);
+    };
+
+    // Generate chunk g's A (bf16) into the ring stage at `a_st`: bf16(u) in
+    // a volume block (zero in its padding columns), bf16(Z) in the face
+    // block.  Z is formed with explicit roundings in the order of the plain
+    // version (`fused.face_terms`): IEEE multiplies and adds, t13's last
+    // product and its sum one FMA (as XLA's CPU code forms it in the
+    // reference's interpreted kernels), so that its bf16 rounding is that
+    // of the plain version.
+    auto gen_a = [&](int g, uint8_t* a_st) {
+      const Where w = where(g);
+      if (w.cc == 0) ring_wait(&meta_bar[w.lt & 1], (w.lt >> 1) & 1);
+      uint8_t* raw = sRaw + (g % C::RS) * C::RAW;
+      const float* ms = sMeta + (w.lt & 1) * (C::BM * kMetaW);
+      uint16_t* a16 = reinterpret_cast<uint16_t*>(a_st);
+      const int kb = w.c * kKCB + kq * VEC;
+      const int jz = kb - C::KVOL;
+      const int f = jz / (2 * C::NFL);
+      const int lane_f = jz - f * (2 * C::NFL);
+      const bool is_s2n = lane_f >= C::NFL;
+      const int i = is_s2n ? lane_f - C::NFL : lane_f;
+      const bool odd_u = i & 1, odd_dn = (i + C::NFL) & 1;
+#pragma unroll
+      for (int p = 0; p < C::NPASS; ++p) {
+        const int m = row0 + p * C::RPP;
+        float a[VEC];
+        if (kb < C::KVOL) {
+          float x[VEC];
+          f32_lanes<VEC>(x, slot(raw, p, 0), slot(raw, p, 1));
+          const bool real = kb % C::NVK < C::NV;
+#pragma unroll
+          for (int v = 0; v < VEC; ++v) a[v] = real ? x[v] : 0.f;
+        } else if (kb < C::K) {
+          const float* sc = ms + m * kMetaW + f * 4;
+          const float drstn = sc[0], sj = sc[1], sig = sc[2], bnd = sc[3];
+          const bool boundary = bnd > 0.f;
+          float u_m[VEC], u_n[VEC];
+          bf16_lanes<VEC>(u_m, slot(raw, p, 0), odd_u);
+          bf16_lanes<VEC>(u_n, slot(raw, p, 2), odd_u);
+          if (is_s2n) {
+            const float c = __fmul_rn(__fmul_rn(-0.5f, 1.f + bnd), sj);
+#pragma unroll
+            for (int v = 0; v < VEC; ++v) {
+              const float jump = __fsub_rn(u_m[v], boundary ? 0.f : u_n[v]);
+              a[v] = __fmul_rn(__fmul_rn(c, drstn), jump);
+            }
+          } else {
+            float dn_m[VEC], dn_n[VEC];
+            bf16_lanes<VEC>(dn_m, slot(raw, p, 1), odd_dn);
+            bf16_lanes<VEC>(dn_n, slot(raw, p, 3), odd_dn);
+            const float hs = __fmul_rn(-0.5f, sj), ss = __fmul_rn(sj, sig);
+#pragma unroll
+            for (int v = 0; v < VEC; ++v) {
+              const float jump = __fsub_rn(u_m[v], boundary ? 0.f : u_n[v]);
+              const float dn_p = boundary ? -dn_m[v] : dn_n[v];
+              a[v] = __fmaf_rn(ss, jump,
+                               __fmul_rn(hs, __fsub_rn(dn_m[v], dn_p)));
+            }
+          }
+        } else {
+#pragma unroll
+          for (int v = 0; v < VEC; ++v) a[v] = 0.f;
+        }
+        uint16_t* dst = a16 + tile_index_bf16(m, kq * VEC);
+        if constexpr (VEC == 1) {
+          dst[0] = bf16_bits(a[0]);
+        } else {
+          uint32_t h[VEC / 2];
+#pragma unroll
+          for (int v = 0; v < VEC / 2; ++v) {
+            h[v] = bf16_bits(a[2 * v]) | (uint32_t)bf16_bits(a[2 * v + 1]) << 16;
+          }
+          if constexpr (VEC == 8) {
+            *reinterpret_cast<uint4*>(dst) = make_uint4(h[0], h[1], h[2], h[3]);
+          } else {
+            *reinterpret_cast<uint2*>(dst) = make_uint2(h[0], h[1]);
+          }
+        }
+      }
+    };
+
+    lookup_rows(0, nrow);
+    lookup_rows(1, nrow_next);
+#pragma unroll
+    for (int q = 0; q < C::RS; ++q) issue_raw(q);
+    for (int g = 0; g < nchunks; ++g) {
+      const int s = g % C::S;
+      // the consumers are done with chunk g - S
+      if (g >= C::S) ring_wait(&empty[s], ((g / C::S) + 1) & 1);
+      uint8_t* st = ring + s * C::STAGE;
+      const Where w = where(g);
+      if (tid == 0) {  // B chunk c: one bulk copy
+        bulk_load(reinterpret_cast<float*>(st + C::A_BYTES),
+                  reinterpret_cast<const float*>(wpack) +
+                      (long long)w.c * (C::B_BYTES / 4),
+                  C::B_BYTES, &full[s]);
+      }
+      cp_async_wait<C::RS - 1>();  // this thread's sources of chunk g
+      gen_a(g, st);
+      // make the generic-proxy stores visible to the tensor cores' reads;
+      // one arrival a warp
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      __syncwarp();
+      if (lane == 0) {
+        mbar_arrive(&full[s]);
+        if (w.cc == ncu - 1) mbar_arrive(&meta_free[w.lt & 1]);
+      }
+      issue_raw(g + C::RS);
+    }
+  } else {
+    // ----- consumers: the products, block-long sums, cw, the epilogue
+    if constexpr (C::NPW == 1) {
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(C::CONS_REGS));
+    }
+    const int ct = tid - C::NPT;
+    const int wg = ct / 128;
+    const int lane = ct % 32;
+    // the warpgroup's rows r and r + 8 of its 64 hold this thread's sums
+    const int r = (C::SPLIT_N ? 0 : wg * 64) + 16 * ((ct % 128) / 32) + lane / 4;
+    const bool elect = ct % 128 == 0;
+    auto release = [&](int s) {
+      if (elect) mbar_arrive(&empty[s]);
+    };
+    float acc[C::NS][C::SW / 2];
+#pragma unroll
+    for (int sb = 0; sb < C::NS; ++sb) {
+#pragma unroll
+      for (int i = 0; i < C::SW / 2; ++i) acc[sb][i] = 0.f;
+    }
+    float cw[2][NBLK];  // cw of rows r and r + 8, per volume block
+    const int a_off = (C::SPLIT_N ? 0 : wg * 64) * kKCB * 2;  // bytes
+    const int b_off = C::A_BYTES + (C::SPLIT_N ? wg * C::WN : 0) * kKCB * 2;
+    bool pending = false;  // the previous chunk's stage is not released
+    int prev = 0;
+    for (int g = 0; g < nchunks; ++g) {
+      const Where w = where(g);
+      if (w.cc == 0) {  // the tile's cw, read now, used after its products
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int e = w.e0 + r + 8 * h;
+#pragma unroll
+          for (int b = 0; b < NBLK; ++b) {
+            cw[h][b] = e < E ? __ldg(meta + (long long)e * kMetaW +
+                                     4 * kFaces + b)
+                             : 1.f;
+          }
+        }
+      }
+      const int s = g % C::S;
+      ring_wait(&full[s], (g / C::S) & 1);
+      const uint8_t* st = ring + s * C::STAGE;
+      // The sum runs on in the accumulator across every chunk of the unit
+      // (scale_d = 0 only at its first product); one commit group a chunk,
+      // and the previous chunk's group completes while this one is issued.
+      asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+#pragma unroll
+      for (int sb = 0; sb < C::NS; ++sb) {
+#pragma unroll
+        for (int j = 0; j < kKCB / 16; ++j) {
+          WgmmaBf16<C::SW>::mma(
+              acc[sb], tile_desc_bf16(st + a_off + 256 * j),
+              tile_desc_bf16(st + b_off + sb * C::SW * kKCB * 2 + 256 * j),
+              (w.cc == 0 && j == 0) ? 0 : 1);
+        }
+      }
+      asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+      const bool vol = w.c < C::KVOL / kKCB;
+      const bool unit_end = w.cc == ncu - 1;
+      const bool blk_end = vol && w.c % C::CPB == C::CPB - 1;
+      if (!(blk_end || unit_end)) {
+        asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+        if (pending) release(prev);
+        pending = true;
+        prev = s;
+        continue;
+      }
+      asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+      if (pending) release(prev);
+      release(s);
+      pending = false;
+      if (vol) {
+        // cw after the product: the sum of volume block b times cw[e, b];
+        // where block b + 1 follows in the unit, times cw[e, b] / cw[e, b +
+        // 1] instead, which its own factor then completes
+        const int b = w.c / C::CPB;
+        const bool carry = blk_end && !unit_end && b + 1 < NBLK;
+        float fac[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float x = cw[h][0], y = 1.f;
+#pragma unroll
+          for (int bb = 1; bb < NBLK; ++bb) {
+            if (b == bb) x = cw[h][bb];
+            if (b + 1 == bb) y = cw[h][bb];
+          }
+          fac[h] = carry ? __fdiv_rn(x, y) : x;
+        }
+#pragma unroll
+        for (int sb = 0; sb < C::NS; ++sb) {
+#pragma unroll
+          for (int i = 0; i < C::SW / 2; ++i) acc[sb][i] *= fac[(i >> 1) & 1];
+        }
+      }
+      if (unit_end) {  // write the unit's sums out
+        const int row = w.e0 + r;
+        const int col = (C::SPLIT_N ? wg * C::WN : 0) + 2 * (lane % 4);
+        // column pairs (n, n+1): one 8-byte store a pair where nv is even;
+        // split units add into the zeroed output (two partial sums added
+        // to 0 give the same f32 result in either order)
+#pragma unroll
+        for (int sb = 0; sb < C::NS; ++sb) {
+#pragma unroll
+          for (int i = 0; i < C::SW / 2; i += 2) {
+            const int e = row + 8 * ((i >> 1) & 1);
+            const int n = col + sb * C::SW + 8 * (i >> 2);
+            float* dst = out + (long long)e * C::NV + n;
+            if (e < E && C::NV % 2 == 0 && n < C::NV) {
+              const float2 v = make_float2(acc[sb][i], acc[sb][i + 1]);
+              if (splits == 1) {
+                *reinterpret_cast<float2*>(dst) = v;
+              } else {
+                atomicAdd(reinterpret_cast<float2*>(dst), v);
+              }
+            } else if (e < E && C::NV % 2 == 1) {
+#pragma unroll
+              for (int q = 0; q < 2; ++q) {
+                if (n + q >= C::NV) continue;
+                if (splits == 1) {
+                  dst[q] = acc[sb][i + q];
+                } else {
+                  atomicAdd(dst + q, acc[sb][i + q]);
+                }
+              }
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
+// How an instance of the bf16 kernel runs at E elements: grid (CTAs),
+// splits (1, or 2 units a tile), steps (K chunks the busiest CTA runs).
+struct PlanBf16 {
+  int grid, splits, steps;
+};
+
+template <int NL, int NBLK, class Nbr>
+int plan_bf16(int E, PlanBf16* plan) {
+  using C = CfgBf16<NL, NBLK>;
+  cudaError_t err = cudaFuncSetAttribute(
+      sipg_bf16_kernel<NL, NBLK, Nbr>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  // Too few tiles to fill the card: split each tile's K chunks over two
+  // CTAs, which add their partial sums into the zeroed output.
+  const int ntiles = (E + C::BM - 1) / C::BM;
+  const int splits =
+      (ntiles * 2 <= sms && C::NCH % 2 == 0 && C::NCH / 2 >= C::RS) ? 2 : 1;
+  const int units = ntiles * splits;
+  const int grid = units < sms ? units : sms;  // one CTA an SM
+  plan->grid = grid;
+  plan->splits = splits;
+  plan->steps = (units + grid - 1) / grid * (C::NCH / splits);
+  return 0;
+}
+
+template <int NL, int NBLK, class Nbr>
+int launch_instance_bf16(const float* u, const uint16_t* tr, const float* meta,
+                         const uint8_t* wpack, float* out, int E,
+                         const Nbr& nbr, cudaStream_t stream) {
+  using C = CfgBf16<NL, NBLK>;
+  PlanBf16 plan;
+  const int code = plan_bf16<NL, NBLK, Nbr>(E, &plan);
+  if (code) return code;
+  if (plan.splits > 1) {
+    const cudaError_t err = cudaMemsetAsync(
+        out, 0, sizeof(float) * (size_t)E * C::NV, stream);
+    if (err != cudaSuccess) return (int)err;
+  }
+  sipg_bf16_kernel<NL, NBLK, Nbr>
+      <<<plan.grid, C::THREADS, C::SMEM_BYTES, stream>>>(
+          u, tr, meta, wpack, out, E, plan.splits, nbr);
+  return (int)cudaGetLastError();
+}
+
+template <int NL, int NBLK, class Nbr>
 int launch_instance(const float* u, const float* tr, const float* meta,
                     const float* wpack, float* out, int E, const Nbr& nbr,
                     cudaStream_t stream) {
-  using C = Cfg<NL, NBLK, BF16>;
-  auto kernel = sipg_gemm_kernel<NL, NBLK, BF16, Nbr>;
+  using C = Cfg<NL, NBLK>;
+  auto kernel = sipg_gemm_kernel<NL, NBLK, Nbr>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
@@ -784,6 +1281,22 @@ int launch_instance(const float* u, const float* tr, const float* meta,
   return (int)cudaGetLastError();
 }
 
+// Launches instance (NL, NBLK) of the f32 kernel, or of the bf16 kernel.
+template <bool BF16, int NL, int NBLK, class Nbr>
+int launch_mode(const float* u, const void* tr, const float* meta,
+                const void* wpack, float* out, int E, const Nbr& nbr,
+                cudaStream_t s) {
+  if constexpr (BF16) {
+    return launch_instance_bf16<NL, NBLK>(
+        u, static_cast<const uint16_t*>(tr), meta,
+        static_cast<const uint8_t*>(wpack), out, E, nbr, s);
+  } else {
+    return launch_instance<NL, NBLK>(u, static_cast<const float*>(tr), meta,
+                                     static_cast<const float*>(wpack), out, E,
+                                     nbr, s);
+  }
+}
+
 // Picks the (nl, nblk) instance and launches it on `stream`.  `meta` is
 // the per-element table of `fused.sipg_meta` and `wpack` B as
 // `fused.pack_sipg_weights` lays it out (bf16 mode: the bf16 traces and
@@ -794,14 +1307,12 @@ int launch_sipg(const float* u, const void* tr, const float* meta,
                 const void* wpack, float* out, int E, int nl, int nblk,
                 const Nbr& nbr, cudaStream_t s) {
   if (E <= 0) return (int)cudaErrorInvalidValue;
-  const float* t = static_cast<const float*>(tr);
-  const float* w = static_cast<const float*>(wpack);
-#define D4EST_CASE(NL_)                                                   \
-  case NL_:                                                               \
-    if (nblk == 1)                                                        \
-      return launch_instance<NL_, 1, BF16>(u, t, meta, w, out, E, nbr, s); \
-    if (nblk == 3)                                                        \
-      return launch_instance<NL_, 3, BF16>(u, t, meta, w, out, E, nbr, s); \
+#define D4EST_CASE(NL_)                                                     \
+  case NL_:                                                                 \
+    if (nblk == 1)                                                          \
+      return launch_mode<BF16, NL_, 1>(u, tr, meta, wpack, out, E, nbr, s); \
+    if (nblk == 3)                                                          \
+      return launch_mode<BF16, NL_, 3>(u, tr, meta, wpack, out, E, nbr, s); \
     return (int)cudaErrorInvalidValue;
   switch (nl) {
     D4EST_CASE(2)
@@ -815,6 +1326,35 @@ int launch_sipg(const float* u, const void* tr, const float* meta,
       return (int)cudaErrorInvalidValue;
   }
 #undef D4EST_CASE
+}
+
+// The bf16 kernel's plan (`PlanBf16`) at E elements, into plan[0..2]:
+// grid, splits, steps.  Returns a cudaError_t (0 on success).
+template <class Nbr>
+int plan_sipg_bf16(int E, int nl, int nblk, int* plan) {
+  if (E <= 0) return (int)cudaErrorInvalidValue;
+  PlanBf16 p;
+  int err = (int)cudaErrorInvalidValue;
+#define D4EST_CASE(NL_)                                          \
+  case NL_:                                                      \
+    if (nblk == 1) err = plan_bf16<NL_, 1, Nbr>(E, &p);          \
+    if (nblk == 3) err = plan_bf16<NL_, 3, Nbr>(E, &p);          \
+    break;
+  switch (nl) {
+    D4EST_CASE(2)
+    D4EST_CASE(3)
+    D4EST_CASE(4)
+    D4EST_CASE(5)
+    D4EST_CASE(6)
+    D4EST_CASE(7)
+    D4EST_CASE(8)
+    default:
+      break;
+  }
+#undef D4EST_CASE
+  if (err) return err;
+  plan[0] = p.grid, plan[1] = p.splits, plan[2] = p.steps;
+  return 0;
 }
 
 }  // namespace d4est

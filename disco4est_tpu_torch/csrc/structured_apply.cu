@@ -104,3 +104,10 @@ extern "C" int d4est_structured_apply_bf16(const float* u, const void* tr,
   return structured_apply<true>(u, tr, meta, wpack, out, E, nl, nblk, delta,
                                 opp, stream);
 }
+
+// The bf16 kernel's launch plan at E elements: plan[0..2] = grid (CTAs),
+// splits (CTAs sharing a tile's K chunks), K chunks the busiest CTA runs.
+extern "C" int d4est_structured_apply_bf16_plan(int E, int nl, int nblk,
+                                                int* plan) {
+  return d4est::plan_sipg_bf16<FaceShift>(E, nl, nblk, plan);
+}

@@ -305,9 +305,10 @@ def face_terms(tr, nb, scal, precision="f32"):
     return torch.cat([t13, s2n], dim=2).reshape(E, -1)
 
 
-# The kernels' K chunk (`kKC` of `csrc/sipg_gemm.cuh`): B is packed in
-# chunks of this many K rows.
+# The kernels' K chunk (`kKC` and, in bf16, `kKCB` of
+# `csrc/sipg_gemm.cuh`): B is packed in chunks of this many K rows.
 SIPG_KC = 16
+SIPG_KC_BF16 = 32
 # The width of the kernels' per-element table rows (`kMetaW`).
 SIPG_META_W = 28
 
@@ -323,12 +324,20 @@ def sipg_meta(cw_in, scal):
     return torch.cat([scal.to(F32), cw_in.to(F32), pad], dim=1).contiguous()
 
 
+def sipg_chunk_k(precision="f32"):
+    """The K columns of one chunk of B: 16 in f32 (two k8 products), 32 in
+    bf16 (two k16 products, 64-byte rows)."""
+    check_precision(precision)
+    return SIPG_KC if precision == "f32" else SIPG_KC_BF16
+
+
 def sipg_layout(nv: int, nblk: int, tw: int, precision="f32"):
-    """The padded shape of B in the kernels (`Cfg` of `sipg_gemm.cuh`):
-    (NP, NCH), the column count nv rounded up to the warpgroups' widths
-    (a multiple of 8, or of 16 where a warpgroup's columns are cut in two
-    halves) and the count of K chunks (bf16: each volume block of K padded
-    to whole chunks, `sipg_block_k`)."""
+    """The padded shape of B in the kernels (`Cfg` and `CfgBf16` of
+    `sipg_gemm.cuh`): (NP, NCH), the column count nv rounded up to the
+    warpgroups' widths (a multiple of 8, or of 16 where a warpgroup's
+    columns are cut in two halves) and the count of K chunks of
+    `sipg_chunk_k` columns (bf16: each volume block of K padded to whole
+    chunks, `sipg_block_k`)."""
     K = nblk * sipg_block_k(nv, precision) + tw
     if nv > 256:
         NP = 2 * ((nv + 15) // 16 * 8)
@@ -336,15 +345,16 @@ def sipg_layout(nv: int, nblk: int, tw: int, precision="f32"):
         NP = (nv + 15) // 16 * 16
     else:
         NP = (nv + 7) // 8 * 8
-    return NP, -(-K // SIPG_KC)
+    return NP, -(-K // sipg_chunk_k(precision))
 
 
 def sipg_block_k(nv: int, precision="f32"):
-    """The K rows of one volume block of B (`Cfg::NVK`): nv, or in bf16
-    nv padded to whole chunks, so that a chunk lies in one volume block or
-    in the face block and cw can be applied after its product."""
-    check_precision(precision)
-    return nv if precision == "f32" else -(-nv // SIPG_KC) * SIPG_KC
+    """The K rows of one volume block of B: nv, or in bf16 nv padded to
+    whole chunks (`CfgBf16::NVK`), so that a chunk lies in one volume
+    block or in the face block and cw can be applied after the block's
+    products."""
+    kc = sipg_chunk_k(precision)
+    return nv if precision == "f32" else -(-nv // kc) * kc
 
 
 def tf32_round(x):
@@ -401,17 +411,22 @@ def sipg_b_bf16(W_vol, W_lift, nblk):
 
 def pack_sipg_weights_bf16(W_vol, W_lift, nblk):
     """B of the bf16 kernels (`sipg_b_bf16`) transposed to K-major, padded
-    with zeros (N to NP, K to whole chunks) and cut into K chunks in the
-    kernels' shared-memory image, 8x8 core matrices (8 rows of 16 bytes):
-    [NCH, NP/8, KC/8, 8, 8], bf16.  Entry (chunk c, g, q, r, i) is
-    B[c·KC + 8q + i, 8g + r]."""
+    with zeros (N to NP, K to whole chunks of KC = `SIPG_KC_BF16`) and cut
+    into K chunks in the kernels' shared-memory image, 8x8 core matrices
+    (8 rows of 16 bytes) without swizzle: [NCH, NP/8, KC/8, 8, 8], bf16.
+    Entry (chunk c, g, q, r, i) is B[c·KC + 8q + i, 8g + r].  A chunk is
+    NP·64 contiguous bytes: row group g starts at 512·g (the descriptors'
+    stride byte offset), its k16 step j at 256·j, the two core matrices of
+    a step 128 bytes apart (the leading byte offset); a cluster's CTAs
+    each stage one half of it."""
     B = sipg_b_bf16(W_vol, W_lift, nblk)
     K, nv = B.shape
     NP, NCH = sipg_layout(nv, nblk, K - nblk * sipg_block_k(nv, "bf16"),
                           "bf16")
-    Bt = torch.zeros((NP, NCH * SIPG_KC), dtype=BF16, device=B.device)
+    kc = SIPG_KC_BF16
+    Bt = torch.zeros((NP, NCH * kc), dtype=BF16, device=B.device)
     Bt[:nv, :K] = B.T
-    return (Bt.reshape(NP // 8, 8, NCH, SIPG_KC // 8, 8)
+    return (Bt.reshape(NP // 8, 8, NCH, kc // 8, 8)
             .permute(2, 0, 3, 1, 4).contiguous())
 
 
@@ -454,7 +469,7 @@ def check_sipg_weights(W_pack, nv, nblk, tw, dev, precision="f32"):
                       (NCH, 2, NP // 8, SIPG_KC // 4, 8, 4), dev, F32)
     else:
         check_operand("W_pack_bf16", W_pack,
-                      (NCH, NP // 8, SIPG_KC // 8, 8, 8), dev, BF16)
+                      (NCH, NP // 8, SIPG_KC_BF16 // 8, 8, 8), dev, BF16)
 
 
 @functools.lru_cache(maxsize=None)
@@ -465,7 +480,28 @@ def _load():
             ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
+    lib.d4est_fused_apply_bf16_plan.argtypes = [ctypes.c_int] * 3 + [
+        ctypes.c_void_p]
+    lib.d4est_fused_apply_bf16_plan.restype = ctypes.c_int
     return lib
+
+
+def bf16_plan(plan_fn, E, deg, nblk):
+    """How a bf16 SIPG kernel runs at E elements on the current card
+    (`PlanBf16` of `sipg_gemm.cuh`): a dict of grid (CTAs), splits (CTAs
+    sharing a tile's K chunks) and steps (K chunks the busiest CTA
+    runs)."""
+    plan = (ctypes.c_int * 3)()
+    err = plan_fn(E, deg + 1, nblk, plan)
+    if err != 0:
+        raise RuntimeError(f"bf16 kernel plan failed: CUDA error {err}")
+    return dict(zip(("grid", "splits", "steps"), plan))
+
+
+def fused_bf16_plan(fm: FusedMesh):
+    """`bf16_plan` of `d4est_fused_apply_bf16` for `fm`."""
+    return bf16_plan(_load().d4est_fused_apply_bf16_plan, fm.n_elements,
+                     fm.deg, fm.nblk)
 
 
 def _fused_launch(fm: FusedMesh, u2, tr, precision):

@@ -208,7 +208,16 @@ def _load():
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
+    lib.d4est_structured_apply_bf16_plan.argtypes = [ctypes.c_int] * 3 + [
+        ctypes.c_void_p]
+    lib.d4est_structured_apply_bf16_plan.restype = ctypes.c_int
     return lib
+
+
+def lex_bf16_plan(sb: StructuredBrick):
+    """`fused.bf16_plan` of `d4est_structured_apply_bf16` for `sb`."""
+    return fused.bf16_plan(_load().d4est_structured_apply_bf16_plan,
+                           sb.n_elements, sb.deg, sb.nblk)
 
 
 def _lex_launch(sb: StructuredBrick, u2, tr, precision):

@@ -13,13 +13,22 @@ kernel, so the time is device time.  A variant that cuts work computes a
 wrong result; its error against the plain version is printed only to
 show which variants are the real kernel.
 
-- `base`: the kernel as it is;
+The f32 kernel (split-TF32 products, `sipg_gemm_kernel`):
+
+- `base`: the kernel as it is (timed in f32 and in bf16);
 - `no_gen`: A is not generated (the A tile keeps whatever it held);
 - `no_fetch`: A's sources (u and the trace lanes) are not fetched;
 - `no_mma`: no tensor-core products;
 - `mma_only`: `no_gen` and `no_fetch`;
 - `skeleton`: all three cut: what is left is the pipeline itself (B and
   table bulk copies, barriers, the promotion and the epilogue).
+
+The bf16 kernel (`sipg_bf16_kernel`, timed through
+`d4est_fused_apply_bf16`), the same cuts of its producers and consumers:
+`bf16_no_gen`, `bf16_no_fetch`, `bf16_no_mma`, `bf16_no_b` (the B chunks
+are not staged: the products read whatever the ring held) and
+`bf16_skeleton` (generation, fetch and products cut: the ring's barriers,
+the B and table copies, the scaling and the epilogue are left).
 """
 
 from __future__ import annotations
@@ -61,6 +70,20 @@ _MMA = [
      f"tile_desc({b} + off),")
     for a, b in (("a_hi", "b_hi"), ("a_hi", "b_lo"), ("a_lo", "b_hi"))
 ]
+_BF16_GEN = [(
+    "      if (w.cc == 0) ring_wait(&meta_bar[w.lt & 1], (w.lt >> 1) & 1);\n",
+    "      if (w.cc == 0) ring_wait(&meta_bar[w.lt & 1], (w.lt >> 1) & 1);\n"
+    "      return;\n",
+)]
+_BF16_FETCH = [(
+    "        const int kb = w.c * kKCB + kq * VEC;\n        if (kb < C::KVOL) {",
+    "        const int kb = C::K;\n        if (kb < C::KVOL) {",
+)]
+_BF16_MMA = [("          WgmmaBf16<C::SW>::mma(",
+              "          if (0) WgmmaBf16<C::SW>::mma(")]
+_BF16_B = [("        bulk_load(reinterpret_cast<float*>(st + C::A_BYTES),",
+            "        mbar_arrive(&full[s]);\n"
+            "        if (0) bulk_load(reinterpret_cast<float*>(st + C::A_BYTES),")]
 VARIANTS = {
     "base": [],
     "no_gen": _GEN,
@@ -68,7 +91,19 @@ VARIANTS = {
     "no_mma": _MMA,
     "mma_only": _GEN + _FETCH,
     "skeleton": _GEN + _FETCH + _MMA,
+    "bf16_no_gen": _BF16_GEN,
+    "bf16_no_fetch": _BF16_FETCH,
+    "bf16_no_mma": _BF16_MMA,
+    "bf16_no_b": _BF16_B,
+    "bf16_skeleton": _BF16_GEN + _BF16_FETCH + _BF16_MMA,
 }
+
+
+def precisions(name: str):
+    """The kernels a variant is timed in: its own, or both for `base`."""
+    if name == "base":
+        return ("f32", "bf16")
+    return ("bf16",) if name.startswith("bf16_") else ("f32",)
 
 
 def edited_header(name: str) -> str:
@@ -136,28 +171,35 @@ def main(argv=None):
         u2 = torch.as_tensor(
             np.random.default_rng(0).standard_normal((E, fm.nv)),
             dtype=torch.float32, device=dev)
-        tr = fused.scaled_traces(u2, fm.W_tr, fm.drstn).contiguous()
-        ref = fused.fused_apply_plain(fm, u2, tr)
-        out = torch.empty_like(ref)
+        ops = {}
+        for p in ("f32", "bf16"):
+            tr = fused.scaled_traces(u2, fm.W_tr, fm.drstn, p).contiguous()
+            ops[p] = (tr, fm.W_pack_bf16 if p == "bf16" else fm.W_pack,
+                      fused.fused_apply_plain(fm, u2, tr, p))
         stream = torch.cuda.current_stream().cuda_stream
         for name, path in libs.items():
-            fn = ctypes.CDLL(str(path)).d4est_fused_apply
-            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
-                ctypes.c_void_p]
+            for p in precisions(name):
+                tr, w_pack, ref = ops[p]
+                out = torch.empty_like(ref)
+                fn = getattr(ctypes.CDLL(str(path)), "d4est_fused_apply"
+                             + ("_bf16" if p == "bf16" else ""))
+                fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
+                    ctypes.c_void_p]
 
-            def call():
-                err = fn(u2.data_ptr(), tr.data_ptr(), fm.nbr_row.data_ptr(),
-                         fm.meta.data_ptr(), fm.W_pack.data_ptr(),
-                         out.data_ptr(), E, deg + 1, fm.nblk, stream)
-                if err:
-                    raise RuntimeError(f"{name}: CUDA error {err}")
+                def call(fn=fn, tr=tr, w_pack=w_pack, out=out, name=name):
+                    err = fn(u2.data_ptr(), tr.data_ptr(),
+                             fm.nbr_row.data_ptr(), fm.meta.data_ptr(),
+                             w_pack.data_ptr(), out.data_ptr(), E, deg + 1,
+                             fm.nblk, stream)
+                    if err:
+                        raise RuntimeError(f"{name}: CUDA error {err}")
 
-            call()
-            torch.cuda.synchronize()
-            rel = float((out - ref).abs().max() / ref.abs().max())
-            print(f"deg {deg} level {level} (E {E}) {name:9s}: "
-                  f"{_time_us(call):8.2f} us  (rel err vs plain {rel:.2e})",
-                  flush=True)
+                call()
+                torch.cuda.synchronize()
+                rel = float((out - ref).abs().max() / ref.abs().max())
+                print(f"deg {deg} level {level} (E {E}) {p:4s} {name:13s}: "
+                      f"{_time_us(call):8.2f} us  (rel err vs plain "
+                      f"{rel:.2e})", flush=True)
     return 0
 
 

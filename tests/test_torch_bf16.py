@@ -21,7 +21,17 @@ package's `precision="bf16"` kernels.
 - The bf16 mixed solve (`make_inner_solve(precision="bf16")`) reaches the
   f32-inner solve's L2 at deg 2, level 2 to 1e-9 relative.
 - Every entry point raises on an unknown precision; the bf16 pack's
-  layout and read-back; the bf16 layout agrees with the kernels' `Cfg`.
+  layout, read back through the kernels' tile index and through their
+  matrix descriptors (no swizzle: 128-byte leading, 512-byte stride
+  offsets, k16 steps 256 bytes apart); the bf16 layout agrees with the
+  kernels' `CfgBf16`.
+- The bf16 kernels' order of summation, in plain torch: the chunks of a
+  volume block summed on in one f32 accumulator, scaled by cw after the
+  block (by cw[b] / cw[b+1] where block b + 1 follows), the face chunks
+  added into the same sum, at deg 1-7 and nblk 1 and 3 (and two units of
+  half the chunks each, added, at deg 7), meets the plain bf16 version
+  within 1e-6 relative L2: the per-chunk restart of the f32 kernels buys
+  nothing at the bf16 bound of 2e-4.
 
 The bf16 kernels themselves run on the card in `tests/test_torch_kernel.py`.
 """
@@ -52,6 +62,7 @@ POW2_MAX = 1e-5
 OTHER_MAX, OTHER_L2 = 1e-3, 2e-4
 C18_MIN_L2 = 5e-4
 SOLVE_REL = 1e-9
+ORDER_L2 = 1e-6
 
 
 def _jax_brick(tm):
@@ -216,6 +227,28 @@ def _unpack_bf16(packed):
             .reshape(G * 8, NCH * Q * 8))
 
 
+# the kernels' matrix descriptors of a bf16 chunk tile (`tile_desc_bf16`):
+# no swizzle, bytes between the two core matrices of a k16 step (leading
+# byte offset), between row groups (stride byte offset), between k16 steps
+DESC_LBO, DESC_SBO, DESC_STEP = 128, 16 * fused.SIPG_KC_BF16, 256
+
+
+def _read_through_descriptor(chunk_bytes, rows):
+    """A [rows, KC] bf16 tile as a k16 product reads it from the bytes of
+    one chunk: step j, row group g, core matrix h (K columns 8h..8h+7 of
+    the step) at j·STEP + g·SBO + h·LBO, its row r at 16·r, lane i at
+    2·i."""
+    out = torch.empty((rows, fused.SIPG_KC_BF16), dtype=torch.float64)
+    words = chunk_bytes.view(torch.bfloat16).double()
+    for j in range(fused.SIPG_KC_BF16 // 16):
+        for g in range(rows // 8):
+            for h in range(2):
+                at = (j * DESC_STEP + g * DESC_SBO + h * DESC_LBO) // 2
+                core = words[at:at + 64].reshape(8, 8)
+                out[8 * g:8 * g + 8, 16 * j + 8 * h:16 * j + 8 * h + 8] = core
+    return out
+
+
 @pytest.mark.parametrize("deg,x1", [(d, (1.0, 1.0, 1.0)) for d in
                                     range(1, 8)] + [(2, (1.0, 2.0, 4.0))])
 def test_bf16_pack_layout_and_read_back(deg, x1):
@@ -224,15 +257,17 @@ def test_bf16_pack_layout_and_read_back(deg, x1):
                                   device="cpu"))
     assert fm._W_pack_bf16 is None  # built at first use only
     nv, nblk, tw = fm.nv, fm.nblk, fm.W_lift.shape[0]
+    KC = fused.SIPG_KC_BF16
     nvk = fused.sipg_block_k(nv, "bf16")
-    assert nvk % fused.SIPG_KC == 0 and nv <= nvk < nv + fused.SIPG_KC
+    assert nvk % KC == 0 and nv <= nvk < nv + KC
     NP, NCH = fused.sipg_layout(nv, nblk, tw, "bf16")
     assert NP == fused.sipg_layout(nv, nblk, tw)[0]
-    assert NCH == -(-(nblk * nvk + tw) // fused.SIPG_KC)
+    assert NCH == -(-(nblk * nvk + tw) // KC)
     packed = fm.W_pack_bf16
     assert packed is fm.W_pack_bf16  # kept
     assert packed.dtype == torch.bfloat16 and packed.is_contiguous()
-    assert tuple(packed.shape) == (NCH, NP // 8, fused.SIPG_KC // 8, 8, 8)
+    assert fused.sipg_chunk_k("bf16") == KC
+    assert tuple(packed.shape) == (NCH, NP // 8, KC // 8, 8, 8)
     Bt = _unpack_bf16(packed)
     assert not Bt[nv:].any()  # padded columns
     for b in range(nblk):  # each volume block, then its zero rows
@@ -247,11 +282,19 @@ def test_bf16_pack_layout_and_read_back(deg, x1):
                                rtol=0, atol=0)
     assert not Bt[:, K:].any()
     # the entry the kernel's tile_index_bf16 reads for (row n, column k)
-    c, k = divmod(nblk * nvk + 3, fused.SIPG_KC)
+    c, k = divmod(nblk * nvk + 3, KC)
     n = nv - 1
-    flat = packed.reshape(NCH, -1)[c, ((n >> 3) * 2 + (k >> 3)) * 64
+    flat = packed.reshape(NCH, -1)[c, ((n >> 3) * (KC // 8) + (k >> 3)) * 64
                                    + (n & 7) * 8 + (k & 7)]
     assert float(flat) == float(fused.bf16_round(fm.W_lift)[3, n])
+    # every chunk read back through the descriptors, and its two halves (a
+    # cluster's CTAs each stage one) whole 16-byte units
+    raw = packed.reshape(NCH, -1).contiguous().view(torch.uint8)
+    assert raw.shape[1] == NP * 2 * KC and raw.shape[1] % 32 == 0
+    for c in range(NCH):
+        torch.testing.assert_close(_read_through_descriptor(raw[c], NP),
+                                   Bt[:, c * KC:(c + 1) * KC],
+                                   rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("nl", range(2, 9))
@@ -262,7 +305,70 @@ def test_bf16_layout_matches_the_kernel_config(nl):
     nv, tw = nl**3, 12 * nl * nl
     for nblk in (1, 3):
         NP, NCH = fused.sipg_layout(nv, nblk, tw, "bf16")
-        assert NCH == -(-(nblk * (-(-nv // 16) * 16) + tw) // 16)
+        assert NCH == -(-(nblk * (-(-nv // 32) * 32) + tw) // 32)
         wn = NP // 2 if nv > 256 else NP
         assert (wn // 2 if wn > 128 else wn) in gen_wgmma.WIDTHS
     assert "m64n8k16.f32.bf16.bf16" in gen_wgmma.render("bf16")
+
+
+def _kernel_order_bf16(fm, u, tr, splits=1):
+    """The bf16 kernels' sum in plain torch: the generated A (bf16(u) in
+    each volume block padded to whole chunks, bf16(Z)) times the packed B,
+    chunk by chunk into one f32 accumulator; at the end of volume block b
+    the accumulator times cw[b], or cw[b] / cw[b+1] where block b + 1
+    follows in the unit; with `splits` = 2 two units of half the chunks
+    each, added."""
+    E, nv, nblk = fm.n_elements, fm.nv, fm.nblk
+    KC, nvk = fused.SIPG_KC_BF16, fused.sipg_block_k(nv, "bf16")
+    B = _unpack_bf16(fm.W_pack_bf16).float().T  # [NCH·KC, NP]
+    A = torch.zeros((E, B.shape[0]))
+    ub = fused.bf16_round(u)
+    for b in range(nblk):
+        A[:, b * nvk:b * nvk + nv] = ub
+    Z = fused.bf16_round(fused.face_terms(tr.float(), fused.gather_rows(
+        fm, tr).float(), fm.scal, "bf16"))
+    A[:, nblk * nvk:nblk * nvk + Z.shape[1]] = Z
+    cw = fm.cw_in.float()
+    nch = B.shape[0] // KC
+    ncu = nch // splits
+    total = torch.zeros((E, B.shape[1]))
+    for unit in range(splits):
+        acc = torch.zeros_like(total)
+        for c in range(unit * ncu, (unit + 1) * ncu):
+            k = slice(c * KC, (c + 1) * KC)
+            acc = acc + A[:, k] @ B[k]
+            b, last = divmod(c, nvk // KC)
+            end = c == (unit + 1) * ncu - 1
+            if b < nblk and (last == nvk // KC - 1 or end):
+                fac = cw[:, b]
+                if last == nvk // KC - 1 and not end and b + 1 < nblk:
+                    fac = fac / cw[:, b + 1]
+                acc = acc * fac[:, None]
+        total = total + acc
+    return total[:, :nv]
+
+
+@pytest.mark.parametrize("nblk,x1,splits",
+                         [(1, (1.0, 1.0, 1.0), 1), (3, (1.5, 1.0, 0.7), 1)])
+@pytest.mark.parametrize("deg", range(1, 8))
+def test_bf16_kernel_order_meets_the_plain_version(deg, nblk, x1, splits):
+    _check_kernel_order(deg, nblk, x1, splits)
+
+
+@pytest.mark.parametrize("nblk,x1", [(1, (1.0, 1.0, 1.0)),
+                                     (3, (1.5, 1.0, 0.7))])
+def test_bf16_kernel_order_in_two_units_meets_the_plain_version(nblk, x1):
+    _check_kernel_order(7, nblk, x1, 2)
+
+
+def _check_kernel_order(deg, nblk, x1, splits):
+    tg = TBrick(x1=x1, dim=3)
+    fm = fused.build_fused(tbuild(tg, TForest.uniform(tg.conn, 1), deg=deg,
+                                  device="cpu"))
+    assert fm.nblk == nblk
+    u = torch.as_tensor(np.random.default_rng(100 + deg).standard_normal(
+        (fm.n_elements, fm.nv)), dtype=torch.float32)
+    tr = fused.scaled_traces(u, fm.W_tr, fm.drstn, "bf16")
+    mine = _kernel_order_bf16(fm, u, tr, splits)
+    ref = fused.fused_apply_plain(fm, u, tr, "bf16")
+    assert _rel(mine.numpy(), ref.numpy())[1] <= ORDER_L2

@@ -22,7 +22,12 @@ import numpy as np
 import pytest
 import torch
 
-from disco4est_tpu_torch.tools import ablate_sipg, profile_solve, time_fused
+from disco4est_tpu_torch.tools import (
+    ablate_sipg,
+    compare_sipg,
+    profile_solve,
+    time_fused,
+)
 from disco4est_tpu_torch.tools import exp_kernel_design as X
 
 AXIS_TOL = 1e-5
@@ -108,10 +113,40 @@ def test_tools_refuse_cuda_without_a_card():
 @pytest.mark.parametrize("name", sorted(ablate_sipg.VARIANTS))
 def test_ablation_edits_match_the_tile_code(name):
     """Every ablation of `tools/ablate_sipg.py` still finds the source it
-    edits in `csrc/sipg_gemm.cuh` (the timing itself needs the card)."""
+    edits in `csrc/sipg_gemm.cuh` (the timing itself needs the card), and
+    is timed through the kernel it cuts: `base` through both, the bf16
+    cuts through the bf16 entry point, the others through the f32 one."""
     text = ablate_sipg.edited_header(name)
     assert (text == (ablate_sipg.cuda_build.CSRC / ablate_sipg.HEADER)
             .read_text()) == (name == "base")
+    assert ablate_sipg.precisions(name) == (
+        ("f32", "bf16") if name == "base"
+        else ("bf16",) if name.startswith("bf16_") else ("f32",))
+
+
+def test_compare_sipg_cases_are_the_smoke_phases():
+    """`tools/compare_sipg.py` holds the f32 kernels to a baseline on the
+    inputs of `chip_smoke.py` phases 3 and 6; its lists are those."""
+    import chip_smoke
+
+    assert compare_sipg.B1_CASES == chip_smoke.CASES
+    assert compare_sipg.B2_CASES == chip_smoke.FUSED_CASES
+
+
+def test_compare_sipg_loads_a_checkout_s_pack():
+    """The baseline's bf16 B comes from its own `laplacian/fused.py`: here
+    this checkout's, which must pack as `fused.pack_sipg_weights_bf16`."""
+    from disco4est_tpu_torch.geometry.brick import BrickGeometry
+    from disco4est_tpu_torch.laplacian import fused
+    from disco4est_tpu_torch.mesh.builder import build_mesh
+    from disco4est_tpu_torch.mesh.tree import Forest
+
+    root = compare_sipg.cuda_build.CSRC.parents[1]
+    pack = compare_sipg.pack_of("test", root)
+    geom = BrickGeometry(dim=3)
+    fm = fused.build_fused(build_mesh(geom, Forest.uniform(geom.conn, 0),
+                                      deg=3, device="cpu"))
+    assert torch.equal(pack(fm.W_vol, fm.W_lift, fm.nblk), fm.W_pack_bf16)
 
 
 def test_profile_solve_on_the_cpu(capsys):
