@@ -295,11 +295,32 @@ and `nvcc`.  Phases, one or more lines each; any failure exits non-zero:
        the driver would fall back to f64 CG (ROADMAP C19), whose L2, or
        the bf16 solve's, is held to JAX's at `LEVEL5_REL`.
 
+17. the reference oracles on the card (`disco4est_tpu_torch/tools/
+   oracles.py`, the constructions of the JAX digit tests; the compiled
+   reference's values and the JAX tests' tolerances in
+   `refcheck/oracle_smoke_pins.py`):
+   (a) the sinx regression's grep digit (the L2 of the interpolated
+       nodal |e|) and true L2, the CDS + 1 AMR step L2 and energy
+       estimator, the 13-tree TwoPunctures digit u(100, 0, 0) (104
+       elements, 832 nodes, dense Jacobian solves) and the 4-level
+       TwoPunctures smooth_pred trajectory (counts exact, Ση²);
+   (b) the Stamm hp-AMR trajectory rows 0-7, rows 6-7 (1520 elements,
+       141,872 and 224,864 nodes) at the JAX test's deep tolerances,
+       each row's CG iterations and seconds printed;
+   (c) the deg-7 level-5 brick built with `store_full=True` and with
+       `store_full=False`, `torch.cuda.max_memory_allocated` and the
+       memory each mesh holds printed; B1 (the structured inner apply),
+       B2 (`apply_sipg_fused`) and the f64 GEMM-form apply on the compact
+       mesh equal to their output on the full mesh bit for bit;
+   (d) B1-B3 (f32 and bf16) launch 0 times in (a)-(b): f64 torch
+       operations only.
+
 `python3 chip_smoke.py --nccl=N` on a machine with N cards runs phase 15
 (b)'s CLI with one rank a card (`backend = auto` takes NCCL there) and
 prints the result line.
 
-Then one JSON line of the kernels (`{"kernels": [...]}`; B1 and B2 in
+Then the whole run's wall, one JSON line of the kernels
+(`{"kernels": [...]}`; B1 and B2 in
 f32 and in bf16 once per timed size, each with the launches of a run at
 that size: phase 5 for B1 at deg 3 / level 5 in f32, phase 16 (c)'s
 level-5 solve in bf16, phase 8 for the rest) and, last, the result line
@@ -3905,9 +3926,198 @@ def phase_bf16(torch, np, card):
     return max_abs, timing, launches[5]
 
 
+ORACLE_STAMM_ROWS = 8  # (b): rows 0-7, the deep rows 6-7 included
+COMPACT_SIZE = (7, 5)  # (c): deg 7 on the level-5 brick, 32768 elements
+
+
+def _oracle_pins():
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent
+                           / "refcheck"))
+    import oracle_smoke_pins
+
+    return oracle_smoke_pins
+
+
+def oracles_on_card(P):
+    """Phase 17 (a): the sinx digit, the CDS estimator, the 13-tree
+    TwoPunctures digit and the TwoPunctures trajectory on the card, each
+    at its JAX test's tolerance."""
+    from disco4est_tpu_torch.tools import oracles as O
+
+    r = O.sinx_regression("cuda")
+    pin = P.SINX
+    gaps = (abs(r["l2_interp_abs"] - pin["l2_interp_abs"]),
+            abs(r["l2"] - pin["l2"]))
+    print(f"[17] (a) sinx: {r['n_elements']} {r['local_nodes']}, interp |e| "
+          f"{r['l2_interp_abs']!r} (gap {gaps[0]:.3e}), L2 {r['l2']!r} (gap "
+          f"{gaps[1]:.3e}; bound {pin['abs_tol']:.0e}), {r['iterations']} CG "
+          f"iterations, {r['seconds']:.2f} s")
+    check((r["n_elements"], r["local_nodes"]) == (pin["n_elements"],
+                                                  pin["local_nodes"])
+          and max(gaps) < pin["abs_tol"], f"(a) sinx {r}")
+
+    r = O.cds_amr("cuda")
+    pin = P.CDS
+    gap_l2 = abs(r["l2"][1] - pin["l2_1"])
+    gap_est = abs(r["estimator"] - pin["estimator"])
+    lo, hi = pin["l2_0_range"]
+    print(f"[17] (a) CDS + 1 AMR step: {r['n_elements']} elements, "
+          f"{r['marked']} marked, L2 {r['l2'][0]!r} -> {r['l2'][1]!r} (gap "
+          f"{gap_l2:.3e}, bound {pin['l2_1_abs']:.0e}), estimator "
+          f"{r['estimator']!r} (gap {gap_est:.3e}, bound "
+          f"{pin['estimator_abs']:.0e}), Newton {r['newton_iterations']}, "
+          f"{r['seconds']:.2f} s")
+    check(r["n_elements"] == pin["n_elements"]
+          and r["local_nodes"] == pin["local_nodes"]
+          and r["marked"] == pin["marked"], f"(a) CDS sizes {r}")
+    check(max(r["residual_norm"]) < pin["residual_norm"]
+          and lo <= r["l2"][0] < hi and gap_l2 < pin["l2_1_abs"]
+          and gap_est < pin["estimator_abs"], f"(a) CDS {r}")
+
+    r = O.two_punctures_13tree("cuda")
+    pin = P.TP13
+    gap = abs(r["u_100"] - pin["u_100"])
+    print(f"[17] (a) 13-tree TwoPunctures: {r['n_elements']} elements, "
+          f"{r['local_nodes']} nodes, {r['newton_iterations']} Newton steps "
+          f"(||F|| {r['residual_norm']:.3e}), u(100, 0, 0) = {r['u_100']!r} "
+          f"(gap {gap:.3e}, bound {pin['abs_tol']:.0e}), "
+          f"{r['seconds']:.2f} s")
+    check((r["n_elements"], r["local_nodes"]) == (pin["n_elements"],
+                                                  pin["local_nodes"])
+          and r["residual_norm"] < pin["residual_norm"]
+          and gap < pin["abs_tol"], f"(a) 13-tree digit {r}")
+
+    rows = O.two_punctures_trajectory("cuda", levels=len(P.TP_TRAJECTORY))
+    for k, (row, (E, nodes, eta2, tol)) in enumerate(
+            zip(rows, P.TP_TRAJECTORY)):
+        rel = abs(row["eta2_sum"] - eta2) / eta2
+        print(f"[17] (a) TwoPunctures trajectory level {k}: {row['n_elements']}"
+              f" elements, {row['nodes']} nodes, sum eta2 "
+              f"{row['eta2_sum']!r} (rel {rel:.3e}, bound {tol:.0e}), "
+              f"||F|| {row['residual_norm']:.3e}, {row['seconds']:.2f} s")
+        check((row["n_elements"], row["nodes"]) == (E, nodes)
+              and row["residual_norm"] < P.TP_TRAJECTORY_RESIDUAL
+              and rel <= tol, f"(a) TwoPunctures level {k}: {row}")
+
+
+def stamm_on_card(P):
+    """Phase 17 (b): the Stamm trajectory rows 0-7 on the card, rows 6-7
+    at the JAX test's deep tolerances; each row's CG iterations and
+    seconds printed as it is ready."""
+    from disco4est_tpu_torch.tools import oracles as O
+
+    def on_row(row):
+        pin = P.STAMM[row["level"]]
+        l2_rel, est_rel, counts = P.stamm_row_errors(row, pin)
+        solve = ("the initial 0.5" if row["cg_iterations"] is None else
+                 f"{row['cg_iterations']} CG iterations, "
+                 f"{row['solve_seconds']:.2f} s")
+        print(f"[17] (b) Stamm row {row['level']}: {row['n_elements']} "
+              f"elements, {row['nodes']} nodes (degrees up to "
+              f"{row['max_degree']}), L2 {row['l2']!r} (rel {l2_rel:.3e}, "
+              f"bound {pin[4]:.0e}), estimate {row['estimator']!r} (rel "
+              f"{est_rel:.3e}, bound {pin[5]:.0e}); {solve}", flush=True)
+        check(counts, f"(b) Stamm row {row['level']} counts {row}")
+        check(l2_rel < pin[4] and est_rel < pin[5],
+              f"(b) Stamm row {row['level']}: {row}")
+
+    t0 = time.perf_counter()
+    O.stamm_trajectory("cuda", rows=ORACLE_STAMM_ROWS, on_row=on_row)
+    print(f"[17] (b) Stamm rows 0-{ORACLE_STAMM_ROWS - 1}: "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+def compact_on_card(torch, card):
+    """Phase 17 (c): the deg-7 level-5 brick built with store_full=True
+    and False, the device memory of each build, and B1 (the structured
+    inner apply), B2 (`apply_sipg_fused`) and the f64 GEMM-form apply on
+    the compact mesh against the full mesh, bit for bit."""
+    from disco4est_tpu_torch.geometry.brick import BrickGeometry
+    from disco4est_tpu_torch.laplacian import fused
+    from disco4est_tpu_torch.laplacian import structured as S
+    from disco4est_tpu_torch.laplacian.fast import _apply_orth
+    from disco4est_tpu_torch.mesh.builder import build_mesh
+    from disco4est_tpu_torch.mesh.tree import Forest
+
+    deg, level = COMPACT_SIZE
+    geom = BrickGeometry(dim=3)
+    forest = Forest.uniform(geom.conn, level)
+    meshes = {}
+    for store_full in (False, True):
+        torch.cuda.synchronize()
+        start = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        meshes[store_full] = build_mesh(geom, forest, deg=deg,
+                                        store_full=store_full, device="cuda")
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        held = torch.cuda.memory_allocated() - start
+        print(f"[17] (c) deg {deg} / level {level} ({forest.n_elements} "
+              f"elements), store_full={store_full}: max_memory_allocated "
+              f"{peak / 2**20:.1f} MiB ({(peak - start) / 2**20:.1f} MiB "
+              f"above the start of the build), the mesh holds "
+              f"{held / 2**20:.1f} MiB, build {sec:.2f} s on {card}")
+    comp, full = meshes[False], meshes[True]
+    check(comp.j_quad is None and comp.face_drst is None
+          and full.j_quad is not None, "(c) storage modes")
+    for name in ("volume", "area", "face_h", "sigma"):
+        check(torch.equal(getattr(comp, name), getattr(full, name)),
+              f"(c) {name} differs between the storage modes")
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    u = torch.randn((forest.n_elements,) + (deg + 1,) * 3,
+                    dtype=torch.float64, device="cuda", generator=gen)
+    u32 = u.float()
+    out = {}
+    for store_full, mesh in meshes.items():
+        sb = S.build_structured(mesh)
+        out[store_full] = dict(
+            B1=S.apply_structured(sb, S.to_lex(sb, u32)),
+            B2=fused.apply_sipg_fused(mesh, u32),
+            orth=_apply_orth(mesh, u),
+        )
+    torch.cuda.synchronize()
+    for name in ("B1", "B2", "orth"):
+        same = torch.equal(out[False][name], out[True][name])
+        print(f"[17] (c) {name} on the compact mesh equals the full mesh's "
+              f"bit for bit: {same}")
+        check(same, f"(c) {name} differs on the compact mesh")
+
+
+def phase_oracles(torch, np, card):
+    """Phase 17: the reference oracles on the card, and the compact
+    mesh."""
+    from disco4est_tpu_torch.laplacian import fused
+    from disco4est_tpu_torch.laplacian import structured as S
+    from disco4est_tpu_torch.tools import exp_kernel_design as X
+
+    print(f"[17] the reference oracles on {card}")
+    t_phase = time.perf_counter()
+    P = _oracle_pins()
+    S.KERNEL_LAUNCHES = fused.KERNEL_LAUNCHES = X.KERNEL_LAUNCHES = 0
+    S.KERNEL_LAUNCHES_BF16 = fused.KERNEL_LAUNCHES_BF16 = 0
+    t0 = time.perf_counter()
+    oracles_on_card(P)
+    print(f"[17] (a) {time.perf_counter() - t0:.1f} s")
+    stamm_on_card(P)
+    counts = dict(B1=S.KERNEL_LAUNCHES, B2=fused.KERNEL_LAUNCHES,
+                  B3=X.KERNEL_LAUNCHES, B1_bf16=S.KERNEL_LAUNCHES_BF16,
+                  B2_bf16=fused.KERNEL_LAUNCHES_BF16)
+    print(f"[17] (d) kernel launches in (a)-(b): {counts} (f64 torch "
+          f"operations only)")
+    check(not any(counts.values()), f"(d) a kernel ran in (a)-(b): {counts}")
+    t0 = time.perf_counter()
+    compact_on_card(torch, card)
+    print(f"[17] (c) {time.perf_counter() - t0:.1f} s; phase wall "
+          f"{time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     import numpy as np
     import torch
+
+    t_smoke = time.perf_counter()
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a GPU")
@@ -3932,6 +4142,7 @@ def main():
     phase_io(torch, np, card)
     phase_dist(torch, np, card)
     bf16_abs, bf16, bf16_launches = phase_bf16(torch, np, card)
+    phase_oracles(torch, np, card)
 
     csrc = "disco4est_tpu_torch/csrc/"
     # B1 and B2 have one entry per timed size; each entry's launches are
@@ -3980,6 +4191,7 @@ def main():
              replaces="tools/exp_kernel_design.py:176",
              launches=tool_launches["axis"], max_abs_err=b3_abs, **b3),
     ]
+    print(f"smoke wall {time.perf_counter() - t_smoke:.1f} s on {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

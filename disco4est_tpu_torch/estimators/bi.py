@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from disco4est_tpu_torch.laplacian import sipg as _sipg
-from disco4est_tpu_torch.mesh.builder import MeshData
+from disco4est_tpu_torch.mesh.builder import MeshData, require_full
 from disco4est_tpu_torch.ops import tensor
 from disco4est_tpu_torch.ops.operators import DB
 from disco4est_tpu_torch.ops.rows import add_face_rows
@@ -206,4 +206,5 @@ def estimate_bi(mesh: MeshData, u, residual, g=None, penalty_prefactor=2.0,
     "diam", `Mesh/d4est_mesh.h:31-49` VOL_H_EQ_*)."""
     if vol_h not in ("cube_approx", "diam"):
         raise ValueError(f"unknown vol_h {vol_h!r}")
+    require_full(mesh, "estimate_bi")
     return _estimate_bi_impl(mesh, u, residual, g, penalty_prefactor, vol_h)

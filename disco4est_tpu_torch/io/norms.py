@@ -1,7 +1,7 @@
 """Norms and convergence logging.
 
 Port of `disco4est_tpu/io/norms.py` (role of the reference's
-`IO/d4est_norms.c`): L2 / L∞ norms, per-level log rows with the
+`IO/d4est_norms.c`): L2 / L∞ / DG-energy norms, per-level log rows with the
 reference's line format ("num_quadrants num_nodes num_quad_nodes <value>",
 `%.13g`), and log-log convergence fits.
 """
@@ -23,6 +23,15 @@ def norm_L2(mesh: MeshData, err) -> float:
 
 def norm_Linfty(err) -> float:
     return float(torch.max(torch.abs(err)))
+
+
+def norm_energy(mesh: MeshData, err, apply_A) -> float:
+    """DG energy norm sqrt(eᵀ A e) with the operator `apply_A(mesh, e)`,
+    e.g. `laplacian.sipg.apply_sipg` (the JAX `norm_energy`; the
+    reference's interior-penalty norm, `dGMath/d4est_ip_energy_norm.c`,
+    is `io/ip_energy_norm.py`)."""
+    Ae = apply_A(mesh, err)
+    return float(torch.sqrt(torch.dot(err.reshape(-1), Ae.reshape(-1))))
 
 
 @dataclasses.dataclass

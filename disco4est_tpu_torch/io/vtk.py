@@ -16,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 
 from disco4est_tpu_torch.io import to_host
-from disco4est_tpu_torch.mesh.builder import MeshData
+from disco4est_tpu_torch.mesh.builder import MeshData, require_full
 
 _BLOCK = 1 << 16  # rows formatted per string operation
 
@@ -52,6 +52,7 @@ def write_vtu(
 ):
     """point_fields: name -> [E, nl...] nodal arrays or tensors;
     cell_fields: name -> [E] per-element arrays."""
+    require_full(mesh, "write_vtu")
     dim = mesh.dim
     nl = mesh.nl
     E = mesh.n_elements

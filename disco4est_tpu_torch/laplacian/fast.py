@@ -259,6 +259,21 @@ def apply_sipg_fast(mesh: MeshData, u, g=None):
     return _apply_general(mesh, u, g)
 
 
+STAGES = ("volume", "trace+gather", "full")
+
+
+def apply_staged(mesh: MeshData, u, upto: str = "full"):
+    """A prefix of the orthogonal GEMM-form apply, for timing its stages
+    (the JAX `apply_staged`, which `bench.py`'s stage rows read): "volume"
+    returns the volume term alone, "trace+gather" the volume term after
+    the trace GEMM and the neighbor row gather have run (the gathered rows
+    enter the result at 1e-30 so that nothing is left out), "full" the
+    whole apply."""
+    if upto not in STAGES:
+        raise ValueError(f"unknown stage {upto!r}; one of {STAGES}")
+    return _apply_orth(mesh, u, None, _upto=upto)
+
+
 def drstn_normal(mesh: MeshData, dtype):
     """Normal component of (drdx·n) per directed face: [E, 2d]."""
     nfaces = 2 * mesh.dim
@@ -269,9 +284,10 @@ def drstn_normal(mesh: MeshData, dtype):
     return drstn[:, f_idx, f_idx // 2]
 
 
-def _apply_orth(mesh: MeshData, u, g=None):
+def _apply_orth(mesh: MeshData, u, g=None, _upto: str = "full"):
     """Orthogonal (axis-aligned) fast path: 1-3 volume blocks, traces
-    gathered straight from the trace GEMM output, one fused lift GEMM."""
+    gathered straight from the trace GEMM output, one fused lift GEMM.
+    `_upto` stops after a stage (`apply_staged`)."""
     dim, deg = mesh.dim, mesh.deg
     nfl = (deg + 1) ** (dim - 1)
     nfaces = 2 * dim
@@ -287,6 +303,8 @@ def _apply_orth(mesh: MeshData, u, g=None):
     Au = cw[:, 0, 0][:, None] * Y[:, :nv]
     for b in range(1, nblk):
         Au = Au + cw[:, b, b][:, None] * Y[:, b * nv:(b + 1) * nv]
+    if _upto == "volume":
+        return Au.reshape(u.shape)
 
     drstn_n = drstn_normal(mesh, dtype)  # [E, 2d]
 
@@ -301,6 +319,8 @@ def _apply_orth(mesh: MeshData, u, g=None):
     )
     rows = (mesh.nbr_elem.long() * nfaces + mesh.nbr_face.long()).reshape(-1)
     gath = tr.reshape(E * nfaces, 2 * nfl)[rows].reshape(E, nfaces, 2 * nfl)
+    if _upto == "trace+gather":
+        return (Au + 1e-30 * torch.sum(gath)).reshape(u.shape)
     u_f, dn_m = tr[..., :nfl], tr[..., nfl:]
     u_p, dn_p = gath[..., :nfl], gath[..., nfl:]
 

@@ -292,7 +292,7 @@ def apply_mass(mesh: MeshData, v, on_quad: bool = False):
     the volume quadrature points and only Vᵀ(wJ·v) is applied."""
     w = vol_weights(mesh, v.dtype)
     v_q = v if on_quad else vol_interp(mesh, v)
-    return vol_interp(mesh, w * mesh.j_quad.to(v.dtype) * v_q,
+    return vol_interp(mesh, w * mesh.j_at_quad(v.dtype) * v_q,
                       transpose=True)
 
 
@@ -484,6 +484,11 @@ def _apply_hanging(mesh: MeshData, u_f, dudr_f, dtype,
     reach each row through the mortar node permutations (`hc_perm_*`,
     `hf_perm_*`: the identity unless the mortar crosses reoriented tree
     faces).  `neighbors="zero"` drops the other side."""
+    if mesh.face_drst is None:
+        raise NotImplementedError(
+            "hanging-face apply requires full face factor arrays; build "
+            "the mesh with store_full=True"
+        )
     dim, deg = mesh.dim, mesh.deg
     nl, nq = deg + 1, mesh.nq
     nfl_flat, nfq_flat = nl ** (dim - 1), nq ** (dim - 1)

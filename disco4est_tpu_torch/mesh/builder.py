@@ -13,10 +13,12 @@ node permutations `perm_*`, the mortar permutations `hc_perm_*` /
 `[mesh_parameters] face_h_type` (the pointwise `j_div_sj_quad` mode as
 `sigma_q` and `hc_sigma_q`), the compactified radial volume quadrature
 (`compactified_k`: `rad_interp`, `rad_w` and the per-element volume
-factors), and the full per-point factor arrays the driver builds
-(`store_full=True` in the JAX package).  Geometric factors are torch on
-the mesh's device; the face tables, orientation codes and compactified
-rules are host numpy.
+factors), and both storage modes: the full per-point factor arrays the
+driver builds (`store_full=True`, the default) and, on affine geometries,
+the compact constants alone (`store_full=False`, for meshes whose
+per-point arrays would not fit).  Geometric factors are torch on the
+mesh's device; the face tables, orientation codes and compactified rules
+are host numpy.
 """
 
 from __future__ import annotations
@@ -66,6 +68,7 @@ class MeshData:
     orient_codes: tuple
 
     deg_e: torch.Tensor  # [E] int32 per-element degree (≤ deg)
+    # --- per-point factor arrays (None on a store_full=False mesh) ---
     # --- volume arrays ---
     xyz_lobatto: torch.Tensor  # [E, dim, nl^dim...]
     xyz_quad: torch.Tensor  # [E, dim, nq^dim...]
@@ -172,30 +175,55 @@ class MeshData:
             },
         )
 
+    def j_at_quad(self, dtype=None):
+        """J at the volume quadrature points [E, nq...]; broadcast from
+        the compact constant when the full array was not stored."""
+        if self.j_quad is not None:
+            j = self.j_quad
+        else:
+            j = self.j_c.reshape((-1,) + (1,) * self.dim).expand(
+                (self.n_elements,) + (self.nq,) * self.dim)
+        return j if dtype is None else j.to(dtype)
+
     def init_field(self, fcn):
         """fcn(x, y[, z]) at Lobatto nodes -> [E, nl...]
         (`d4est_mesh_init_field`, INIT_FIELD_ON_LOBATTO)."""
+        require_full(self, "init_field")
         return fcn(*[self.xyz_lobatto[:, d] for d in range(self.dim)])
 
     def init_field_on_quad(self, fcn):
         """fcn at the volume quadrature points -> [E, nq...]."""
+        require_full(self, "init_field_on_quad")
         return fcn(*[self.xyz_quad[:, d] for d in range(self.dim)])
 
     def boundary_values(self, fcn):
         """fcn at face Lobatto nodes -> [E, 2d, nfl...] (Dirichlet data)."""
+        require_full(self, "boundary_values")
         return fcn(*[self.face_xyz_lobatto[:, :, d] for d in range(self.dim)])
 
     def boundary_values_quad(self, fcn):
         """fcn at face quadrature points -> [E, 2d, nfq...] (Robin
         coefficients, EVAL_BNDRY_FCN_ON_QUAD)."""
+        require_full(self, "boundary_values_quad")
         return fcn(*[self.face_xyz_quad[:, :, d] for d in range(self.dim)])
 
     def l2_norm_sqr(self, u):
         """∫ u² J dV per element -> [E] (`d4est_mesh_compute_l2_norm_sqr`)."""
         u_q = vol_interp(self, u)
         w = vol_weights(self, u.dtype)
-        integrand = w * self.j_quad.to(u.dtype) * u_q * u_q
+        integrand = w * self.j_at_quad(u.dtype) * u_q * u_q
         return torch.sum(integrand.reshape(u.shape[0], -1), dim=1)
+
+
+def require_full(mesh: MeshData, what: str):
+    """Refuse a store_full=False mesh where `what` needs the per-point
+    position or factor arrays."""
+    if mesh.xyz_lobatto is None:
+        raise ValueError(
+            f"{what} needs per-point position arrays; this mesh was built "
+            "with store_full=False (compact affine factors only) — rebuild "
+            "with store_full=True"
+        )
 
 
 def vol_interp(mesh: MeshData, v, transpose: bool = False):
@@ -273,6 +301,10 @@ def mesh_from_numpy(arrays: dict, meta: dict, device) -> MeshData:
 
 _FACE_H_TYPES = ("volume_div_area", "tree_h", "j_div_sj_min_lobatto",
                  "j_div_sj_quad")
+# the per-point factor tensors that a store_full=False mesh leaves None
+_FULL_FIELDS = ("xyz_lobatto", "xyz_quad", "j_quad", "wjgg",
+                "face_xyz_lobatto", "face_xyz_quad", "face_sj", "face_n",
+                "face_drst")
 
 
 def build_mesh(
@@ -284,6 +316,7 @@ def build_mesh(
     penalty_prefactor: float = 2.0,
     penalty_fcn: str = "maxp_sqr_over_minh",
     deg_e: np.ndarray | None = None,
+    store_full: bool = True,
     face_h_type: str = "volume_div_area",
     compactified_k: int | None = None,
     *,
@@ -293,7 +326,18 @@ def build_mesh(
     per-element degrees (penalties use them); storage stays at `deg`.
     `compactified_k`: the power k of the compactified outer shells' radial
     weight (c1 + c2·t)^{-k}, whose per-element Gaussian rules then carry
-    the volume quadrature there (`quadrature/compactified.py`)."""
+    the volume quadrature there (`quadrature/compactified.py`).
+
+    `store_full=False` (affine geometries only) builds none of the
+    per-point factor tensors (`_FULL_FIELDS` are None): the compact
+    constants are exact on affine maps, and the per-point tensors cost
+    ~nq^dim times more memory.  `volume`, `area`, `face_h` and `sigma`
+    then come from the compact constants.  The GEMM-form apply, the
+    structured and the fused applies and `l2_norm_sqr` take such a mesh;
+    what needs positions or per-point factors refuses it (`init_field`,
+    the boundary values, the estimator, VTK, the hanging-face mortar
+    apply), as do the face_h types `j_div_sj_min_lobatto` and
+    `j_div_sj_quad` and `compactified_k`."""
     if face_h_type not in _FACE_H_TYPES:
         raise ValueError(f"unknown face_h_type {face_h_type!r}")
     device = torch.device(device)
@@ -313,6 +357,16 @@ def build_mesh(
 
     ft = build_face_tables(forest)
     affine = bool(getattr(geom, "is_affine", False))
+    if not store_full:
+        # the refusals of the JAX `build_mesh`, in the order it reaches them
+        if not affine:
+            raise ValueError("store_full=False requires an affine geometry")
+        if face_h_type == "j_div_sj_min_lobatto":
+            raise ValueError("j_div_sj_min_lobatto requires store_full")
+        if compactified_k is not None:
+            raise ValueError("compactified_k requires store_full=True")
+        if face_h_type == "j_div_sj_quad":
+            raise ValueError("j_div_sj_quad requires store_full=True")
 
     kw = dict(dtype=F64, device=device)
     tree = torch.as_tensor(forest.tree.astype(np.int64), device=device)
@@ -325,20 +379,18 @@ def build_mesh(
 
     compact = {}
     if affine:
-        compact = _compute_affine_factors(
-            geom, dim, penalty, tree, anchor, hfrac, nbr_elem, nbr_face,
-            deg_e_f,
+        compact = _compute_affine_factors(geom, dim, tree, anchor, hfrac)
+    if store_full:
+        fac = _compute_all_factors(
+            geom, dim, deg, deg_quad, quad, penalty, tree, anchor, hfrac,
+            nbr_elem, nbr_face, deg_e_f,
         )
-        compact = {
-            k: compact[k]
-            for k in ("j_c", "drdx_c", "wjgg_c", "face_sj_c", "face_n_c")
-        }
-    fac = _compute_all_factors(
-        geom, dim, deg, deg_quad, quad, penalty, tree, anchor, hfrac,
-        nbr_elem, nbr_face, deg_e_f,
-    )
-    face_h_lob = fac.pop("face_h_lob")
-    face_j = fac.pop("face_j")
+        face_h_lob = fac.pop("face_h_lob")
+        face_j = fac.pop("face_j")
+    else:
+        fac = dict.fromkeys(_FULL_FIELDS)
+        fac.update(_compact_sizes(dim, deg_quad, quad, penalty, compact,
+                                  nbr_elem, nbr_face, deg_e_f))
 
     bnd = torch.as_tensor(ft.kind == BOUNDARY, device=device)
     if face_h_type in ("tree_h", "j_div_sj_min_lobatto"):
@@ -714,12 +766,10 @@ def _compute_all_factors(geom, dim, deg, deg_quad, quad, penalty, tree,
     )
 
 
-def _compute_affine_factors(geom, dim, penalty, tree, anchor, hfrac,
-                            nbr_elem, nbr_face, deg_e):
+def _compute_affine_factors(geom, dim, tree, anchor, hfrac):
     """Compact per-element factors for affine geometries: one evaluation
     at the element center (exact when `geom.is_affine`).  `wjgg_c`
     excludes the quadrature weights."""
-    penalty_fcn, penalty_prefactor = penalty
     center = torch.zeros((1, dim), dtype=F64, device=anchor.device)
     J, drdx = _factors(geom, tree, anchor, hfrac, center)
     j_c = J[:, 0]
@@ -741,6 +791,34 @@ def _compute_affine_factors(geom, dim, penalty, tree, anchor, hfrac,
         j_c=j_c, drdx_c=drdx_c, wjgg_c=wjgg_c, face_sj_c=face_sj_c,
         face_n_c=face_n_c,
     )
+
+
+def _compact_sizes(dim, deg_quad, quad, penalty, compact, nbr_elem,
+                   nbr_face, deg_e):
+    """`volume`, `area`, `face_h` and the volume/area `sigma` of a
+    store_full=False mesh from its compact constants.  The quadrature
+    weights times the constant are summed as `_compute_all_factors` sums
+    w·J and w·sj (the per-point values equal the constants on affine
+    maps), so σ equals the full mesh's bit for bit, and with it every
+    apply; the JAX `build_mesh`'s j_c·2^dim may differ from it by an ulp."""
+    penalty_fcn, penalty_prefactor = penalty
+    j_c, sj_c = compact["j_c"], compact["face_sj_c"]
+    E, dev = j_c.shape[0], j_c.device
+    _, wq = quad.nodes_weights(deg_quad)
+    w3 = tensor.tensor_weights([wq] * dim, device=dev)
+    wf = tensor.tensor_weights([wq] * (dim - 1), device=dev)
+    volume = torch.sum(
+        (w3 * j_c.reshape((E,) + (1,) * dim)).reshape(E, -1), dim=1)
+    area = torch.stack([
+        torch.sum((wf * sj_c[:, f].reshape((E,) + (1,) * (dim - 1)))
+                  .reshape(E, -1), dim=1)
+        for f in range(2 * dim)], dim=1)
+    face_h = volume[:, None] / area
+    sigma = sigma_from_degrees(
+        penalty_fcn, penalty_prefactor, deg_e[:, None].expand(face_h.shape),
+        deg_e[nbr_elem], face_h, face_h[nbr_elem, nbr_face],
+    )
+    return dict(volume=volume, area=area, face_h=face_h, sigma=sigma)
 
 
 def _compute_mortar_factors(geom, dim, deg_quad, quad, K, tree, anchor,

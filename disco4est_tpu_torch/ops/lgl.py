@@ -117,3 +117,14 @@ def lobatto_nodes_weights(n_nodes: int) -> tuple[np.ndarray, np.ndarray]:
     if n_nodes < 2:
         raise ValueError("LGL requires at least 2 nodes")
     return _tabulated(gauss_table.LOBATTO, n_nodes, "Gauss-Lobatto")
+
+
+def n_volume_nodes(dim: int, deg: int) -> int:
+    """Nodes in a dim-dimensional tensor-product element of degree `deg`
+    (`d4est_lgl_get_nodes`)."""
+    return (deg + 1) ** dim
+
+
+def n_face_nodes(dim: int, deg: int) -> int:
+    """Nodes on a (dim-1)-face."""
+    return (deg + 1) ** (dim - 1)

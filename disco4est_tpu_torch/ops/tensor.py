@@ -48,6 +48,12 @@ def tensor_weights(w_per_dir, dtype=torch.float64, device=None):
     return out
 
 
+def grad(D, u, dim: int):
+    """Reference-space gradient: D applied along each direction, stacked
+    -> [dim, *u.shape] (dudr[l] = ∂u/∂r_l at the nodes)."""
+    return torch.stack([apply_axis(D, u, l) for l in range(dim)])
+
+
 def face_slice(u, face: int, dim: int):
     """Extract the face plane of `u[..., n_dim, ..., n_1]` (the reference's
     slicer, `d4est_operators_apply_slicer`): the face direction's axis is
@@ -68,6 +74,12 @@ def face_scatter(face_vals, face: int, dim: int, n: int):
     out = face_vals.new_zeros(shape)
     out.select(axis, 0 if side == 0 else n - 1).copy_(face_vals)
     return out
+
+
+def face_normal_sign(face: int) -> float:
+    """The outward normal's sign along the face direction: -1 on the low
+    side, +1 on the high side."""
+    return -1.0 if face % 2 == 0 else 1.0
 
 
 def np_face_slice_indices(face: int, dim: int, n: int) -> np.ndarray:

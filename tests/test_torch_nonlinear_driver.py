@@ -12,8 +12,8 @@ package's tests pin (f64, CPU), without rerunning the JAX trajectories:
 - the TwoPunctures point digit u(10, 0, 0) = 0.0004250131568938 of
   `tests/test_regression_digits.py:65` (56 DOF, dense Jacobian solves,
   the point probe);
-- rows 0-3 of the Stamm hp-AMR trajectory of
-  `tests/test_regression_digits.py:268` to 1e-10, the marking included;
+- (the Stamm hp-AMR trajectory of `tests/test_regression_digits.py:268`
+  is in `tests/test_torch_oracles.py`, rows 0-5);
 - BoyenYork and MultiPuncture as `tests/test_breadth.py:68-113`;
 - TwoPunctures, Okendon and Stamm through the port's CLI;
 - `[parallelism] enable = 1` on one process raises, as in JAX.
@@ -314,86 +314,6 @@ def test_two_punctures_7tree_digit():
     assert result.residual_norm < 1e-13, result.history
     val, _ = interpolate_at_point(mesh, result.u, (10.0, 0.0, 0.0))
     assert abs(val - 0.0004250131568938) < 1e-12, val
-
-
-def test_stamm_trajectory_rows_0_to_3():
-    """Rows 0-3 of the Stamm oracle (`tests/test_regression_digits.py:
-    268`, refcheck/stamm_probe.c): levels 0-1 refine uniformly, level 2
-    marks with smooth_pred's mean marker; the element counts (456 after
-    the first smooth_pred step) equal, the L2 and the estimate to 1e-10."""
-    from disco4est_tpu_torch.amr.amr import amr_step_hp
-    from disco4est_tpu_torch.amr.smooth_pred import (
-        SmoothPredParams,
-        SmoothPredState,
-        smooth_pred_mark,
-        transfer_predictor,
-    )
-    from disco4est_tpu_torch.estimators.bi import estimate_bi
-    from disco4est_tpu_torch.laplacian.hp import (
-        adjoint_to_own,
-        apply_mass_hp,
-        init_field_own,
-        norm_L2_interp_abs_own,
-        to_max,
-    )
-    from disco4est_tpu_torch.laplacian.sipg import apply_sipg
-    from disco4est_tpu_torch.problems.stamm import StammProblem
-
-    prob = StammProblem(c=(0.5, 0.5, 0.5), dim=3)
-    geom = BrickGeometry(dim=3)
-    sp = SmoothPredParams(gamma_h=10.0, gamma_p=0.1, gamma_n=1.0,
-                          marker="mean", sigma=0.25, max_degree=7,
-                          initial_pred=0.0)
-    oracle = [
-        (1, 27, 4.999999999999999e-01, 8.411163231756122e00),
-        (8, 216, 1.0275938426558613e-04, 3.4281941578298671e-03),
-        (64, 1728, 8.0763868619692208e-06, 8.7418772785858201e-04),
-        (456, 12312, 3.8789115402296782e-06, 2.8744364809238571e-04),
-    ]
-    kw = dict(penalty_prefactor=10.0, penalty_fcn="maxp_sqr_over_minh",
-              face_h_type="tree_h", device="cpu")
-    forest = Forest.uniform(geom.conn, 0)
-    deg_e = np.full(1, 2, np.int32)
-    storage, u, sp_state = 2, None, None
-    for level, (E_ref, nodes_ref, l2_ref, est_ref) in enumerate(oracle):
-        mesh = build_mesh(geom, forest, deg=storage, deg_quad=storage,
-                          deg_e=deg_e, **kw)
-        g = mesh.boundary_values(prob.boundary)
-        if u is None:
-            u = mesh.init_field(lambda x, y, z: 0.5 * torch.ones_like(x))
-        rhs_own = apply_mass_hp(mesh, init_field_own(mesh, prob.rhs))
-        l2 = float(norm_L2_interp_abs_own(mesh, u, prob.analytic))
-        F = to_max(mesh, adjoint_to_own(mesh, apply_sipg(mesh, u))
-                   - rhs_own)
-        eta2 = estimate_bi(mesh, u, F, g=g,
-                           penalty_prefactor=10.0).numpy()
-        est = float(np.sqrt(eta2.sum()))
-        assert mesh.n_elements == E_ref
-        assert int(((deg_e + 1) ** 3).sum()) == nodes_ref
-        assert abs(l2 - l2_ref) < 1e-10 * l2_ref, (level, l2, l2_ref)
-        assert abs(est - est_ref) < 1e-10 * est_ref, (level, est, est_ref)
-        if level == len(oracle) - 1:
-            break
-        pred = None
-        if level < 2:
-            log = -deg_e.astype(np.int64)
-        else:
-            if sp_state is None:
-                sp_state = SmoothPredState.fresh(mesh.n_elements, sp)
-            log, pred = smooth_pred_mark(eta2, deg_e, sp_state, sp, dim=3)
-            sp_state = SmoothPredState(pred)
-        new_forest, new_deg_e, fields, new_storage = amr_step_hp(
-            forest, deg_e, log, {"u": u}, storage, 7)
-        if pred is not None:
-            sp_state = SmoothPredState(transfer_predictor(
-                forest, new_forest, pred, deg_e, sp, log))
-        forest, deg_e, storage = new_forest, new_deg_e, new_storage
-        mesh2 = build_mesh(geom, forest, deg=storage, deg_quad=storage,
-                           deg_e=deg_e, **kw)
-        assert not (deg_e != storage).any()  # rows 0-3 stay at deg 2
-        rhs2 = apply_mass_hp(mesh2, init_field_own(mesh2, prob.rhs))
-        u = cg_solve(lambda v: apply_sipg(mesh2, v), rhs2, atol=1e-15,
-                     rtol=0.0, max_iter=200000).x
 
 
 def _solve_by(deg):
