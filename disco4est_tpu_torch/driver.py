@@ -51,6 +51,14 @@ restarts from `checkpoint_prefix` by `checkpoint_type = structure` or
 `[driver] print_timings = 1` prints one `TIMINGS level k:` line per level
 of `run_poisson`.
 
+Tracing (`util/trace.py`): each call of `run_poisson` or `run_nonlinear`
+keeps one record of its spans and counters, returned as
+`DriverResult.trace`: the phases of `run_poisson` (`d4est.mesh`,
+`d4est.solve`, `d4est.estimate`, `d4est.amr`, which the TIMINGS line
+reads), the mesh build's parts, the mixed solve's f64 outer applies, the
+Krylov loops' iterations, reads, enqueue and wait, and the B1 and B2
+launches of the run.
+
 Distributed execution (`[parallelism]`, JAX `driver.py:443-613`; the
 reference's driver is the MPI program, `driver.c:13-313`): run under
 torchrun (or N processes with its variables), one rank per process, each
@@ -100,7 +108,7 @@ from disco4est_tpu_torch.geometry.misc import (
 from disco4est_tpu_torch.io import checkpoint as ckpt_io
 from disco4est_tpu_torch.io.norms import NormLog, norm_L2, norm_Linfty
 from disco4est_tpu_torch.io.vtk import write_vtu
-from disco4est_tpu_torch.laplacian import curved, structured
+from disco4est_tpu_torch.laplacian import curved, fused, structured
 from disco4est_tpu_torch.laplacian.hp import (
     adjoint_to_own,
     apply_sipg_hp,
@@ -168,6 +176,7 @@ from disco4est_tpu_torch.solvers.schwarz_overlap import (
     build_overlapping_schwarz,
     build_overlapping_schwarz_kslot,
 )
+from disco4est_tpu_torch.util import trace
 from disco4est_tpu_torch.util.config import Options
 
 _ON = ("1", "true", "yes", "on")
@@ -354,6 +363,8 @@ class DriverResult:
     #                       else 0
     rank: int = 0  # this process's rank under [parallelism], else 0
     parallel: str = ""  # under [parallelism]: the ranks and the backend
+    trace: dict | None = None  # the run's record of spans and counters
+    #                            (`util/trace.py`)
 
 
 def _refuse_unported(opts: Options):
@@ -364,19 +375,21 @@ def _refuse_unported(opts: Options):
 
 
 class _PhaseTimer:
-    """Per-phase wall clock of the linear AMR loop (JAX `_PhaseTimer`,
-    `driver.py:187-231`): with `[driver] print_timings = 1`, one line
-    `TIMINGS level k: mesh=…s solve=…s estimate=…s amr=…s` per level.
+    """The phases of the linear AMR loop, each a tracer span `d4est.<phase>`
+    (JAX `_PhaseTimer`, `driver.py:187-231`): with `[driver] print_timings
+    = 1`, one line `TIMINGS level k: mesh=…s solve=…s estimate=…s amr=…s`
+    per level, from the spans' seconds.
 
-    Each phase boundary synchronizes the device, so that a phase is charged
-    its own asynchronous launches and not the previous phase's.  The JAX
-    timer prints a level's row before its amr phase runs, so its rows never
-    show amr (ROADMAP C4); the port prints after it.  Off (the default) it
-    records nothing and adds no synchronize."""
+    With the option each span synchronizes the device at both ends, so
+    that a phase is charged its own asynchronous launches and not the
+    previous phase's.  The JAX timer prints a level's row before its amr
+    phase runs, so its rows never show amr (ROADMAP C4); the port prints
+    after it.  Off (the default) the spans read the host clock alone: no
+    synchronize, no row."""
 
     def __init__(self, opts: Options, device, quiet=False):
         self.enabled = opts.get("driver", "print_timings", False, cast=bool)
-        self.device = device
+        self.sync = (lambda: _sync(device)) if self.enabled else None
         self.quiet = quiet  # ranks other than 0 record and print nothing
         self.rows = []
 
@@ -386,17 +399,11 @@ class _PhaseTimer:
 
     @contextlib.contextmanager
     def phase(self, name):
-        if not self.enabled:
+        with trace.span(f"d4est.{name}", sync=self.sync) as sp:
             yield
-            return
-        _sync(self.device)
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            _sync(self.device)
+        if self.enabled:
             row = self.rows[-1]
-            row[name] = row.get(name, 0.0) + time.perf_counter() - t0
+            row[name] = row.get(name, 0.0) + sp.seconds
 
     def flush(self):
         if self.enabled and self.rows and not self.quiet:
@@ -467,6 +474,15 @@ def _predictor_json(sp_state):
     return None if sp_state is None else sp_state.predictor.tolist()
 
 
+def _launches() -> dict:
+    """B1 and B2 launches so far in this process, both precisions (the
+    kernel modules' own counters), for the run record's deltas."""
+    return {"launches.b1": (structured.KERNEL_LAUNCHES
+                            + structured.KERNEL_LAUNCHES_BF16),
+            "launches.b2": fused.KERNEL_LAUNCHES + fused.KERNEL_LAUNCHES_BF16}
+
+
+@trace.traced_run(_launches)
 def run_poisson(opts: Options, problem, *, device) -> DriverResult:
     """Linear Poisson AMR-solve loop on the configured geometry, on
     `device`.
@@ -1406,6 +1422,7 @@ class NewtonInfo:
         )
 
 
+@trace.traced_run(_launches)
 def run_nonlinear(opts: Options, problem, *, device) -> DriverResult:
     """Nonlinear AMR loop on `device`: Newton–Krylov per level, the bi
     estimator on the residual, then uniform_h or h-only smooth_pred

@@ -42,6 +42,7 @@ from disco4est_tpu_torch.mesh.tree import Forest, ROOT
 from disco4est_tpu_torch.ops import tensor
 from disco4est_tpu_torch.ops.operators import DB
 from disco4est_tpu_torch.quadrature.quadrature import Quadrature
+from disco4est_tpu_torch.util import trace
 
 F64 = torch.float64
 
@@ -355,7 +356,12 @@ def build_mesh(
         if deg_e.max(initial=0) > deg:
             raise ValueError("deg_e exceeds storage degree")
 
-    ft = build_face_tables(forest)
+    # the build's parts are the tracer's spans `d4est.mesh.<part>`: the
+    # host face tables, the host-to-device copies, the geometry factors
+    # and penalties, the orientation permutations (host tables) and the
+    # hanging-face mortar tables
+    with trace.span("d4est.mesh.faces"):
+        ft = build_face_tables(forest)
     affine = bool(getattr(geom, "is_affine", False))
     if not store_full:
         # the refusals of the JAX `build_mesh`, in the order it reaches them
@@ -369,50 +375,58 @@ def build_mesh(
             raise ValueError("j_div_sj_quad requires store_full=True")
 
     kw = dict(dtype=F64, device=device)
-    tree = torch.as_tensor(forest.tree.astype(np.int64), device=device)
-    anchor = torch.as_tensor(forest.anchor, **kw) / ROOT
-    hfrac = torch.as_tensor(2.0 ** -forest.level.astype(np.float64), **kw)
-    nbr_elem = torch.as_tensor(ft.nbr_elem.astype(np.int64), device=device)
-    nbr_face = torch.as_tensor(ft.nbr_face.astype(np.int64), device=device)
-    deg_e_f = torch.as_tensor(deg_e, **kw)
+    with trace.span("d4est.mesh.h2d"):
+        tree = torch.as_tensor(forest.tree.astype(np.int64), device=device)
+        anchor = torch.as_tensor(forest.anchor, **kw) / ROOT
+        hfrac = torch.as_tensor(2.0 ** -forest.level.astype(np.float64),
+                                **kw)
+        nbr_elem = torch.as_tensor(ft.nbr_elem.astype(np.int64),
+                                   device=device)
+        nbr_face = torch.as_tensor(ft.nbr_face.astype(np.int64),
+                                   device=device)
+        deg_e_f = torch.as_tensor(deg_e, **kw)
     penalty = (penalty_fcn, float(penalty_prefactor))
 
-    compact = {}
-    if affine:
-        compact = _compute_affine_factors(geom, dim, tree, anchor, hfrac)
-    if store_full:
-        fac = _compute_all_factors(
-            geom, dim, deg, deg_quad, quad, penalty, tree, anchor, hfrac,
-            nbr_elem, nbr_face, deg_e_f,
-        )
-        face_h_lob = fac.pop("face_h_lob")
-        face_j = fac.pop("face_j")
-    else:
-        fac = dict.fromkeys(_FULL_FIELDS)
-        fac.update(_compact_sizes(dim, deg_quad, quad, penalty, compact,
-                                  nbr_elem, nbr_face, deg_e_f))
-
-    bnd = torch.as_tensor(ft.kind == BOUNDARY, device=device)
-    if face_h_type in ("tree_h", "j_div_sj_min_lobatto"):
-        # recompute the penalty from the selected h
-        # (`Mesh/d4est_mesh.c:650-800`); store it as face_h, which the
-        # estimator prefactors read.  j_div_sj_quad keeps volume/area as
-        # its scalar h and adds the pointwise sigma_q below.
-        if face_h_type == "tree_h":
-            h_m = hfrac[:, None].expand(E, nfaces).contiguous()
+    with trace.span("d4est.mesh.factors"):
+        compact = {}
+        if affine:
+            compact = _compute_affine_factors(geom, dim, tree, anchor, hfrac)
+        if store_full:
+            fac = _compute_all_factors(
+                geom, dim, deg, deg_quad, quad, penalty, tree, anchor, hfrac,
+                nbr_elem, nbr_face, deg_e_f,
+            )
+            face_h_lob = fac.pop("face_h_lob")
+            face_j = fac.pop("face_j")
         else:
-            h_m = face_h_lob
-        h_p = torch.where(bnd, h_m, h_m[nbr_elem, nbr_face])
-        p_m = deg_e_f[:, None].expand(E, nfaces)
-        p_p = deg_e_f[nbr_elem]
-        fac["sigma"] = sigma_from_degrees(
-            penalty_fcn, float(penalty_prefactor), p_m, p_p, h_m, h_p
-        )
-        fac["face_h"] = h_m
+            fac = dict.fromkeys(_FULL_FIELDS)
+            fac.update(_compact_sizes(dim, deg_quad, quad, penalty, compact,
+                                      nbr_elem, nbr_face, deg_e_f))
+
+        bnd = torch.as_tensor(ft.kind == BOUNDARY, device=device)
+        if face_h_type in ("tree_h", "j_div_sj_min_lobatto"):
+            # recompute the penalty from the selected h
+            # (`Mesh/d4est_mesh.c:650-800`); store it as face_h, which the
+            # estimator prefactors read.  j_div_sj_quad keeps volume/area
+            # as its scalar h and adds the pointwise sigma_q below.
+            if face_h_type == "tree_h":
+                h_m = hfrac[:, None].expand(E, nfaces).contiguous()
+            else:
+                h_m = face_h_lob
+            h_p = torch.where(bnd, h_m, h_m[nbr_elem, nbr_face])
+            p_m = deg_e_f[:, None].expand(E, nfaces)
+            p_p = deg_e_f[nbr_elem]
+            fac["sigma"] = sigma_from_degrees(
+                penalty_fcn, float(penalty_prefactor), p_m, p_p, h_m, h_p
+            )
+            fac["face_h"] = h_m
 
     # neighbor node permutations of every directed face (host tables)
-    perms_l, perms_q = _orientation_perms(dim, nl), _orientation_perms(dim, nq)
-    perm_q = torch.as_tensor(perms_q[ft.orient], device=device)
+    with trace.span("d4est.mesh.orient"):
+        perms_l = _orientation_perms(dim, nl)
+        perms_q = _orientation_perms(dim, nq)
+    with trace.span("d4est.mesh.h2d"):
+        perm_q = torch.as_tensor(perms_q[ft.orient], device=device)
 
     # pointwise penalty for FACE_H_EQ_J_DIV_SJ_QUAD: h(x) = J/sj at each
     # face quadrature point; the neighbor's h is gathered and point-aligned
@@ -421,19 +435,22 @@ def build_mesh(
     # reference's dirichlet aux passes (deg_m, h_m, deg_m, h_m)).
     sigma_q = h_q = None
     if face_h_type == "j_div_sj_quad":
-        h_q = (face_j / fac["face_sj"]).reshape(E, nfaces, -1)
-        rows = nbr_elem * nfaces + nbr_face
-        h_p = torch.gather(h_q.reshape(E * nfaces, -1)[rows], -1, perm_q)
-        h_p = torch.where(bnd[:, :, None], h_q, h_p)
-        sigma_q = sigma_from_degrees(
-            penalty_fcn, float(penalty_prefactor), deg_e_f[:, None, None],
-            deg_e_f[nbr_elem][:, :, None], h_q, h_p,
-        ).reshape((E, nfaces) + (nq,) * (dim - 1))
+        with trace.span("d4est.mesh.factors"):
+            h_q = (face_j / fac["face_sj"]).reshape(E, nfaces, -1)
+            rows = nbr_elem * nfaces + nbr_face
+            h_p = torch.gather(h_q.reshape(E * nfaces, -1)[rows], -1,
+                               perm_q)
+            h_p = torch.where(bnd[:, :, None], h_q, h_p)
+            sigma_q = sigma_from_degrees(
+                penalty_fcn, float(penalty_prefactor), deg_e_f[:, None, None],
+                deg_e_f[nbr_elem][:, :, None], h_q, h_p,
+            ).reshape((E, nfaces) + (nq,) * (dim - 1))
 
-    mortar = _mortar_tables(
-        geom, ft, forest, deg_quad, quad, penalty, deg_e, fac["face_h"],
-        (perms_l, perms_q), h_q, device,
-    )
+    with trace.span("d4est.mesh.mortars"):
+        mortar = _mortar_tables(
+            geom, ft, forest, deg_quad, quad, penalty, deg_e, fac["face_h"],
+            (perms_l, perms_q), h_q, device,
+        )
 
     rad = {}
     if compactified_k is not None:
@@ -442,7 +459,12 @@ def build_mesh(
         fac.update(rad.pop("factors"))
 
     conf_codes = ft.orient[ft.kind == CONF]
-    kind = torch.as_tensor(ft.kind.astype(np.int64), device=device)
+    with trace.span("d4est.mesh.h2d"):
+        kind = torch.as_tensor(ft.kind.astype(np.int64), device=device)
+        deg_e_t = torch.as_tensor(deg_e, dtype=torch.int32, device=device)
+        perm_l = torch.as_tensor(perms_l[ft.orient], device=device)
+        orient_code = torch.as_tensor(ft.orient.astype(np.int32),
+                                      device=device)
     return MeshData(
         dim=dim,
         deg=deg,
@@ -457,13 +479,12 @@ def build_mesh(
         # general apply unrolls one flip/swap transform per code
         orient_codes=tuple(sorted(int(c) for c in np.unique(conf_codes)
                                   if c != 0)),
-        deg_e=torch.as_tensor(deg_e, dtype=torch.int32, device=device),
+        deg_e=deg_e_t,
         nbr_elem=nbr_elem.to(torch.int32),
         nbr_face=nbr_face.to(torch.int32),
-        perm_l=torch.as_tensor(perms_l[ft.orient], device=device),
+        perm_l=perm_l,
         perm_q=perm_q,
-        orient_code=torch.as_tensor(ft.orient.astype(np.int32),
-                                    device=device),
+        orient_code=orient_code,
         bnd_mask=bnd,
         conf_mask=(kind == CONF) | (kind == BOUNDARY),
         sigma_q=sigma_q,

@@ -26,6 +26,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from disco4est_tpu_torch.solvers.cg import cg_solve
+from disco4est_tpu_torch.util import trace
 
 F32 = torch.float32
 
@@ -82,8 +83,12 @@ def mixed_refine_solve(
             return res.x, res.iterations
 
     tol = max(atol, rtol * _norm(b))
-    r = b - A(x)
-    rn = _norm(r)
+    # each f64 residual, from the apply to its norm's read, is one span
+    # `d4est.mixed.outer`: the inner solve before it ended on a read, so
+    # the span holds the f64 apply's device time and its launches
+    with trace.span("d4est.mixed.outer"):
+        r = b - A(x)
+        rn = _norm(r)
     rn_prev = math.inf
     k = tot = 0
     # stall exit: once the outer residual stops contracting (the
@@ -93,8 +98,9 @@ def mixed_refine_solve(
         scale = rn if rn > 0 else 1.0
         d32, it = inner_solve((r / scale).to(F32))
         x_new = x + scale * d32.to(b.dtype)
-        r_new = b - A(x_new)
-        rn_new = _norm(r_new)
+        with trace.span("d4est.mixed.outer"):
+            r_new = b - A(x_new)
+            rn_new = _norm(r_new)
         # keep the BEST iterate: reject a step that grows the residual
         if not rn_new > rn:
             x, r = x_new, r_new
