@@ -7,7 +7,7 @@ Run from the root of a checkout, on a machine with an NVIDIA Hopper card
 and `nvcc`.  Phases, one or more lines each; any failure exits non-zero:
 
 1. the device, and `nvidia-smi --query-gpu=name,power.limit`;
-2. the build of the three CUDA kernels from `disco4est_tpu_torch/csrc/`
+2. the build of the four CUDA kernels from `disco4est_tpu_torch/csrc/`
    (one `nvcc` each, all started together; each SIPG library holds its
    f32 and its bf16 instances), with their build seconds, register,
    shared-memory and spill lines, and the count of tensor-core
@@ -108,7 +108,8 @@ and `nvcc`.  Phases, one or more lines each; any failure exits non-zero:
    estimates on (d)'s adapted epoch, each of one input, must be equal bit
    for bit, and (b)'s level-3 solve, run again, must take the same inner
    iteration count;
-11. the nonlinear Newton–Krylov path (f64 torch operations; the three
+11. the nonlinear Newton–Krylov path (f64 torch operations and the mass
+   kernel of phase 18, which must launch; the three SIPG and axis
    kernels' counts must stay 0), one line per level with the norm line,
    Newton iterations, ‖F‖ history, Krylov iterations per Newton step,
    Σ η², forest digest and the host seconds of mesh build, solve,
@@ -315,6 +316,18 @@ and `nvcc`.  Phases, one or more lines each; any failure exits non-zero:
    (d) B1-B3 (f32 and bf16) launch 0 times in (a)-(b): f64 torch
        operations only.
 
+18. the mass kernel of the Newton Jacobian (`csrc/mass_apply.cu`,
+   y = Vᵀ (c ⊙ V v), replacing no TPU kernel): its ptxas lines; against
+   the plain path (`apply_mass_coeff_plain`) at deg 1-7, nq = n to
+   n + 2, dim 2 and 3, f64 (rel ≤ 1e-13) and f32 (rel ≤ 1e-5), E 32,768,
+   a synchronize after each launch; timed at deg 2 / level 5 and deg 7 /
+   level 4 (f64) beside the plain path, against its bytes bound (v and c
+   read, y written once, over 3.35 TB/s), L2-warm (the same inputs back
+   to back) and cold (inputs rotated through more than twice the 50 MB
+   L2); and a CDS Newton run at level 3 on the card, whose
+   `launches.mass` must equal its Jacobian applies, Σ (Krylov iterations
+   + 1) over the Newton steps.
+
 `python3 chip_smoke.py --nccl=N` on a machine with N cards runs phase 15
 (b)'s CLI with one rank a card (`backend = auto` takes NCCL there) and
 prints the result line.
@@ -336,6 +349,7 @@ import re
 import subprocess
 import sys
 import time
+import types
 
 REL_TOL = 5e-6  # f32 kernel vs plain / f64, as `tests/test_structured.py`
 SINX_LINE = "64 512 512 0.02441355792354"
@@ -414,6 +428,7 @@ AXIS_SIZES = (4096, 32768)
 PEAK_F32 = 67e12
 PEAK_TF32 = 495e12
 PEAK_BYTES = 3.35e12
+PEAK_F64 = 34e12  # f64 FMA outside the tensor cores, H100 SXM
 SPLIT_PRODUCTS = 3  # the split-TF32 scheme issues three TF32 products
 # phase 16, the bf16 mode of B1 and B2 (ROADMAP B4): each bf16 kernel
 # against its plain bf16 version (the same rounding points: bf16(u),
@@ -876,11 +891,12 @@ def phase_device(torch):
 
 def phase_build():
     from disco4est_tpu_torch.laplacian import fused
+    from disco4est_tpu_torch.laplacian import nonlinear as NL
     from disco4est_tpu_torch.laplacian import structured as S
     from disco4est_tpu_torch.tools import exp_kernel_design as X
     from disco4est_tpu_torch.util import cuda_build
 
-    mods = (S, fused, X)
+    mods = (S, fused, X, NL)
     secs = cuda_build.build_all([m.SOURCE for m in mods])
     for m in mods:
         m._load()
@@ -894,7 +910,7 @@ def phase_build():
                 seen.append(line)
         for line in seen:
             print("    ptxas:", line)
-        if m is not X:  # the two SIPG libraries run on the tensor cores
+        if m in (S, fused):  # the SIPG libraries run on the tensor cores
             per_fn = tensor_core_instructions(cuda_build, lib)
             n = sum(per_fn.values())
             print(f"[2] {lib.name}: {n} tensor-core instructions "
@@ -1287,6 +1303,173 @@ def phase_axis(torch, np, card):
                           library_ms=t["einsum"], bound_ms=bms, bound_by=by)
     return max_abs, result
 
+
+
+# phase 18: the mass kernel against the plain path (f64 / f32: six
+# one-axis sums of up to 10 terms, in another order than cuBLAS's)
+MASS_TOL = {"f64": 1e-13, "f32": 1e-5}
+MASS_TIMED = ((2, 5), (7, 4))  # (deg, level), f64, nq = n
+CDS_SMALL = """
+[initial_mesh]
+min_level = 3
+region0_deg = 2
+[mesh_parameters]
+face_h_type = FACE_H_EQ_TREE_H
+[amr]
+scheme = none
+[geometry]
+name = brick
+[d4est_solver_newton]
+snes_atol = 1e-12
+[d4est_solver_krylov_petsc]
+ksp_type = cg
+"""
+
+
+def _mass_mesh(dim, deg, nq):
+    """What `apply_mass_coeff` reads of a mesh without a radial rule."""
+    from disco4est_tpu_torch.quadrature.quadrature import Quadrature
+
+    return types.SimpleNamespace(dim=dim, deg=deg, deg_quad=nq - 1,
+                                 quad=Quadrature("legendre"),
+                                 rad_interp=None)
+
+
+def phase_mass(torch, np, card):
+    """Phase 18: the mass kernel of the Newton Jacobian.  Returns its
+    largest f64 |Δ| against the plain path and the kernels line's numbers
+    at deg 2 / level 5."""
+    from disco4est_tpu_torch import driver
+    from disco4est_tpu_torch.laplacian import nonlinear as NL
+    from disco4est_tpu_torch.util import cuda_build
+    from disco4est_tpu_torch.util.config import Options
+
+    check(torch.backends.cuda.matmul.allow_tf32 is False,
+          "TF32 must be off for the f32 plain path")
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    NL._load()
+    lib = cuda_build.library_path(NL.SOURCE)
+    print(f"[18] {lib.name} loaded in {time.perf_counter() - t0:.1f} s "
+          "(built here unless phase 2 built it)")
+    log = lib.with_suffix(".log").read_text().splitlines()
+    fn, per_fn = None, {}
+    for line in log:
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            fn = entry.group(1)
+        elif fn and ("registers" in line or "stack" in line):
+            per_fn.setdefault(fn, []).append(line.split(":", 1)[-1].strip())
+    stacks = [f for f, lines in per_fn.items()
+              if any(re.search(r"[1-9]\d* bytes stack frame", x)
+                     or re.search(r"[1-9]\d* bytes spill", x) for x in lines)]
+    for f in sorted(per_fn)[:4] + [f for f in sorted(per_fn)
+                                   if "Li3ELi3ELi3E" in f]:
+        print(f"[18] ptxas {f}: " + "; ".join(per_fn[f]))
+    print(f"[18] {len(per_fn)} instances; with a stack frame or spills: "
+          f"{len(stacks)} {stacks[:4]}")
+    check(len(per_fn) == 84, f"{len(per_fn)} mass kernel instances")
+
+    # (a) every instance against the plain path
+    max_abs = 0.0
+    worst = {"f64": 0.0, "f32": 0.0}
+    E = 32768
+    for dim in (3, 2):
+        for deg in range(1, 8):
+            n = deg + 1
+            for nq in range(n, n + 3):
+                mesh = _mass_mesh(dim, deg, nq)
+                for key, dtype in (("f64", torch.float64),
+                                   ("f32", torch.float32)):
+                    rng = np.random.default_rng(deg * 10 + nq)
+                    v = torch.as_tensor(rng.standard_normal(
+                        (E,) + (n,) * dim), dtype=dtype, device=dev)
+                    c = torch.as_tensor(rng.standard_normal(
+                        (E,) + (nq,) * dim), dtype=dtype, device=dev)
+                    out = NL.mass_apply_cuda(mesh, c, v)
+                    torch.cuda.synchronize()
+                    ref = NL.apply_mass_coeff_plain(mesh, c, v)
+                    abs_err = float((out - ref).abs().max())
+                    rel = abs_err / float(ref.abs().max())
+                    worst[key] = max(worst[key], rel)
+                    if key == "f64":
+                        max_abs = max(max_abs, abs_err)
+                    check(np.isfinite(rel) and rel <= MASS_TOL[key],
+                          f"mass kernel dim {dim} deg {deg} nq {nq} {key}: "
+                          f"rel {rel}")
+    print(f"[18] (a) 84 instances at E {E} against the plain path: "
+          f"largest rel f64 {worst['f64']:.3e}, f32 {worst['f32']:.3e}")
+
+    # (b) timed, f64, nq = n: warm (the same inputs) and cold (inputs
+    # rotated through more than twice the L2)
+    result = None
+    for deg, level in MASS_TIMED:
+        n, E = deg + 1, 8 ** level
+        mesh = _mass_mesh(3, deg, n)
+        nbytes = 8 * E * 3 * n ** 3
+        sets = []  # v and c of each set: 16 E n^3 bytes
+        for k in range(-(-100 * 2**20 // (16 * E * n ** 3)) + 1):
+            rng = np.random.default_rng(k)
+            sets.append(tuple(torch.as_tensor(
+                rng.standard_normal((E, n, n, n)), dtype=torch.float64,
+                device=dev) for _ in range(2)))
+        turn = [0]
+
+        def cold(fn):
+            def call():
+                turn[0] = (turn[0] + 1) % len(sets)
+                v, c = sets[turn[0]]
+                return fn(mesh, c, v)
+            return call
+
+        v, c = sets[0]
+        fns = {"kernel": lambda: NL.mass_apply_cuda(mesh, c, v),
+               "plain": lambda: NL.apply_mass_coeff_plain(mesh, c, v),
+               "kernel_cold": cold(NL.mass_apply_cuda)}
+        for f in fns.values():
+            f()
+        torch.cuda.synchronize()
+        t = {k: [] for k in fns}
+        for order in (list(fns), list(fns)[::-1]) * 2:
+            for k in order:
+                t[k].append(_time_ms(torch, fns[k], 20 if k != "plain"
+                                     else 4, 5))
+        t = {k: _median(x) for k, x in t.items()}
+        flop = 2.0 * E * 6 * n ** 4  # six passes of n-term sums a point
+        t_ops, t_bytes = flop / PEAK_F64, nbytes / PEAK_BYTES
+        bms = 1e3 * max(t_ops, t_bytes)
+        by = "operations" if t_ops >= t_bytes else "bytes"
+        print(f"[18] (b) deg {deg} / level {level} (E {E}, f64, "
+              f"{nbytes / 1e6:.1f} MB) on {card}: kernel warm "
+              f"{t['kernel'] * 1e3:.2f} us, cold "
+              f"{t['kernel_cold'] * 1e3:.2f} us (bound {bms * 1e3:.2f} us "
+              f"by {by}: {bms / t['kernel_cold']:.1%} of it cold, "
+              f"{bms / t['kernel']:.1%} warm); plain "
+              f"{t['plain'] * 1e3:.1f} us ({t['plain'] / t['kernel_cold']:.0f}x"
+              " the cold kernel)")
+        if result is None:
+            result = dict(ms=t["kernel_cold"], warm_ms=t["kernel"],
+                          plain_ms=t["plain"], library_ms=None, bound_ms=bms,
+                          bound_by=by)
+        del sets
+
+    # (c) a CDS Newton run on the card goes through the kernel
+    opts = Options.load(CDS_SMALL)
+    before = NL.KERNEL_LAUNCHES
+    t0 = time.perf_counter()
+    res = driver.run_nonlinear(opts, driver.CDSProblem(opts), device="cuda")
+    krylov = [k for s_ in res.solves for k in s_.krylov]
+    counters = res.trace["counters"]
+    applies = sum(k + 1 for k in krylov)
+    print(f"[18] (c) CDS level 3 deg 2 on the card: Newton "
+          f"{[s_.iterations for s_ in res.solves]}, Krylov {krylov}, "
+          f"launches.mass {counters['launches.mass']} (Jacobian applies "
+          f"{applies}), L2 {res.norms.rows[-1]['L_2']!r}, "
+          f"{time.perf_counter() - t0:.2f} s")
+    check(counters["launches.mass"] == applies
+          == NL.KERNEL_LAUNCHES - before,
+          f"(c) mass launches {counters['launches.mass']} vs {applies}")
+    return max_abs, dict(result, launches=counters["launches.mass"])
 
 def _tool_lines(fn, argv):
     buf = io.StringIO()
@@ -1894,15 +2077,17 @@ def two_punctures_digit(torch):
 
 def phase_nonlinear(torch, np, card):
     """Phase 11: the nonlinear Newton–Krylov path on the card (f64 torch
-    operations; no hand-written kernel runs on it, and the three
+    operations and the mass kernel, which must launch; the three other
     kernels' counts, set to 0 before, must stay 0)."""
     from disco4est_tpu_torch.laplacian import fused
+    from disco4est_tpu_torch.laplacian import nonlinear as NL
     from disco4est_tpu_torch.laplacian import structured as S
     from disco4est_tpu_torch.tools import exp_kernel_design as X
 
     print(f"[11] the nonlinear path on {card}")
     t_phase = time.perf_counter()
     S.KERNEL_LAUNCHES = fused.KERNEL_LAUNCHES = X.KERNEL_LAUNCHES = 0
+    mass_before = NL.KERNEL_LAUNCHES
     launches = 0
 
     # (a) the CDS regression: the reference's digits and JAX's forest
@@ -1966,10 +2151,12 @@ def phase_nonlinear(torch, np, card):
 
     counts = dict(B1=launches, B2=fused.KERNEL_LAUNCHES,
                   B3=X.KERNEL_LAUNCHES)
-    print(f"[11] kernel launches in phase 11: {counts} (the nonlinear path "
-          f"runs f64 torch operations only); phase wall "
-          f"{time.perf_counter() - t_phase:.1f} s")
+    mass = NL.KERNEL_LAUNCHES - mass_before
+    print(f"[11] kernel launches in phase 11: {counts}, mass kernel {mass} "
+          f"(the Jacobian's mass term; the rest is f64 torch operations); "
+          f"phase wall {time.perf_counter() - t_phase:.1f} s")
     check(not any(counts.values()), f"a kernel ran in phase 11: {counts}")
+    check(mass > 0, "the mass kernel did not launch in phase 11")
     return c["krylov"], c["solve"]
 
 
@@ -4133,6 +4320,7 @@ def main():
     b1_launches, level5_l2, fcg5 = phase_real_size(torch)
     b2_abs, b2 = phase_fused(torch, np, card)
     b3_abs, b3 = phase_axis(torch, np, card)
+    mass_abs, mass = phase_mass(torch, np, card)
     tool_launches, tool_launches_bf16 = phase_tools(torch)
     phase_amr(torch, np, card, level5_l2, b1[(3, 5)]["ms"])
     phase_curved(torch, np, card)
@@ -4190,6 +4378,10 @@ def main():
              source=csrc + "axis_apply.cu",
              replaces="tools/exp_kernel_design.py:176",
              launches=tool_launches["axis"], max_abs_err=b3_abs, **b3),
+        dict(name="mass_apply (deg 2 / level 5, f64, L2-cold)",
+             route="cuda", source=csrc + "mass_apply.cu",
+             replaces="none (disco4est_tpu/laplacian/nonlinear.py:47 is "
+             "plain jnp)", max_abs_err=mass_abs, **mass),
     ]
     print(f"smoke wall {time.perf_counter() - t_smoke:.1f} s on {card}")
     print(json.dumps({"kernels": kernels}))

@@ -108,7 +108,7 @@ from disco4est_tpu_torch.geometry.misc import (
 from disco4est_tpu_torch.io import checkpoint as ckpt_io
 from disco4est_tpu_torch.io.norms import NormLog, norm_L2, norm_Linfty
 from disco4est_tpu_torch.io.vtk import write_vtu
-from disco4est_tpu_torch.laplacian import curved, fused, structured
+from disco4est_tpu_torch.laplacian import curved, fused, nonlinear, structured
 from disco4est_tpu_torch.laplacian.hp import (
     adjoint_to_own,
     apply_sipg_hp,
@@ -475,11 +475,13 @@ def _predictor_json(sp_state):
 
 
 def _launches() -> dict:
-    """B1 and B2 launches so far in this process, both precisions (the
-    kernel modules' own counters), for the run record's deltas."""
+    """B1 and B2 launches so far in this process, both precisions, and the
+    mass kernel's (the kernel modules' own counters), for the run record's
+    deltas."""
     return {"launches.b1": (structured.KERNEL_LAUNCHES
                             + structured.KERNEL_LAUNCHES_BF16),
-            "launches.b2": fused.KERNEL_LAUNCHES + fused.KERNEL_LAUNCHES_BF16}
+            "launches.b2": fused.KERNEL_LAUNCHES + fused.KERNEL_LAUNCHES_BF16,
+            "launches.mass": nonlinear.KERNEL_LAUNCHES}
 
 
 @trace.traced_run(_launches)

@@ -16,6 +16,12 @@
 - B3, the three-axis apply (`csrc/axis_apply.cu`): against its plain
   version to 1e-5 relative (f32 rounding over three 8-term sums, summed
   in another order);
+- the mass kernel of the Newton Jacobian (`csrc/mass_apply.cu`):
+  against the plain path at deg 1-7, nq = n to n + 2, dim 2 and 3, f64
+  to 1e-13 and f32 to 1e-5 relative (six one-axis sums in another order
+  than cuBLAS's), at E = 1, a block's edge and 32,768, and on a strided
+  view (copied first); a CDS Newton run launches it once a Jacobian
+  apply;
 - the AMR loop on the card: a one-step uniform_h sinx run from level 3 at
   deg 3 launches B1 in both epochs, and its L2 errors equal the same
   run's on the CPU to 1e-9 relative (both solves reach the f64 floor; the
@@ -28,7 +34,8 @@
   applies on an adapted sphere and two estimates of one input are equal
   bit for bit;
 - the nonlinear path on the card: the CDS regression's level-2 Newton
-  solve equals the CPU run's counts and L2;
+  solve (its Jacobian's mass term through the kernel) equals the CPU
+  run's counts and L2;
 - the preconditioners on the card (fixed-order sums, no `index_add`): two
   V-cycles (h and hp hierarchies) and two overlapping Schwarz applies of
   one input are equal bit for bit, and a `pc_type = multigrid` sinx solve
@@ -50,6 +57,7 @@ package, so it also runs where JAX is not installed:
 """
 
 import dataclasses
+import itertools
 
 import numpy as np
 import pytest
@@ -371,6 +379,75 @@ def test_axis_kernel_matches_plain(cuda_device, E):
         X.axis_apply_cuda(u[..., :4].contiguous(), m)
 
 
+# the mass kernel against the plain path: f64 to 1e-13 and f32 to 1e-5
+# relative (max |Δ| / max |ref|), the rounding of six one-axis sums of up
+# to 10 terms taken in another order than cuBLAS's
+MASS_TOL = {torch.float64: 1e-13, torch.float32: 1e-5}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("deg", range(1, 8))
+def test_mass_kernel_matches_plain(cuda_device, dim, deg):
+    """`csrc/mass_apply.cu` at nq = n to n + 2, in f64 and f32, at E = 1,
+    a block's edge (one tile, and one element into the next) and 32,768:
+    against the plain path; a launch error would surface at the
+    synchronize after each call."""
+    import types
+
+    from disco4est_tpu_torch.laplacian import nonlinear as NL
+    from disco4est_tpu_torch.quadrature.quadrature import Quadrature
+
+    n = deg + 1
+    for nq, dtype in itertools.product(range(n, n + 3),
+                                       (torch.float64, torch.float32)):
+        mesh = types.SimpleNamespace(dim=dim, deg=deg, deg_quad=nq - 1,
+                                     quad=Quadrature("legendre"),
+                                     rad_interp=None)
+        tile = NL.mass_tile_elems(dim, n, nq, dtype)
+        assert tile >= 1
+        for E in (1, tile, tile + 1, 32768):
+            rng = np.random.default_rng(E * 131 + nq)
+            v = torch.as_tensor(rng.standard_normal((E,) + (n,) * dim),
+                                dtype=dtype, device=cuda_device)
+            c = torch.as_tensor(rng.standard_normal((E,) + (nq,) * dim),
+                                dtype=dtype, device=cuda_device)
+            before = NL.KERNEL_LAUNCHES
+            out = NL.apply_mass_coeff(mesh, c, v)
+            torch.cuda.synchronize()
+            assert NL.KERNEL_LAUNCHES == before + 1
+            rel = _rel(out, NL.apply_mass_coeff_plain(mesh, c, v))
+            assert rel <= MASS_TOL[dtype], (nq, dtype, E, rel)
+    # the wrapper refuses a strided view; `apply_mass_coeff` copies it
+    # (the hp prolongation's output) and still launches the kernel
+    strided = v.transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        NL.mass_apply_cuda(mesh, c, strided)
+    before = NL.KERNEL_LAUNCHES
+    out = NL.apply_mass_coeff(mesh, c, strided)
+    torch.cuda.synchronize()
+    assert NL.KERNEL_LAUNCHES == before + 1
+    assert _rel(out, NL.apply_mass_coeff_plain(mesh, c, strided)) <= \
+        MASS_TOL[dtype]
+
+
+@pytest.mark.gpu
+def test_newton_on_the_card_launches_the_mass_kernel(cuda_device):
+    """A CDS Newton run on the card applies its Jacobian's mass term
+    through the kernel: one launch a Jacobian apply, Σ (Krylov iterations
+    + 1) over the Newton steps (each CG call applies J to its start)."""
+    from disco4est_tpu_torch import driver
+    from disco4est_tpu_torch.util.config import Options
+
+    opts = Options.load(CDS_OPTIONS)
+    res = driver.run_nonlinear(opts, driver.CDSProblem(opts),
+                               device="cuda")
+    counters = res.trace["counters"]
+    krylov = [k for s in res.solves for k in s.krylov]
+    assert counters["krylov.iterations"] == sum(krylov) > 0
+    assert counters["launches.mass"] == sum(k + 1 for k in krylov)
+
+
 AMR_OPTIONS = """
 [initial_mesh]
 min_level = 3
@@ -512,15 +589,7 @@ def test_curved_sums_are_repeatable_on_the_card(cuda_device):
     assert torch.equal(estimate_bi(mesh, u, res), estimate_bi(mesh, u, res))
 
 
-@pytest.mark.gpu
-def test_nonlinear_cds_on_the_card_matches_the_cpu(cuda_device):
-    """The CDS regression's first level (brick, level 2, deg 2, Newton
-    with CG) on the card equals the CPU run: the same Newton and Krylov
-    counts, L2 to 1e-9 relative."""
-    from disco4est_tpu_torch import driver
-    from disco4est_tpu_torch.util.config import Options
-
-    text = """
+CDS_OPTIONS = """
 [initial_mesh]
 min_level = 2
 region0_deg = 2
@@ -535,6 +604,17 @@ snes_atol = 1e-12
 [d4est_solver_krylov_petsc]
 ksp_type = cg
 """
+
+
+@pytest.mark.gpu
+def test_nonlinear_cds_on_the_card_matches_the_cpu(cuda_device):
+    """The CDS regression's first level (brick, level 2, deg 2, Newton
+    with CG) on the card equals the CPU run: the same Newton and Krylov
+    counts, L2 to 1e-9 relative."""
+    from disco4est_tpu_torch import driver
+    from disco4est_tpu_torch.util.config import Options
+
+    text = CDS_OPTIONS
     runs = [driver.run_nonlinear(Options.load(text),
                                  driver.CDSProblem(Options.load(text)),
                                  device=d) for d in ("cuda", "cpu")]

@@ -378,3 +378,94 @@ def test_probe_on_the_core_shell_interface_is_quick():
     x = mesh.xyz_lobatto[e].reshape(3, -1).numpy()
     assert x[0].min() - 1e-9 <= 10.0 <= x[0].max() + 1e-9
     assert abs(val - 10.0) <= 0.5
+
+
+# --- the mass kernel's gate and operand checks (`csrc/mass_apply.cu` runs
+# only on a card; tests/test_torch_kernel.py holds it to the plain path)
+
+
+def _port_mesh(key):
+    from disco4est_tpu_torch.geometry.cubed_sphere import CubedSphereGeometry
+
+    level, kw = 0, {}
+    if key == "compactified":  # a per-element radial rule
+        geom = CubedSphereGeometry(kind="13tree", R0=1.0, R1=2.0, R2=10.0,
+                                   compactify_outer_shell=True)
+        kw = dict(deg=2, deg_quad=2, compactified_k=4)
+    else:
+        geom = TBrick(dim=2 if key == "brick2d" else 3)
+        level = 1
+        kw = dict(brick=dict(deg=2), brick2d=dict(deg=2),
+                  deg8=dict(deg=8), quad_plus3=dict(deg=2, deg_quad=5))[key]
+    return tbuild(geom, TForest.uniform(geom.conn, level), device="cpu", **kw)
+
+
+# whether the kernel has an instance for the mesh (f64)
+MASS_MESHES = {"brick": True, "brick2d": True, "compactified": False,
+               "deg8": False, "quad_plus3": False}
+
+
+@pytest.mark.parametrize("key", sorted(MASS_MESHES))
+def test_mass_coeff_on_the_cpu_is_the_plain_path(key):
+    """On CPU tensors `apply_mass_coeff` is today's plain expression bit
+    for bit and launches nothing; the kernel's gate takes the meshes it
+    has an instance for and no other."""
+    from disco4est_tpu_torch.laplacian import nonlinear as T
+    from disco4est_tpu_torch.mesh.builder import vol_interp
+
+    mesh = _port_mesh(key)
+    assert T.mass_kernel_fits(mesh, torch.float64) is MASS_MESHES[key]
+    assert T.mass_kernel_fits(mesh, torch.float32) is MASS_MESHES[key]
+    assert not T.mass_kernel_fits(mesh, torch.float16)
+    rng = np.random.default_rng(7)
+    v = torch.as_tensor(rng.standard_normal(
+        (mesh.n_elements,) + (mesh.nl,) * mesh.dim))
+    coeff = torch.as_tensor(rng.standard_normal(
+        (mesh.n_elements,) + (mesh.deg_quad + 1,) * mesh.dim))
+    before = T.KERNEL_LAUNCHES
+    got = T.apply_mass_coeff(mesh, coeff, v)
+    ref = vol_interp(mesh, coeff * vol_interp(mesh, v), transpose=True)
+    assert T.KERNEL_LAUNCHES == before
+    assert torch.equal(got, ref)
+
+
+def _meta(*shape, dtype=torch.float64):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+# each case: (v, coeff) on the deg-2 level-1 brick (E 8, n 3, nq 3)
+MASS_OPERANDS_BAD = {
+    "mixed_types": lambda: (_meta(8, 3, 3, 3, dtype=torch.float32),
+                            _meta(8, 3, 3, 3)),
+    "half": lambda: (_meta(8, 3, 3, 3, dtype=torch.float16),
+                     _meta(8, 3, 3, 3, dtype=torch.float16)),
+    "coeff_shape": lambda: (_meta(8, 3, 3, 3), _meta(8, 4, 4, 4)),
+    "v_shape": lambda: (_meta(8, 27), _meta(8, 3, 3, 3)),
+    "v_not_contiguous": lambda: (_meta(8, 3, 3, 3).transpose(1, 2),
+                                 _meta(8, 3, 3, 3)),
+    "coeff_not_contiguous": lambda: (_meta(8, 3, 3, 3),
+                                     _meta(3, 8, 3, 3).transpose(0, 1)),
+    "devices": lambda: (_meta(8, 3, 3, 3),
+                        torch.zeros((8, 3, 3, 3), dtype=torch.float64)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MASS_OPERANDS_BAD))
+def test_mass_kernel_operand_checks_raise(case):
+    """The kernel wrapper's operand check, on meta tensors (no card):
+    right operands give (E, n, nq), each wrong one raises ValueError, and
+    the wrapper refuses CPU tensors before any launch."""
+    from disco4est_tpu_torch.laplacian import nonlinear as T
+
+    mesh = _port_mesh("brick")
+    assert T.check_mass_operands(mesh, _meta(8, 3, 3, 3),
+                                 _meta(8, 3, 3, 3)) == (8, 3, 3)
+    v, coeff = MASS_OPERANDS_BAD[case]()
+    with pytest.raises(ValueError):
+        T.check_mass_operands(mesh, coeff, v)
+    with pytest.raises(ValueError, match="no instance"):
+        T.check_mass_operands(_port_mesh("deg8"), _meta(1, 9, 9, 9),
+                              _meta(1, 9, 9, 9))
+    with pytest.raises(ValueError, match="CUDA"):
+        T.mass_apply_cuda(mesh, torch.zeros(8, 3, 3, 3, dtype=torch.float64),
+                          torch.zeros(8, 3, 3, 3, dtype=torch.float64))

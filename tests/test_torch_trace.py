@@ -10,7 +10,9 @@
   the record;
 - toy trace-mode cells of the benchmark report the four metrics that
   read the tracer (in a fresh interpreter: the benchmark refuses a
-  process in which JAX is loaded, as this one is).
+  process in which JAX is loaded, as this one is), and the CDS cell
+  `mass_launches_per_iter` (0 on the CPU), whose reader reads nothing
+  from a program without the `launches.mass` counter.
 """
 
 import json
@@ -279,3 +281,26 @@ def test_trace_mode_cell_reports_the_tracer_metrics(toy_lines, name):
     parts = metrics["mesh_faces_s"]
     assert all(parts[f"{p}_s"] > 0
                for p in ("factors", "orient", "mortars", "h2d"))
+
+
+def test_trace_mode_cds_cell_reads_the_mass_launches(toy_lines):
+    """`mass_launches_per_iter` is reported in the CDS cell alone; on the
+    CPU the Jacobian takes the plain path, so it reads 0."""
+    metrics = toy_lines["cds_brick_l5_deg2"]["line"]["metrics"]
+    assert metrics["mass_launches_per_iter"]["value"] == 0.0
+    for name in ("sinx_brick_l5_deg3", "sinx_brick_l5_deg3_f64"):
+        assert "mass_launches_per_iter" not in toy_lines[name]["line"][
+            "metrics"]
+
+
+def test_mass_launches_reader_needs_the_counter():
+    """The reader takes `launches.mass` over the Krylov iterations, and
+    reads nothing from a program without the counter or without
+    iterations."""
+    from benchmark.metrics import mass_launches_per_iter as M
+
+    both = {"krylov.iterations": 40, "launches.mass": 42}
+    assert M.per_iteration({"counters": both}) == pytest.approx(1.05)
+    assert M.per_iteration({"counters": {"krylov.iterations": 40}}) is None
+    assert M.per_iteration({"counters": {"launches.mass": 0}}) is None
+    assert driver._launches()["launches.mass"] >= 0
