@@ -328,6 +328,19 @@ and `nvcc`.  Phases, one or more lines each; any failure exits non-zero:
    `launches.mass` must equal its Jacobian applies, Σ (Krylov iterations
    + 1) over the Newton steps.
 
+19. the multigrid cells' V-cycle (`sinx_brick_l5_deg3_mg`'s options,
+   `driver._build_pc`) against the plain reference V-cycle
+   (`benchmark/reference/vcycle.py`, f64, given the port's Chebyshev
+   bounds) on a seeded random residual at level 5 and level 6 (deg 3, 6
+   and 7 levels): relative max gap ≤ `MG_REF_TOL` (1e-11), the
+   reference's bottom CG pinned to the port's step and its own test
+   within one step of it; then level 5 with its finest level's operator
+   in f32, a planted fault that must fail the tolerance.  Each line
+   gives the bottom steps, the gaps with the bottom one step short and
+   long, λmax, the port's V-cycle wall and the peak memory.  Alone:
+   `python -c "import numpy as np, torch, chip_smoke as c; n, card =
+   c.phase_device(torch); c.phase_mg_reference(torch, np, card)"`.
+
 `python3 chip_smoke.py --nccl=N` on a machine with N cards runs phase 15
 (b)'s CLI with one rank a card (`backend = auto` takes NCCL there) and
 prints the result line.
@@ -4300,6 +4313,126 @@ def phase_oracles(torch, np, card):
           f"{time.perf_counter() - t_phase:.1f} s")
 
 
+MG_REF_TOL = 1e-11  # 19: relative max |port - reference| of one V-cycle
+MG_REF_SIZES = ((5, 3, 1905), (6, 3, 1906))  # (level, deg, seed)
+
+
+def mg_reference_compare(torch, level, deg, seed, f32_level=None):
+    """Phase 19's comparison: one V-cycle of the port (the multigrid
+    configuration's preconditioner, set up by `driver._build_pc` on the
+    level-`level` brick) and one of the plain reference
+    (`benchmark/reference/vcycle.py`, given the port's Chebyshev bounds)
+    on the same seeded random residual, the reference's bottom CG pinned
+    to the step at which the port's stopped (`tests/
+    test_torch_mg_reference.py` gives the reason).  `f32_level` plants
+    the fault of that level's operator applied to and returning f32
+    values.  Returns a dict of the gap and the counts and times."""
+    from benchmark import harness
+    from benchmark.reference.vcycle import VCycle
+    from disco4est_tpu_torch import driver
+    from disco4est_tpu_torch.mesh.builder import build_mesh
+    from disco4est_tpu_torch.mesh.tree import Forest
+    from disco4est_tpu_torch.solvers import multigrid as MG
+    from disco4est_tpu_torch.solvers.cg import cg_solve
+    from disco4est_tpu_torch.util.config import Options
+
+    _, config = harness.load_cell("sinx_brick_l5_deg3_mg")
+    opts = Options.load(harness.options_text(harness.merge(
+        config["options"],
+        {"initial_mesh": {"min_level": level, "region0_deg": deg}})))
+    geom = driver.geometry_from_options(opts)
+    kw = dict(penalty_prefactor=2.0, penalty_fcn="maxp_sqr_over_minh",
+              face_h_type=driver.face_h_from_options(opts))
+    t0 = time.perf_counter()
+    mesh = build_mesh(geom, Forest.uniform(geom.conn, level), deg=deg,
+                      device="cuda", **kw)
+    pc = driver._build_pc(
+        mesh, None, hp=False, pc_type="multigrid",
+        mg_params=driver.mg_params_from_options(opts), mesh_kwargs=kw,
+        overlap=1, subdomain_iter=15, chunk=0, eigs_iters=10, ratio=30.0)
+    setup_s = time.perf_counter() - t0
+    steps = []
+    saved = MG.bottom_cg, MG.level_operator
+
+    def recorded(A, b, x, rtol, iters):
+        steps.append(cg_solve(A, b, x0=x, atol=0.0, rtol=rtol,
+                              max_iter=iters).iterations)
+        return saved[0](A, b, x, rtol, iters)
+
+    def f32(v):
+        return v.float().double()
+
+    def level_operator(hier, A, k):
+        op = saved[1](hier, A, k)
+        return (lambda v: f32(op(f32(v)))) if k == f32_level else op
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    r = torch.randn((mesh.n_elements,) + (deg + 1,) * 3, dtype=torch.float64,
+                    device="cuda", generator=gen)
+    MG.bottom_cg, MG.level_operator = recorded, level_operator
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e = pc.M(r)
+        torch.cuda.synchronize()
+        port_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        MG.bottom_cg, MG.level_operator = saved
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    ref = VCycle(level, deg, pc.state.bounds, device="cuda")
+    ref(r)
+    own = ref.last_bottom_steps
+    ref.bottom_steps = steps[0]
+    e_ref = ref(r)
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    gap = float((e - e_ref).abs().max() / e_ref.abs().max())
+    # the gaps were the reference's bottom one step short or long
+    flips = {}
+    for k in (steps[0] - 1, steps[0] + 1):
+        ref.bottom_steps = k
+        flips[k] = float((e - ref(r)).abs().max() / e_ref.abs().max())
+    return dict(gap=gap, levels=pc.state.n_levels, steps=steps[0], own=own,
+                flips=flips, port_ms=port_ms, ref_s=ref_s, setup_s=setup_s,
+                peak_gib=peak, lmax=pc.state.bounds[0][1])
+
+
+def phase_mg_reference(torch, np, card):
+    """Phase 19: the multigrid cells' V-cycle against the plain reference
+    V-cycle at levels 5 and 6 (deg 3), and the finest level in f32, a
+    planted fault, which must fail the same tolerance."""
+    print(f"[19] the V-cycle against the plain reference on {card}")
+    t_phase = time.perf_counter()
+    cases = [(level, deg, seed, None) for level, deg, seed in MG_REF_SIZES]
+    cases.append(MG_REF_SIZES[0] + (0,))
+    for level, deg, seed, f32_level in cases:
+        out = mg_reference_compare(torch, level, deg, seed, f32_level)
+        what = "sound" if f32_level is None else f"level {f32_level} in f32"
+        flips = ", ".join(f"{k} steps {v:.3e}"
+                          for k, v in out["flips"].items())
+        print(f"[19] level {level}, deg {deg}, seed {seed}, {what}: "
+              f"{out['levels']} levels, rel {out['gap']:.3e} (tolerance "
+              f"{MG_REF_TOL:.0e}); bottom CG {out['steps']} steps (the "
+              f"reference's own test: {out['own']}; pinned to {flips}); "
+              f"lmax {out['lmax']:.6g}; port V-cycle {out['port_ms']:.2f} "
+              f"ms (host wall to a synchronize), reference "
+              f"{out['ref_s']:.2f} s (two cycles), mesh + set-up "
+              f"{out['setup_s']:.2f} s, max_memory_allocated "
+              f"{out['peak_gib']:.2f} GiB", flush=True)
+        if f32_level is None:
+            check(out["gap"] < MG_REF_TOL and abs(out["own"] - out["steps"])
+                  <= 1 and out["steps"] < 100,
+                  f"19: the V-cycle at level {level} misses the reference: "
+                  f"{out}")
+        else:
+            check(out["gap"] > MG_REF_TOL,
+                  f"19: the planted f32 level passed the tolerance: {out}")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    print(f"[19] phase wall {time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     import numpy as np
     import torch
@@ -4331,6 +4464,7 @@ def main():
     phase_dist(torch, np, card)
     bf16_abs, bf16, bf16_launches = phase_bf16(torch, np, card)
     phase_oracles(torch, np, card)
+    phase_mg_reference(torch, np, card)
 
     csrc = "disco4est_tpu_torch/csrc/"
     # B1 and B2 have one entry per timed size; each entry's launches are
@@ -4391,7 +4525,20 @@ def main():
 
 
 def main_nccl(n):
-    """`python3 chip_smoke.py --nccl=N` on a machine with N cards: phase
+    """19. the multigrid cells' V-cycle (`sinx_brick_l5_deg3_mg`'s options,
+   `driver._build_pc`) against the plain reference V-cycle
+   (`benchmark/reference/vcycle.py`, f64, given the port's Chebyshev
+   bounds) on a seeded random residual at level 5 and level 6 (deg 3, 6
+   and 7 levels): relative max gap ≤ `MG_REF_TOL` (1e-11), the
+   reference's bottom CG pinned to the port's step and its own test
+   within one step of it; then level 5 with its finest level's operator
+   in f32, a planted fault that must fail the tolerance.  Each line
+   gives the bottom steps, the gaps with the bottom one step short and
+   long, λmax, the port's V-cycle wall and the peak memory.  Alone:
+   `python -c "import numpy as np, torch, chip_smoke as c; n, card =
+   c.phase_device(torch); c.phase_mg_reference(torch, np, card)"`.
+
+`python3 chip_smoke.py --nccl=N` on a machine with N cards: phase
     15 (b)'s CLI runs on N ranks, one a card (`backend = auto` takes
     NCCL), against the one-process runs and the JAX pins; the last line as
     `main`'s."""

@@ -771,41 +771,52 @@ class _Precond(NamedTuple):
     setup: dict
 
 
+def _setup_steps(device):
+    """(setup, step, sync) of a preconditioner's set-up: `step(name, fn)`
+    runs `fn` in the tracer span `d4est.pc.<name>`, which synchronizes the
+    device at both ends, and keeps the span's seconds as `setup[name]`
+    (`SolveInfo.setup`).  The caller opens the span `d4est.pc` around the
+    steps with the same `sync`, so that it holds their work alone."""
+    setup = {}
+    sync = lambda: _sync(device)
+
+    def step(name, fn):
+        with trace.span(f"d4est.pc.{name}", sync=sync) as sp:
+            out = fn()
+        setup[name] = sp.seconds
+        return out
+
+    return setup, step, sync
+
+
 def _build_pc(mesh: MeshData, rhs, *, hp, pc_type, mg_params, mesh_kwargs,
               overlap, subdomain_iter, chunk, eigs_iters, ratio) -> _Precond:
     """Set up the preconditioner of a preconditioned epoch (JAX
     `driver.py:704-795`) on this epoch's mesh, on the hp operator on
     mixed-degree epochs: multigrid and Schwarz pair with f64 FCG, Chebyshev
-    (bounds from CG-Lanczos on the rhs, 8 steps an apply) with f64 CG."""
+    (bounds from CG-Lanczos on the rhs, 8 steps an apply) with f64 CG.
+    Traced as the span `d4est.pc` around its steps' spans."""
     op = apply_sipg_hp if hp else apply_sipg
     A = lambda v: op(mesh, v)
-    setup = {}
-
-    def step(name, fn):
-        _sync(mesh.device)
-        t = time.perf_counter()
-        out = fn()
-        _sync(mesh.device)
-        setup[name] = time.perf_counter() - t
-        return out
-
-    if pc_type == "multigrid":
-        state = step("hierarchy", lambda: build_hierarchy(
-            mesh, mg_params, mesh_kwargs=mesh_kwargs))
-        step("mg_setup", lambda: mg_setup(state, op, _sin3_seed))
-        M = lambda r: v_cycle(state, op, r, torch.zeros_like(r))
-        solver, path = fcg_solve, "fcg-mg"
-    elif pc_type == "schwarz":
-        state = M = step("schwarz", lambda: _schwarz(
-            mesh, overlap=overlap, subdomain_iter=subdomain_iter,
-            chunk=chunk, hp=hp))
-        solver, path = fcg_solve, "fcg-schwarz"
-    else:  # cheby
-        lmax = step("eigs", lambda: cg_eigs(A, rhs, eigs_iters))[1]
-        state = (lmax / ratio, lmax)
-        M = lambda r: cheby_smooth(A, r, torch.zeros_like(r), state[0],
-                                   state[1], 8)
-        solver, path = cg_solve, "cg-cheby"
+    setup, step, sync = _setup_steps(mesh.device)
+    with trace.span("d4est.pc", sync=sync):
+        if pc_type == "multigrid":
+            state = step("hierarchy", lambda: build_hierarchy(
+                mesh, mg_params, mesh_kwargs=mesh_kwargs))
+            step("mg_setup", lambda: mg_setup(state, op, _sin3_seed))
+            M = lambda r: v_cycle(state, op, r, torch.zeros_like(r))
+            solver, path = fcg_solve, "fcg-mg"
+        elif pc_type == "schwarz":
+            state = M = step("schwarz", lambda: _schwarz(
+                mesh, overlap=overlap, subdomain_iter=subdomain_iter,
+                chunk=chunk, hp=hp))
+            solver, path = fcg_solve, "fcg-schwarz"
+        else:  # cheby
+            lmax = step("eigs", lambda: cg_eigs(A, rhs, eigs_iters))[1]
+            state = (lmax / ratio, lmax)
+            M = lambda r: cheby_smooth(A, r, torch.zeros_like(r), state[0],
+                                       state[1], 8)
+            solver, path = cg_solve, "cg-cheby"
     return _Precond(M, state, solver, path, setup)
 
 
@@ -1180,21 +1191,13 @@ def _build_pc_dist(par: ParallelContext, mesh: MeshData, *, hp, pc_type,
     (`parallel/mg.build_sharded_hierarchy`) and its Chebyshev bounds from
     Lanczos on the level halo operators; one shard-resident V-cycle an
     apply, with FCG.  Its state is the `ShardedHierarchy`."""
-    setup = {}
-
-    def step(name, fn):
-        _sync(par.device)
-        t = time.perf_counter()
-        out = fn()
-        _sync(par.device)
-        setup[name] = time.perf_counter() - t
-        return out
-
+    setup, step, sync = _setup_steps(par.device)
     assert pc_type == "multigrid", pc_type  # the others are refused (C6)
-    sh = step("hierarchy", lambda: build_sharded_hierarchy(
-        build_hierarchy(mesh, mg_params, mesh_kwargs=mesh_kwargs),
-        par.comm))
-    step("mg_setup", lambda: mg_setup_sharded(sh, _sin3_seed))
+    with trace.span("d4est.pc", sync=sync):
+        sh = step("hierarchy", lambda: build_sharded_hierarchy(
+            build_hierarchy(mesh, mg_params, mesh_kwargs=mesh_kwargs),
+            par.comm))
+        step("mg_setup", lambda: mg_setup_sharded(sh, _sin3_seed))
     return _Precond(lambda r: v_cycle_sharded(sh, r, torch.zeros_like(r)),
                     sh, fcg_solve, "fcg-mg" + ("-hp" if hp else "") + "-halo",
                     setup)

@@ -46,6 +46,7 @@ from disco4est_tpu_torch.ops.operators import DB
 from disco4est_tpu_torch.solvers.cheby import cheby_smooth
 from disco4est_tpu_torch.solvers.eigs import cg_eigs
 from disco4est_tpu_torch.solvers.schwarz import _apply_blocks
+from disco4est_tpu_torch.util import trace
 
 SMOOTHERS = ("cheby", "schwarz", "schwarz_overlap", "none")
 BOTTOMS = ("cg", "cheby", "reuse_smoother")
@@ -429,7 +430,15 @@ def bottom_cg(A: Callable, b, x, rtol: float, iters: int):
 
 def v_cycle(hier: MGHierarchy, A: Callable, b, x):
     """One V-cycle with the configured smoother and bottom solver
-    (`multigrid.c:752-1348` + factories :1509-1603)."""
+    (`multigrid.c:752-1348` + factories :1509-1603).
+
+    Traced (`util/trace.py`): one span `d4est.mg.vcycle` a call (no host
+    read inside, so it holds the host's enqueue, and the card's time only
+    where the launch queue fills), and the run's counters `mg.vcycles`,
+    `mg.levels` (its deepest hierarchy) and `mg.applies.fine` /
+    `mg.applies.coarse`, the level operators' applies on the finest and
+    on the coarser levels (the bottom's dense matrix-vector products are
+    not level-operator applies)."""
     p = hier.params
     deg = hier.meshes[0].deg
     dim = hier.meshes[0].dim
@@ -496,8 +505,18 @@ def v_cycle(hier: MGHierarchy, A: Callable, b, x):
         e_s = prolong(lm, to_max(hier.meshes[level + 1], e_c), deg, dim)
         return restrict_to_own(hier.meshes[level], e_s)
 
+    applies = [0, 0]  # finest level, coarser levels
+
+    def counted(level, A_l):
+        k = min(level, 1)
+
+        def op(v):
+            applies[k] += 1
+            return A_l(v)
+        return op
+
     def cycle(level, b_l, x_l):
-        A_l = level_operator(hier, A, level)
+        A_l = counted(level, level_operator(hier, A, level))
         if level == hier.n_levels - 1:
             return bottom(level, A_l, b_l, x_l)
         x_l = smooth(level, A_l, b_l, x_l)
@@ -506,7 +525,13 @@ def v_cycle(hier: MGHierarchy, A: Callable, b, x):
         x_l = x_l + transfer_up(level, e_c)
         return smooth(level, A_l, b_l, x_l)
 
-    return cycle(0, b, x)
+    with trace.span("d4est.mg.vcycle"):
+        out = cycle(0, b, x)
+    trace.count("mg.vcycles")
+    trace.high("mg.levels", hier.n_levels)
+    trace.count("mg.applies.fine", applies[0])
+    trace.count("mg.applies.coarse", applies[1])
+    return out
 
 
 def mg_solve(hier: MGHierarchy, A: Callable, b, x0=None):

@@ -12,9 +12,10 @@ returns.  The closed record is attached to the result as
   `start_ns`, `end_ns`, `parent` (the index of the span open around it
   in this list, -1 at the top) and `run` (the record's `id`);
 - `counters`: `krylov.iterations`, `krylov.reads`, `krylov.host_ns`,
-  `krylov.wait_ns` (see `krylov`) and the deltas over the run of the
+  `krylov.wait_ns` (see `krylov`), the deltas over the run of the
   counters the entry passes to `traced_run` (the driver's B1 and B2
-  launches).
+  launches), and those the run's code adds with `count` or `high` (the
+  V-cycle's `mg.*`).
 
 Two tiers:
 
@@ -66,6 +67,7 @@ class _Run:
         self.open = []  # indices of the spans open, innermost last
         self.krylov = [0, 0, 0, 0]  # iterations, reads, host_ns, wait_ns
         self.krylov_depth = 0
+        self.added = {}  # `count` / `high`
         self.counters = counters
         self.counters0 = counters() if counters else {}
         self.start_ns = _now()
@@ -75,6 +77,7 @@ class _Run:
         counters = dict(zip(("krylov.iterations", "krylov.reads",
                              "krylov.host_ns", "krylov.wait_ns"),
                             self.krylov))
+        counters.update(self.added)
         if self.counters:
             counters.update((k, v - self.counters0[k])
                             for k, v in self.counters().items())
@@ -150,6 +153,22 @@ class span:
     @property
     def seconds(self) -> float:
         return (self.end_ns - self.start_ns) * 1e-9
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add `n` to the current run's counter `name` (nothing outside a
+    run)."""
+    run = getattr(_LOCAL, "run", None)
+    if run is not None:
+        run.added[name] = run.added.get(name, 0) + n
+
+
+def high(name: str, n: int) -> None:
+    """Raise the current run's counter `name` to `n` if it is lower: the
+    largest value of the run (nothing outside a run)."""
+    run = getattr(_LOCAL, "run", None)
+    if run is not None and n > run.added.get(name, n - 1):
+        run.added[name] = n
 
 
 class _Krylov:
