@@ -340,6 +340,23 @@ and `nvcc`.  Phases, one or more lines each; any failure exits non-zero:
    long, λmax, the port's V-cycle wall and the peak memory.  Alone:
    `python -c "import numpy as np, torch, chip_smoke as c; n, card =
    c.phase_device(torch); c.phase_mg_reference(torch, np, card)"`.
+20. the V-cycle as a CUDA graph (`multigrid.MGPreconditioner`) at level
+   5 and level 6 (deg 3; the meshes of `sinx_brick_l5_deg3_mg` and
+   `sinx_brick_l5to6_deg3_mg`): (a) four preconditioner calls (eager,
+   capture, two launches) on seeded residuals, each equal to an eager
+   `v_cycle` bit for bit, with the wall of each call to a synchronize,
+   the host's enqueue and the device time (CUDA events) of one launch,
+   the wall of launches back to back and of eager cycles; (b) the FCG-MG
+   solve of the sinx rhs through `driver._solve_pc` with the graph and
+   with it forced off (`eager=True`): the same FCG steps and `x` bit for
+   bit, the walls, the solves' peak memory and the memory left allocated
+   after the graph is released; (c) one run of each cell's job (its
+   warm-up run first) with the graph off, then on: the run's wall and
+   `torch.cuda.max_memory_allocated` in each phase (mesh, `d4est.pc`,
+   solve, AMR step, the rest), so the phase that sets each cell's peak
+   is on record.  Alone: `python -c "import numpy as np, torch,
+   chip_smoke as c; n, card = c.phase_device(torch); c.phase_mg_graph(
+   torch, np, card)"`.
 
 `python3 chip_smoke.py --nccl=N` on a machine with N cards runs phase 15
 (b)'s CLI with one rank a card (`backend = auto` takes NCCL there) and
@@ -4317,6 +4334,32 @@ MG_REF_TOL = 1e-11  # 19: relative max |port - reference| of one V-cycle
 MG_REF_SIZES = ((5, 3, 1905), (6, 3, 1906))  # (level, deg, seed)
 
 
+def mg_epoch(level, deg):
+    """(mesh, preconditioner) of the multigrid cells' configuration on
+    the level-`level` brick at `deg`, on the card: the mesh and
+    `driver._build_pc` as `run_poisson` makes them."""
+    from benchmark import harness
+    from disco4est_tpu_torch import driver
+    from disco4est_tpu_torch.mesh.builder import build_mesh
+    from disco4est_tpu_torch.mesh.tree import Forest
+    from disco4est_tpu_torch.util.config import Options
+
+    _, config = harness.load_cell("sinx_brick_l5_deg3_mg")
+    opts = Options.load(harness.options_text(harness.merge(
+        config["options"],
+        {"initial_mesh": {"min_level": level, "region0_deg": deg}})))
+    geom = driver.geometry_from_options(opts)
+    kw = dict(penalty_prefactor=2.0, penalty_fcn="maxp_sqr_over_minh",
+              face_h_type=driver.face_h_from_options(opts))
+    mesh = build_mesh(geom, Forest.uniform(geom.conn, level), deg=deg,
+                      device="cuda", **kw)
+    pc = driver._build_pc(
+        mesh, None, hp=False, pc_type="multigrid",
+        mg_params=driver.mg_params_from_options(opts), mesh_kwargs=kw,
+        overlap=1, subdomain_iter=15, chunk=0, eigs_iters=10, ratio=30.0)
+    return mesh, pc
+
+
 def mg_reference_compare(torch, level, deg, seed, f32_level=None):
     """Phase 19's comparison: one V-cycle of the port (the multigrid
     configuration's preconditioner, set up by `driver._build_pc` on the
@@ -4327,29 +4370,12 @@ def mg_reference_compare(torch, level, deg, seed, f32_level=None):
     test_torch_mg_reference.py` gives the reason).  `f32_level` plants
     the fault of that level's operator applied to and returning f32
     values.  Returns a dict of the gap and the counts and times."""
-    from benchmark import harness
     from benchmark.reference.vcycle import VCycle
-    from disco4est_tpu_torch import driver
-    from disco4est_tpu_torch.mesh.builder import build_mesh
-    from disco4est_tpu_torch.mesh.tree import Forest
     from disco4est_tpu_torch.solvers import multigrid as MG
     from disco4est_tpu_torch.solvers.cg import cg_solve
-    from disco4est_tpu_torch.util.config import Options
 
-    _, config = harness.load_cell("sinx_brick_l5_deg3_mg")
-    opts = Options.load(harness.options_text(harness.merge(
-        config["options"],
-        {"initial_mesh": {"min_level": level, "region0_deg": deg}})))
-    geom = driver.geometry_from_options(opts)
-    kw = dict(penalty_prefactor=2.0, penalty_fcn="maxp_sqr_over_minh",
-              face_h_type=driver.face_h_from_options(opts))
     t0 = time.perf_counter()
-    mesh = build_mesh(geom, Forest.uniform(geom.conn, level), deg=deg,
-                      device="cuda", **kw)
-    pc = driver._build_pc(
-        mesh, None, hp=False, pc_type="multigrid",
-        mg_params=driver.mg_params_from_options(opts), mesh_kwargs=kw,
-        overlap=1, subdomain_iter=15, chunk=0, eigs_iters=10, ratio=30.0)
+    mesh, pc = mg_epoch(level, deg)
     setup_s = time.perf_counter() - t0
     steps = []
     saved = MG.bottom_cg, MG.level_operator
@@ -4433,6 +4459,190 @@ def phase_mg_reference(torch, np, card):
     print(f"[19] phase wall {time.perf_counter() - t_phase:.1f} s")
 
 
+MG_GRAPH_LEVELS = (5, 6)  # 20 (a), (b): the multigrid cells' levels, deg 3
+MG_GRAPH_LAUNCHES = 10  # 20 (a): graph launches timed back to back
+MG_GRAPH_CELLS = ("sinx_brick_l5_deg3_mg", "sinx_brick_l5to6_deg3_mg")
+MG_GRAPH_SEED = 2147483020  # 20 (c): the cells' job seed
+# 20 (c): the driver calls whose peaks are read, by phase
+MG_GRAPH_PHASES = (("mesh", "build_mesh"), ("pc", "_build_pc"),
+                   ("solve", "_solve_pc"), ("amr", "amr_step_hp"))
+
+
+def _gib(n):
+    return n / 2**30
+
+
+def _event_ms(torch, fn):
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def mg_graph_calls(torch, level):
+    """20 (a): the preconditioner's calls at `level`, each against an
+    eager cycle; returns the numbers of the line."""
+    from disco4est_tpu_torch.laplacian.sipg import apply_sipg
+    from disco4est_tpu_torch.solvers import multigrid as MG
+
+    mesh, pc = mg_epoch(level, 3)
+    hier = pc.state
+    gen = torch.Generator(device="cuda").manual_seed(2000 + level)
+    rs = [torch.randn((mesh.n_elements, 4, 4, 4), dtype=torch.float64,
+                      device="cuda", generator=gen) for _ in range(4)]
+
+    def eager(r):
+        return MG.v_cycle(hier, apply_sipg, r, torch.zeros_like(r))
+
+    M = MG.mg_preconditioner(hier, apply_sipg)
+    walls, outs = [], []
+    for r in rs:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs.append(M(r))
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    check(M.graph is not None, f"20 (a): no graph at level {level}")
+    gap = max(float((o - eager(r)).abs().max()) for o, r in zip(outs, rs))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    M(rs[0])
+    enqueue = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    device = _event_ms(torch, lambda: M(rs[1]))
+    launches = _wall_ms(torch, lambda: M(rs[2]), MG_GRAPH_LAUNCHES)
+    eager_ms = _wall_ms(torch, lambda: eager(rs[3]), 3)
+    M.release()
+    return dict(levels=hier.n_levels, walls=walls, gap=gap, enqueue=enqueue,
+                device=device, launches=launches, eager=eager_ms)
+
+
+def mg_graph_solve(torch, level):
+    """20 (b): the FCG-MG solve of the sinx rhs at `level`, graph off
+    then on; returns {mode: (info, x, peak bytes, bytes left allocated
+    by the solve beside its answer)}."""
+    from disco4est_tpu_torch import driver
+    from disco4est_tpu_torch.laplacian.sipg import apply_sipg
+    from disco4est_tpu_torch.problems.poisson import SinxProblem
+    from disco4est_tpu_torch.solvers import multigrid as MG
+
+    mesh, pc = mg_epoch(level, 3)
+    rhs = driver.build_rhs_with_strong_bc(
+        mesh, mesh.init_field(SinxProblem.rhs),
+        mesh.boundary_values(SinxProblem.boundary))
+    out = {}
+    for mode in ("eager", "graph"):
+        M = MG.mg_preconditioner(pc.state, apply_sipg,
+                                 eager=mode == "eager")
+        x0 = torch.zeros_like(rhs)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        info, x = driver._solve_pc(mesh, rhs, x0, hp=False,
+                                   pc=pc._replace(M=M))
+        check(M.graph is None and M.b is None,
+              f"20 (b): the graph outlived the solve at level {level}")
+        left = torch.cuda.memory_allocated() - before - x.numel() * 8
+        out[mode] = (info, x, torch.cuda.max_memory_allocated(), left)
+    return out
+
+
+def mg_graph_cell(torch, name, eager):
+    """20 (c): one run of cell `name`'s job after its warm-up run, graph
+    off (`eager`) or on: (wall s, {phase: peak bytes}, bytes allocated
+    before the run)."""
+    import functools
+
+    from benchmark import harness
+    from disco4est_tpu_torch import driver
+    from disco4est_tpu_torch.solvers import multigrid as MG
+
+    cell, config = harness.load_cell(name)
+    job = harness.Job(cell, config, MG_GRAPH_SEED, "cuda")
+    saved = {attr: getattr(driver, attr)
+             for attr in [a for _, a in MG_GRAPH_PHASES]
+             + ["mg_preconditioner"]}
+    peaks = dict.fromkeys([p for p, _ in MG_GRAPH_PHASES] + ["rest"], 0)
+
+    def rest():
+        torch.cuda.synchronize()
+        peaks["rest"] = max(peaks["rest"], torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+
+    def wrapped(phase, fn):
+        def call(*args, **kwargs):
+            rest()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                torch.cuda.synchronize()
+                peaks[phase] = max(peaks[phase],
+                                   torch.cuda.max_memory_allocated())
+                torch.cuda.reset_peak_memory_stats()
+        return call
+
+    driver.mg_preconditioner = functools.partial(MG.mg_preconditioner,
+                                                 eager=eager)
+    try:
+        job(0)
+        for phase, attr in MG_GRAPH_PHASES:
+            setattr(driver, attr, wrapped(phase, saved[attr]))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        job(1)
+        wall = time.perf_counter() - t0
+        rest()
+    finally:
+        for attr, fn in saved.items():
+            setattr(driver, attr, fn)
+    return wall, peaks, base
+
+
+def phase_mg_graph(torch, np, card):
+    """Phase 20: the V-cycle as a CUDA graph against the eager cycle, its
+    walls, and the peak memory by phase of the multigrid cells' runs."""
+    print(f"[20] the V-cycle as a CUDA graph on {card}")
+    t_phase = time.perf_counter()
+    for level in MG_GRAPH_LEVELS:
+        a = mg_graph_calls(torch, level)
+        walls = ", ".join(f"{w:.2f}" for w in a["walls"])
+        print(f"[20] (a) level {level} ({a['levels']} levels): calls "
+              f"eager, capture, launch, launch {walls} ms (wall to a "
+              f"synchronize); max |graph - eager| {a['gap']:.3e}; a "
+              f"launch's enqueue {a['enqueue']:.3f} ms, device "
+              f"{a['device']:.3f} ms (CUDA events); {MG_GRAPH_LAUNCHES} "
+              f"launches back to back {a['launches']:.3f} ms each; eager "
+              f"cycles {a['eager']:.3f} ms each", flush=True)
+        check(a["gap"] == 0.0,
+              f"20 (a): the graph's cycle differs at level {level}: {a}")
+        b = mg_graph_solve(torch, level)
+        (ie, xe, pe, le), (ig, xg, pg, lg) = b["eager"], b["graph"]
+        gap = float((xg - xe).abs().max())
+        print(f"[20] (b) level {level} FCG-MG: steps eager {ie.iterations}, "
+              f"graph {ig.iterations}; max |x_graph - x_eager| {gap:.3e}; "
+              f"solve {ie.seconds:.3f} s eager, {ig.seconds:.3f} s graph; "
+              f"peak {_gib(pe):.4f} / {_gib(pg):.4f} GiB, bytes left "
+              f"allocated beside the answer {le} / {lg}", flush=True)
+        check(ie.iterations == ig.iterations and gap == 0.0,
+              f"20 (b): the graphed solve differs at level {level}")
+        check(lg <= max(le, 0),
+              f"20 (b): the graphed solve left {lg} bytes at level {level}")
+        torch.cuda.empty_cache()
+    for name in MG_GRAPH_CELLS:
+        for eager in (True, False):
+            wall, peaks, base = mg_graph_cell(torch, name, eager)
+            parts = ", ".join(f"{k} {_gib(v):.4f}" for k, v in peaks.items())
+            print(f"[20] (c) {name}, graph {'off' if eager else 'on'}: run "
+                  f"{wall:.3f} s; peak GiB by phase: {parts}; allocated "
+                  f"before the run {_gib(base):.4f} GiB", flush=True)
+            torch.cuda.empty_cache()
+    print(f"[20] phase wall {time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     import numpy as np
     import torch
@@ -4465,6 +4675,7 @@ def main():
     bf16_abs, bf16, bf16_launches = phase_bf16(torch, np, card)
     phase_oracles(torch, np, card)
     phase_mg_reference(torch, np, card)
+    phase_mg_graph(torch, np, card)
 
     csrc = "disco4est_tpu_torch/csrc/"
     # B1 and B2 have one entry per timed size; each entry's launches are
@@ -4525,20 +4736,7 @@ def main():
 
 
 def main_nccl(n):
-    """19. the multigrid cells' V-cycle (`sinx_brick_l5_deg3_mg`'s options,
-   `driver._build_pc`) against the plain reference V-cycle
-   (`benchmark/reference/vcycle.py`, f64, given the port's Chebyshev
-   bounds) on a seeded random residual at level 5 and level 6 (deg 3, 6
-   and 7 levels): relative max gap ≤ `MG_REF_TOL` (1e-11), the
-   reference's bottom CG pinned to the port's step and its own test
-   within one step of it; then level 5 with its finest level's operator
-   in f32, a planted fault that must fail the tolerance.  Each line
-   gives the bottom steps, the gaps with the bottom one step short and
-   long, λmax, the port's V-cycle wall and the peak memory.  Alone:
-   `python -c "import numpy as np, torch, chip_smoke as c; n, card =
-   c.phase_device(torch); c.phase_mg_reference(torch, np, card)"`.
-
-`python3 chip_smoke.py --nccl=N` on a machine with N cards: phase
+    """`python3 chip_smoke.py --nccl=N` on a machine with N cards: phase
     15 (b)'s CLI runs on N ranks, one a card (`backend = auto` takes
     NCCL), against the one-process runs and the JAX pins; the last line as
     `main`'s."""

@@ -162,7 +162,9 @@ from disco4est_tpu_torch.solvers.multigrid import (
     BOTTOMS,
     SMOOTHERS,
     MGParams,
+    MGPreconditioner,
     build_hierarchy,
+    mg_preconditioner,
     mg_setup,
     set_matrix_operator,
     v_cycle,
@@ -770,6 +772,12 @@ class _Precond(NamedTuple):
     path: str
     setup: dict
 
+    def release(self):
+        """Free what the apply holds for its epoch alone (the V-cycle's
+        CUDA graph and static buffers), once the epoch's solve is over."""
+        if isinstance(self.M, MGPreconditioner):
+            self.M.release()
+
 
 def _setup_steps(device):
     """(setup, step, sync) of a preconditioner's set-up: `step(name, fn)`
@@ -793,9 +801,11 @@ def _build_pc(mesh: MeshData, rhs, *, hp, pc_type, mg_params, mesh_kwargs,
               overlap, subdomain_iter, chunk, eigs_iters, ratio) -> _Precond:
     """Set up the preconditioner of a preconditioned epoch (JAX
     `driver.py:704-795`) on this epoch's mesh, on the hp operator on
-    mixed-degree epochs: multigrid and Schwarz pair with f64 FCG, Chebyshev
-    (bounds from CG-Lanczos on the rhs, 8 steps an apply) with f64 CG.
-    Traced as the span `d4est.pc` around its steps' spans."""
+    mixed-degree epochs: multigrid (one V-cycle an apply, replayed as a
+    CUDA graph where `graph_eligible`: `MGPreconditioner`) and Schwarz pair
+    with f64 FCG, Chebyshev (bounds from CG-Lanczos on the rhs, 8 steps an
+    apply) with f64 CG.  Traced as the span `d4est.pc` around its steps'
+    spans."""
     op = apply_sipg_hp if hp else apply_sipg
     A = lambda v: op(mesh, v)
     setup, step, sync = _setup_steps(mesh.device)
@@ -804,7 +814,7 @@ def _build_pc(mesh: MeshData, rhs, *, hp, pc_type, mg_params, mesh_kwargs,
             state = step("hierarchy", lambda: build_hierarchy(
                 mesh, mg_params, mesh_kwargs=mesh_kwargs))
             step("mg_setup", lambda: mg_setup(state, op, _sin3_seed))
-            M = lambda r: v_cycle(state, op, r, torch.zeros_like(r))
+            M = mg_preconditioner(state, op)
             solver, path = fcg_solve, "fcg-mg"
         elif pc_type == "schwarz":
             state = M = step("schwarz", lambda: _schwarz(
@@ -823,13 +833,15 @@ def _build_pc(mesh: MeshData, rhs, *, hp, pc_type, mg_params, mesh_kwargs,
 def _solve_pc(mesh: MeshData, rhs, x0, *, hp, pc: _Precond):
     """A preconditioned epoch (JAX `_linear_solve_fcg_mg(_hp)`,
     `_linear_solve_fcg_schwarz(_hp)`, `_linear_solve_cg_cheby(_hp)`): `pc`'s
-    solver on the operator, the hp one on mixed-degree epochs."""
+    solver on the operator, the hp one on mixed-degree epochs; `pc`'s
+    epoch-long buffers are released when it returns."""
     op = apply_sipg_hp if hp else apply_sipg
     _sync(mesh.device)
     t0 = time.perf_counter()
     res = pc.solver(lambda v: op(mesh, v), rhs, x0=x0, M=pc.M, atol=5e-15,
                     rtol=1e-20, max_iter=10000)
     _sync(mesh.device)
+    pc.release()
     info = SolveInfo(
         path=pc.path + ("-hp" if hp else ""), outer_iterations=0,
         iterations=res.iterations, residual_norm=res.residual_norm,
@@ -868,6 +880,8 @@ def _solve_chunked(mesh: MeshData, rhs, x0, *, hp, ksp, pc, every_n, save):
             break
         k_cap += every_n
     _sync(mesh.device)
+    if pc is not None:
+        pc.release()
     info = SolveInfo(
         path="-".join(parts + ["chunked"]), outer_iterations=0,
         iterations=res.iterations, residual_norm=res.residual_norm,

@@ -527,6 +527,11 @@ def v_cycle(hier: MGHierarchy, A: Callable, b, x):
 
     with trace.span("d4est.mg.vcycle"):
         out = cycle(0, b, x)
+    # `cycle` calls itself through its closure cell: emptying the cell
+    # breaks that reference cycle, which would otherwise keep the
+    # hierarchy (its meshes and fields) alive until Python's cyclic
+    # collector runs, after the epoch and perhaps into the next one
+    del cycle
     trace.count("mg.vcycles")
     trace.high("mg.levels", hier.n_levels)
     trace.count("mg.applies.fine", applies[0])
@@ -551,7 +556,114 @@ def mg_solve(hier: MGHierarchy, A: Callable, b, x0=None):
     return x, hist
 
 
-def mg_preconditioner(hier: MGHierarchy, A: Callable):
+def graph_eligible(hier: MGHierarchy, device) -> bool:
+    """Whether `MGPreconditioner` replays this hierarchy's V-cycle as a
+    CUDA graph: a field on a card, a single-degree hierarchy, a Chebyshev
+    smoother or none, and a CG or Chebyshev bottom.  The Schwarz
+    smoothers and hp hierarchies stay eager."""
+    p = hier.params
+    return (torch.device(device).type == "cuda" and not hier.hp
+            and p.smoother in ("cheby", "none")
+            and p.bottom in ("cg", "cheby"))
+
+
+def _capture(fn):
+    """(graph, out): `out = fn()` captured as a CUDA graph, not run."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    return graph, out
+
+
+class MGPreconditioner:
     """One V-cycle from a zero guess as a Krylov preconditioner
-    (`d4est_krylov_pc_multigrid.c`)."""
-    return lambda r: v_cycle(hier, A, r, torch.zeros_like(r))
+    (`d4est_krylov_pc_multigrid.c`), replayed as a CUDA graph where
+    `graph_eligible`.
+
+    The cycle reads nothing back and its Chebyshev scalars are host
+    floats fixed by `mg_setup`, so it is one fixed sequence of launches
+    for the epoch.  The first call runs `v_cycle` eagerly (it fills the
+    lazy device tables, which a capture cannot make); the second copies
+    `r` into a static input and captures `v_cycle` on it, from zeros made
+    inside the capture, then launches the graph; every later call copies
+    `r` in and launches it again.  Each call returns a fresh tensor.  A
+    capture that raises leaves the epoch on eager cycles (counter
+    `mg.graph.fallbacks`).  `eager=True` keeps every call eager.
+
+    Traced: each call is one span `d4est.mg.vcycle` and adds the cycle's
+    counters (`mg.vcycles`, `mg.applies.*`); a graph launch's span holds
+    the copy and the launch, and the card's time falls in the caller's
+    next read.  The capture call's `v_cycle` span lies in a span
+    `d4est.mg.graph.capture` that also holds the instantiation and the
+    first launch.  Counters `mg.graph.captures` and `mg.graph.replays`
+    (graph launches, the capture call's included).
+
+    The object belongs to one epoch: the hierarchy must not change after
+    the second call, every `r` has the second call's shape and dtype, and
+    `release` frees the graph, its memory pool and the static buffers
+    when the epoch's solve is over."""
+
+    def __init__(self, hier: MGHierarchy, A: Callable, *, eager=False):
+        self.hier, self.A, self.eager = hier, A, eager
+        self.calls = 0
+        self.graph = self.b = self.out = self.counts = None
+
+    def _cycle(self, r):
+        return v_cycle(self.hier, self.A, r, torch.zeros_like(r))
+
+    def __call__(self, r):
+        self.calls += 1
+        if self.graph is not None:
+            with trace.span("d4est.mg.vcycle"):
+                self.b.copy_(r)
+                self.graph.replay()
+                out = self.out.clone()
+            self._launched()
+            return out
+        if (self.calls == 2 and not self.eager
+                and graph_eligible(self.hier, r.device)):
+            out = self._capture(r)
+            if out is not None:
+                return out
+        return self._cycle(r)
+
+    def _capture(self, r):
+        b = r.clone()
+        try:
+            with trace.span("d4est.mg.graph.capture"), \
+                    trace.tally() as counts:
+                graph, out = _capture(lambda: self._cycle(b))
+                graph.replay()
+        except RuntimeError:
+            trace.count("mg.graph.fallbacks")
+            return None
+        self.graph, self.b, self.out, self.counts = graph, b, out, counts
+        trace.count("mg.graph.captures")
+        self._launched()
+        return out.clone()
+
+    def _launched(self):
+        self.counts.add()
+        trace.count("mg.graph.replays")
+
+    def release(self):
+        """Drop the graph, its pool and the static buffers; later calls
+        run eagerly.  cuBLAS keeps a workspace for each stream it has run
+        on (32 MiB on an H100), allocated through the caching allocator:
+        the capture stream's lies in the graph's pool and would stay
+        allocated for the life of the process, so the workspaces are
+        cleared too (the next cuBLAS call makes its stream's again)."""
+        if self.graph is None:
+            return
+        cuda = self.b.device.type == "cuda"
+        if cuda:
+            torch.cuda.synchronize(self.b.device)
+        self.graph = self.b = self.out = self.counts = None
+        if cuda:
+            torch._C._cuda_clearCublasWorkspaces()
+
+
+def mg_preconditioner(hier: MGHierarchy, A: Callable, *, eager=False):
+    """One V-cycle from a zero guess as a Krylov preconditioner
+    (`d4est_krylov_pc_multigrid.c`): an `MGPreconditioner`."""
+    return MGPreconditioner(hier, A, eager=eager)

@@ -15,7 +15,7 @@ returns.  The closed record is attached to the result as
   `krylov.wait_ns` (see `krylov`), the deltas over the run of the
   counters the entry passes to `traced_run` (the driver's B1 and B2
   launches), and those the run's code adds with `count` or `high` (the
-  V-cycle's `mg.*`).
+  V-cycle's `mg.*`), directly or through a `tally` (a replayed graph's).
 
 Two tiers:
 
@@ -43,7 +43,7 @@ import torch
 RUNS_KEPT = 1024  # records kept; a 51-s benchmark window makes ~50-100 runs
 _RUNS: collections.deque = collections.deque(maxlen=RUNS_KEPT)
 _IDS = itertools.count(1)
-_LOCAL = threading.local()  # `run`: the record open in this thread
+_LOCAL = threading.local()  # `run`: the open record; `tallies`: see `tally`
 _now = time.perf_counter_ns
 
 
@@ -155,20 +155,57 @@ class span:
         return (self.end_ns - self.start_ns) * 1e-9
 
 
+def _counters(kind: str):
+    """Where `count` ("counts") and `high` ("highs") write: the innermost
+    open `tally`, else the current run's counters, else nowhere."""
+    tallies = getattr(_LOCAL, "tallies", None)
+    if tallies:
+        return getattr(tallies[-1], kind)
+    run = getattr(_LOCAL, "run", None)
+    return None if run is None else run.added
+
+
 def count(name: str, n: int = 1) -> None:
     """Add `n` to the current run's counter `name` (nothing outside a
     run)."""
-    run = getattr(_LOCAL, "run", None)
-    if run is not None:
-        run.added[name] = run.added.get(name, 0) + n
+    added = _counters("counts")
+    if added is not None:
+        added[name] = added.get(name, 0) + n
 
 
 def high(name: str, n: int) -> None:
     """Raise the current run's counter `name` to `n` if it is lower: the
     largest value of the run (nothing outside a run)."""
-    run = getattr(_LOCAL, "run", None)
-    if run is not None and n > run.added.get(name, n - 1):
-        run.added[name] = n
+    added = _counters("highs")
+    if added is not None and n > added.get(name, n - 1):
+        added[name] = n
+
+
+class tally:
+    """`with tally() as t:` keeps the counts that `count` and `high` make
+    inside it in `t` (in or outside a run), and not in the run;
+    `t.add()` makes them in the current run, as often as it is called.
+    A captured CUDA graph runs its body's Python once, so each of its
+    launches adds the capture's counts this way."""
+
+    __slots__ = ("counts", "highs")
+
+    def __init__(self):
+        self.counts, self.highs = {}, {}
+
+    def __enter__(self):
+        _LOCAL.__dict__.setdefault("tallies", []).append(self)
+        return self
+
+    def __exit__(self, *exc):
+        _LOCAL.tallies.pop()
+        return False
+
+    def add(self) -> None:
+        for name, n in self.counts.items():
+            count(name, n)
+        for name, n in self.highs.items():
+            high(name, n)
 
 
 class _Krylov:
