@@ -4114,7 +4114,7 @@ def bf16_mixed_solve(torch, card, level):
           f"pinned {pin}")
     x, how = res.x, "the bf16 mixed solve"
     if fallback:
-        # what the driver does then (`driver._solve`'s plain_solve)
+        # what the driver does then (`driver._solve`'s f64 fallback)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         cg = cg_solve(lambda v: apply_sipg(mesh, v), rhs,

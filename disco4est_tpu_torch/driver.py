@@ -153,7 +153,7 @@ from disco4est_tpu_torch.problems import (
     two_punctures,
 )
 from disco4est_tpu_torch.quadrature.quadrature import Quadrature
-from disco4est_tpu_torch.solvers.cg import cg_solve
+from disco4est_tpu_torch.solvers.cg import CGResult, cg_solve
 from disco4est_tpu_torch.solvers.cheby import cheby_smooth
 from disco4est_tpu_torch.solvers.eigs import cg_eigs
 from disco4est_tpu_torch.solvers.fcg import fcg_solve
@@ -277,10 +277,11 @@ _BOTTOM_MAP = {
 }
 
 
-def mg_plugin_names(opts: Options):
-    """[multigrid] smoother/bottom plugins, in the short names or the
-    reference's `smoother_name = mg_smoother_*` vocabulary
-    (`d4est_solver_multigrid.c` factories); an unknown name raises."""
+def mg_params_from_options(opts: Options) -> MGParams:
+    """The `[mg_smoother_cheby]` bounds options and the [multigrid]
+    smoother/bottom plugins, in the short names or the reference's
+    `smoother_name = mg_smoother_*` vocabulary (`d4est_solver_multigrid.c`
+    factories); an unknown name raises."""
     sm = opts.get("multigrid", "smoother_name",
                   opts.get("multigrid", "smoother", "cheby"))
     bt = opts.get("multigrid", "bottom_solver_name",
@@ -291,12 +292,6 @@ def mg_plugin_names(opts: Options):
         raise ValueError(f"unknown [multigrid] smoother {sm!r}")
     if bt not in BOTTOMS:
         raise ValueError(f"unknown [multigrid] bottom solver {bt!r}")
-    return sm, bt
-
-
-def mg_params_from_options(opts: Options) -> MGParams:
-    """The `[mg_smoother_cheby]` bounds options and the plugins."""
-    sm, bt = mg_plugin_names(opts)
     return MGParams(
         n_smooth=opts.get_int("mg_smoother_cheby", "cheby_imax", 8),
         eigs_cg_iters=opts.get_int("mg_smoother_cheby",
@@ -321,11 +316,12 @@ class SolveInfo:
     #            (preconditioned paths: "-hp" on mixed-degree epochs);
     #            under [parallelism] "mixed-halo" | "cg-halo" | "fcg-halo"
     #            | "cg-hp-halo" | "fcg-mg[-hp]-halo"
-    outer_iterations: int  # refinement steps (0 for a plain Krylov solve)
+    _: dataclasses.KW_ONLY
+    outer_iterations: int = 0  # refinement steps (0 for a plain Krylov solve)
     iterations: int  # inner f32 iterations, or the plain solve's
     residual_norm: float
     rhs_norm: float  # ‖b‖, the scale of the fallback test 1e-10·(1 + ‖b‖)
-    fallback: bool  # True when the f64 fallback solve ran
+    fallback: bool = False  # True when the f64 fallback solve ran
     seconds: float  # the solve, preconditioner set-up excluded
     setup: dict = dataclasses.field(default_factory=dict)
     #              preconditioner set-up seconds by step (hierarchy,
@@ -367,13 +363,6 @@ class DriverResult:
     parallel: str = ""  # under [parallelism]: the ranks and the backend
     trace: dict | None = None  # the run's record of spans and counters
     #                            (`util/trace.py`)
-
-
-def _refuse_unported(opts: Options):
-    """Options the port refuses before it starts."""
-    pc_type = opts.get("d4est_solver_krylov_petsc", "pc_type", "none")
-    if pc_type not in ("none", "schwarz", "multigrid", "cheby"):
-        raise ValueError(f"unknown pc_type: {pc_type!r}")
 
 
 class _PhaseTimer:
@@ -462,18 +451,18 @@ class _Checkpointer:
     def midsolve(self) -> bool:
         return bool(self.prefix) and self.every_n > 0
 
-    def save_level(self, forest, it, fields, deg, history, extra):
+    def save_level(self, forest, it, fields, deg, history, sp_state,
+                   **extra):
+        """`<prefix>_level<it>.npz`, whose JSON extra holds the level and
+        the smooth_pred predictor (float repr is exact)."""
+        pred = None if sp_state is None else sp_state.predictor.tolist()
         ckpt_io.save(f"{self.prefix}_level{it}", forest, fields, deg=deg,
-                     amr_history=history, extra=extra)
+                     amr_history=history,
+                     extra=dict(extra, level=it, predictor=pred))
 
     def save_midsolve(self, forest, it, k, u, deg):
         ckpt_io.save(f"{self.prefix}_level{it}_it{k}", forest, {"u": u},
                      deg=deg, extra={"mid_solve_iteration": int(k)})
-
-
-def _predictor_json(sp_state):
-    """The smooth_pred predictor as checkpoint JSON (float repr is exact)."""
-    return None if sp_state is None else sp_state.predictor.tolist()
 
 
 def _launches() -> dict:
@@ -484,6 +473,128 @@ def _launches() -> dict:
                             + structured.KERNEL_LAUNCHES_BF16),
             "launches.b2": fused.KERNEL_LAUNCHES + fused.KERNEL_LAUNCHES_BF16,
             "launches.mass": nonlinear.KERNEL_LAUNCHES}
+
+
+def _mark(scheme, deg_e, eta2, sp_state, sp_params, dim):
+    """One AMR step's marks `(log, predictor)`: uniform_h refines every
+    element, uniform_p raises every degree by one up to `max_degree`,
+    smooth_pred marks from `eta2` and the predictor (None off it)."""
+    if scheme == "uniform_h":
+        return -deg_e.astype(np.int64), None
+    if scheme == "uniform_p":
+        return (np.minimum(deg_e + 1, sp_params.max_degree).astype(np.int64),
+                None)
+    if sp_state is None or len(sp_state.predictor) != len(deg_e):
+        sp_state = SmoothPredState.fresh(len(deg_e), sp_params)
+    return smooth_pred_mark(eta2, deg_e, sp_state, sp_params, dim=dim)
+
+
+class _RunSetup:
+    """What `run_poisson` and `run_nonlinear` read and make before their
+    AMR loop, and its records; `start` is `_restart_state`'s tuple or
+    level 0 of the initial mesh."""
+
+    def __init__(self, opts: Options, device, *, nonlinear: bool):
+        device = resolve_device(device)
+        # IEEE f32 products everywhere: reduced-precision (TF32) products
+        # make the inner f32 CG diverge, as the JAX package found on the
+        # TPU.  The SIPG kernels' bf16 mode runs only where a caller asks
+        # for precision="bf16"; the driver's inner solves take the f32
+        # default (its bf16 inner CG diverges on the level-5 brick,
+        # ROADMAP C19)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        pc_type = opts.get("d4est_solver_krylov_petsc", "pc_type", "none")
+        if pc_type not in ("none", "schwarz", "multigrid", "cheby"):
+            raise ValueError(f"unknown pc_type: {pc_type!r}")
+        self.opts = opts
+        self.ckpt = _Checkpointer(opts)
+        mg_params = (mg_params_from_options(opts) if pc_type == "multigrid"
+                     else None)
+        # the group forms before the rest is read, so that a rank that
+        # fails on its options ends the others' collectives
+        self.par = par = ParallelContext.from_options(
+            opts, device, refuse=_parallel_refusals(
+                pc_type, mg_params, self.ckpt.midsolve, nonlinear))
+        self.device = device if par is None else par.device
+        self.rank0 = par is None or par.rank == 0
+        self.geom = geometry_from_options(opts)
+        level = opts.get_int("initial_mesh", "min_level", required=True)
+        self.deg = deg = opts.get_int("initial_mesh", "region0_deg", 1)
+        self.dq_inc = opts.get_int("initial_mesh", "region0_deg_quad_inc", 0)
+        quad_name = opts.get("quadrature", "name", "legendre")
+        self.quad = Quadrature("legendre" if quad_name == "legendre"
+                               else "lobatto")
+        self.prefactor = opts.get_float("flux", "sipg_penalty_prefactor", 2.0)
+        self.penalty = dict(
+            penalty_prefactor=self.prefactor,
+            penalty_fcn=opts.get("flux", "sipg_penalty_fcn",
+                                 "maxp_sqr_over_minh"),
+            face_h_type=face_h_from_options(opts))
+        self.pc_opts = dict(
+            pc_type=pc_type,
+            mg_params=mg_params,
+            # the coarse levels take the fine mesh's penalty options (C12)
+            mesh_kwargs=self.penalty,
+            overlap=opts.get_int("d4est_solver_schwarz", "num_nodes_overlap",
+                                 1),
+            subdomain_iter=opts.get_int("d4est_solver_schwarz",
+                                        "subdomain_iter", 15),
+            # > 0 selects the K-slot variant: resident index tables instead
+            # of the 27x replicated mesh
+            chunk=opts.get_int("d4est_solver_schwarz", "subdomain_chunk", 0),
+            eigs_iters=opts.get_int("mg_smoother_cheby", "cheby_eigs_cg_imax",
+                                    10),
+            ratio=opts.get_float("mg_smoother_cheby",
+                                 "cheby_eigs_lmax_lmin_ratio", 30.0),
+        )
+        self.sp_params = SmoothPredParams(
+            gamma_h=opts.get_float("amr", "gamma_h", 10.0),
+            gamma_p=opts.get_float("amr", "gamma_p", 0.1),
+            gamma_n=opts.get_float("amr", "gamma_n", 1.0),
+            percentile=opts.get_float("amr", "percentile", 25.0),
+            # max_degree defaults to the initial degree, so uniform_p
+            # changes nothing unless [mesh_parameters] max_degree is set
+            # (JAX parity)
+            max_degree=(deg if nonlinear else opts.get_int(
+                "mesh_parameters", "max_degree", deg)),
+            initial_pred=opts.get_float("amr", "initial_pred", 0.0),
+        )
+        self.n_amr = opts.get_int("amr", "num_of_amr_steps", 0)
+        self.vtk_base = opts.get("d4est_vtk", "filename", None)
+        self.start = _restart_state(opts, self.geom, self.device) or (
+            Forest.uniform(self.geom.conn, level), 0, {"u": None}, deg, [],
+            {})
+        pred = self.start[-1].get("predictor")
+        self.sp_state = (None if pred is None
+                         else SmoothPredState(np.asarray(pred)))
+        self.norms, self.solves, self.eta2_history = NormLog(), [], []
+
+    def mesh(self, forest, deg, deg_e) -> MeshData:
+        """One epoch's mesh at storage degree `deg`."""
+        return build_mesh(self.geom, forest, deg=deg, quad=self.quad,
+                          deg_quad=deg + self.dq_inc, deg_e=deg_e,
+                          device=self.device, **self.penalty)
+
+    def estimate(self, mesh: MeshData, u, F, g):
+        """η² per element (host numpy, kept) of the bi estimator on the
+        residual `F`; rank 0's decides the marks of a distributed run."""
+        eta2 = estimate_bi(
+            mesh, u, F, g=g, penalty_prefactor=self.prefactor,
+            vol_h=vol_h_from_options(self.opts),
+        ).cpu().numpy()
+        if self.par is not None:
+            eta2 = self.par.comm.broadcast(eta2)
+        self.eta2_history.append(eta2)
+        return eta2
+
+    def result(self, mesh, u, precond, **kw) -> DriverResult:
+        par = self.par
+        return DriverResult(
+            mesh=mesh, u=u, norms=self.norms, solves=self.solves,
+            eta2_history=self.eta2_history, precond=precond,
+            first_level=self.start[1], rank=0 if par is None else par.rank,
+            parallel="" if par is None else par.note, **kw)
 
 
 @trace.traced_run(_launches)
@@ -498,45 +609,13 @@ def run_poisson(opts: Options, problem, *, device) -> DriverResult:
     0 iterations and the residual ‖b − A u‖ of the restored iterate, and
     no preconditioner is built for it.  `solves` and `eta2_history` then
     start at the restart level."""
-    device = resolve_device(device)
-    # IEEE f32 products everywhere: reduced-precision (TF32) products make
-    # the inner f32 CG diverge, as the JAX package found on the TPU.  The
-    # SIPG kernels' bf16 mode runs only where a caller asks for
-    # precision="bf16"; the driver's inner solves take the f32 default
-    # (its bf16 inner CG diverges on the level-5 brick, ROADMAP C19)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    _refuse_unported(opts)
-    par = ParallelContext.from_options(
-        opts, device, refuse=_parallel_refusals(opts, nonlinear=False))
-    if par is not None:
-        device = par.device
-    rank0 = par is None or par.rank == 0
-
-    geom = geometry_from_options(opts)
-    level = opts.get_int("initial_mesh", "min_level", required=True)
-    deg = opts.get_int("initial_mesh", "region0_deg", 1)
-    dq_inc = opts.get_int("initial_mesh", "region0_deg_quad_inc", 0)
-    quad_name = opts.get("quadrature", "name", "legendre")
-    quad = Quadrature("legendre" if quad_name == "legendre" else "lobatto")
-    penalty_fcn = opts.get("flux", "sipg_penalty_fcn", "maxp_sqr_over_minh")
-    prefactor = opts.get_float("flux", "sipg_penalty_prefactor", 2.0)
+    run = _RunSetup(opts, device, nonlinear=False)
+    par, ckpt, pc_opts = run.par, run.ckpt, run.pc_opts
     scheme = opts.get("amr", "scheme", "uniform_p")
     if scheme not in ("uniform_h", "uniform_p", "smooth_pred"):
         raise ValueError(f"unknown [amr] scheme: {scheme!r}")
-    n_amr = opts.get_int("amr", "num_of_amr_steps", 0)
     p_bal = opts.get_int("amr", "p_balance_if_diff", -1)
-    # max_degree defaults to the initial degree, so uniform_p changes
-    # nothing unless [mesh_parameters] max_degree is set (JAX parity)
-    max_degree = opts.get_int("mesh_parameters", "max_degree", deg)
-    sp_params = SmoothPredParams(
-        gamma_h=opts.get_float("amr", "gamma_h", 10.0),
-        gamma_p=opts.get_float("amr", "gamma_p", 0.1),
-        gamma_n=opts.get_float("amr", "gamma_n", 1.0),
-        percentile=opts.get_float("amr", "percentile", 25.0),
-        max_degree=max_degree,
-        initial_pred=opts.get_float("amr", "initial_pred", 0.0),
-    )
+    sp_params, max_degree = run.sp_params, run.sp_params.max_degree
     ksp = opts.get("d4est_solver_krylov_petsc", "ksp_type", "cg")
     use_mixed = opts.get(
         "d4est_solver_krylov_petsc", "use_mixed_precision", True, cast=bool
@@ -556,65 +635,26 @@ def run_poisson(opts: Options, problem, *, device) -> DriverResult:
         opts.get("d4est_solver_krylov_petsc", "use_structured", "auto")
     ).lower()
     structured_on = use_structured in _ON or (
-        use_structured == "auto" and device.type == "cuda"
-    )
-    face_h_type = face_h_from_options(opts)
-    pc_type = opts.get("d4est_solver_krylov_petsc", "pc_type", "none")
-    pc_opts = dict(
-        pc_type=pc_type,
-        mg_params=(mg_params_from_options(opts) if pc_type == "multigrid"
-                   else None),
-        # the coarse levels take the fine mesh's penalty options (C12)
-        mesh_kwargs=dict(penalty_prefactor=prefactor,
-                         penalty_fcn=penalty_fcn, face_h_type=face_h_type),
-        overlap=opts.get_int("d4est_solver_schwarz", "num_nodes_overlap", 1),
-        subdomain_iter=opts.get_int("d4est_solver_schwarz", "subdomain_iter",
-                                    15),
-        # > 0 selects the K-slot variant: resident index tables instead of
-        # the 27x replicated mesh
-        chunk=opts.get_int("d4est_solver_schwarz", "subdomain_chunk", 0),
-        eigs_iters=opts.get_int("mg_smoother_cheby", "cheby_eigs_cg_imax",
-                                10),
-        ratio=opts.get_float("mg_smoother_cheby",
-                             "cheby_eigs_lmax_lmin_ratio", 30.0),
+        use_structured == "auto" and run.device.type == "cuda"
     )
     precond = None
-    ckpt = _Checkpointer(opts)
-    timer = _PhaseTimer(opts, device, quiet=not rank0)
-    vtk_base = opts.get("d4est_vtk", "filename", None)
+    timer = _PhaseTimer(opts, run.device, quiet=not run.rank0)
 
-    forest = Forest.uniform(geom.conn, level)
     # hp state: per-element degrees and the storage degree (grows as
-    # uniform_p or smooth_pred p-refines)
-    deg_e = np.full(forest.n_elements, deg, np.int32)
-    storage = deg
-    norms = NormLog()
-    solves, eta2_hist, amr_history = [], [], []
-    u = None
-    sp_state = None
-    it0, resume_u, resume_own = 0, None, None
-    rs = _restart_state(opts, geom, device)
-    if rs is not None:
-        # the checkpoint holds its level's post-solve iterate at the
-        # storage degree, the degrees and the predictor before marking
-        forest, it0, fields, storage, amr_history, extra = rs
-        de = extra.get("deg_e")
-        deg_e = (np.asarray(de, np.int32) if de is not None
-                 else np.full(forest.n_elements, deg, np.int32))
-        if extra.get("predictor") is not None:
-            sp_state = SmoothPredState(np.asarray(extra["predictor"]))
-        resume_u = fields["u"]
-        resume_own = fields.get("u_own")
-    for it in range(it0, n_amr + 1):
+    # uniform_p or smooth_pred p-refines); a checkpoint holds its level's
+    # post-solve iterate at the storage degree, the degrees and the
+    # predictor before marking
+    forest, it0, fields, storage, amr_history, extra = run.start
+    de = extra.get("deg_e")
+    deg_e = (np.asarray(de, np.int32) if de is not None
+             else np.full(forest.n_elements, run.deg, np.int32))
+    resume_u, resume_own = fields["u"], fields.get("u_own")
+    sp_state, u = run.sp_state, None
+    for it in range(it0, run.n_amr + 1):
         timer.level(it)
         mixed = bool((deg_e != storage).any())
         with timer.phase("mesh"):
-            mesh = build_mesh(
-                geom, forest, deg=storage, quad=quad,
-                deg_quad=storage + dq_inc, penalty_prefactor=prefactor,
-                penalty_fcn=penalty_fcn, deg_e=deg_e,
-                face_h_type=face_h_type, device=device,
-            )
+            mesh = run.mesh(forest, storage, deg_e)
         g = mesh.boundary_values(problem.boundary)
         f = mesh.init_field(problem.rhs)
         rhs_max = build_rhs_with_strong_bc(mesh, f, g)
@@ -623,7 +663,7 @@ def run_poisson(opts: Options, problem, *, device) -> DriverResult:
         x0 = torch.zeros_like(f) if u is None or u.shape != f.shape else u
         restart = it == it0 and resume_u is not None
         pc = None
-        if pc_type != "none" and not restart:
+        if pc_opts["pc_type"] != "none" and not restart:
             pc = (_build_pc(mesh, rhs, hp=mixed, **pc_opts) if par is None
                   else _build_pc_dist(par, mesh, hp=mixed, **pc_opts))
             precond = pc.state
@@ -645,57 +685,40 @@ def run_poisson(opts: Options, problem, *, device) -> DriverResult:
                                                          storage))
             elif pc is not None:
                 info, u = _solve_pc(mesh, rhs, x0, hp=mixed, pc=pc)
-            elif mixed:
-                info, u = _solve_hp(mesh, rhs, x0)
             else:
-                info, u = _solve(mesh, rhs, x0, use_mixed=use_mixed,
+                info, u = _solve(mesh, rhs, x0, hp=mixed,
+                                 use_mixed=use_mixed,
                                  structured_on=structured_on, ksp=ksp,
                                  mixed_opts=mixed_opts)
-            solves.append(info)
+            run.solves.append(info)
             u_max = (resume_u if restart else
                      to_max(mesh, u) if mixed else u)
 
         u_a = mesh.init_field(problem.analytic)
-        norms.add(mesh, L_2=norm_L2(mesh, u_max - u_a),
-                  L_infty=norm_Linfty(u_max - u_a))
-        if vtk_base and rank0:
-            write_vtu(f"{vtk_base}_{it}.vtu", mesh,
+        run.norms.add(mesh, L_2=norm_L2(mesh, u_max - u_a),
+                      L_infty=norm_Linfty(u_max - u_a))
+        if run.vtk_base and run.rank0:
+            write_vtu(f"{run.vtk_base}_{it}.vtu", mesh,
                       point_fields={"u": u_max, "error": u_max - u_a},
                       cell_fields={"deg": deg_e})
-        if ckpt.prefix and rank0:
+        if ckpt.prefix and run.rank0:
             # a mixed-degree level also stores its own-degree iterate, which
             # restricting u back from the storage degree does not give bit
             # for bit (ROADMAP C16)
             ckpt.save_level(forest, it,
                             {"u": u_max, "u_own": u} if mixed else
-                            {"u": u_max}, storage, amr_history,
-                            extra={"level": it, "deg_e": deg_e.tolist(),
-                                   "predictor": _predictor_json(sp_state)})
-        if it == n_amr:
+                            {"u": u_max}, storage, amr_history, sp_state,
+                            deg_e=deg_e.tolist())
+        if it == run.n_amr:
             timer.flush()
             break
 
-        pred = None
-        if scheme == "uniform_h":
-            log = -deg_e.astype(np.int64)
-        elif scheme == "uniform_p":
-            # raise every element's degree by one per step
-            log = np.minimum(deg_e + 1, max_degree).astype(np.int64)
-        else:
+        eta2 = None
+        if scheme == "smooth_pred":
             with timer.phase("estimate"):
-                F = apply_sipg(mesh, u_max) - rhs_max
-                eta2 = estimate_bi(
-                    mesh, u_max, F, g=g, penalty_prefactor=prefactor,
-                    vol_h=vol_h_from_options(opts),
-                ).cpu().numpy()
-                if par is not None:  # rank 0's estimate decides the marks
-                    eta2 = par.comm.broadcast(eta2)
-            eta2_hist.append(eta2)
-            if sp_state is None or len(sp_state.predictor) != mesh.n_elements:
-                sp_state = SmoothPredState.fresh(mesh.n_elements, sp_params)
-            log, pred = smooth_pred_mark(eta2, deg_e, sp_state, sp_params,
-                                         dim=mesh.dim)
-            sp_state = SmoothPredState(pred)
+                eta2 = run.estimate(mesh, u_max,
+                                    apply_sipg(mesh, u_max) - rhs_max, g)
+        log, pred = _mark(scheme, deg_e, eta2, sp_state, sp_params, mesh.dim)
         # optional degree-jump limiting ([amr] p_balance_if_diff,
         # `hpAMR/d4est_amr.c:917-991` + the smooth_pred post-p-balance
         # predictor update)
@@ -704,15 +727,13 @@ def run_poisson(opts: Options, problem, *, device) -> DriverResult:
                 mesh, deg_e, log, p_bal, max_degree,
                 predictor=pred, gamma_p=sp_params.gamma_p,
             )
-            if pred is not None:
-                sp_state = SmoothPredState(pred)
         amr_history.append(np.asarray(log))
         with timer.phase("amr"):
             new_forest, new_deg_e, fields, new_storage = amr_step_hp(
                 forest, deg_e, log, {"u": u}, storage, max_degree
             )
             u = fields["u"]
-            if sp_state is not None and pred is not None:
+            if pred is not None:
                 sp_state = SmoothPredState(
                     transfer_predictor(forest, new_forest, pred, deg_e,
                                        sp_params, log)
@@ -720,11 +741,7 @@ def run_poisson(opts: Options, problem, *, device) -> DriverResult:
         timer.flush()
         forest, deg_e, storage = new_forest, new_deg_e, new_storage
 
-    return DriverResult(mesh=mesh, u=u, norms=norms, solves=solves,
-                        eta2_history=eta2_hist, precond=precond,
-                        timings=timer.rows, first_level=it0,
-                        rank=0 if par is None else par.rank,
-                        parallel="" if par is None else par.note)
+    return run.result(mesh, u, precond, timings=timer.rows)
 
 
 def _sync(device):
@@ -732,24 +749,52 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def _solve_hp(mesh: MeshData, rhs, x0):
-    """A mixed-degree epoch: plain f64 CG on the hp operator (JAX
-    `_linear_solve_cg_hp`)."""
-    _sync(mesh.device)
+def _clocked(device, solve):
+    """(`solve()`, its seconds between two synchronizes of `device`): the
+    clock of every solve of both drivers."""
+    _sync(device)
     t0 = time.perf_counter()
-    res = cg_solve(lambda v: apply_sipg_hp(mesh, v), rhs, x0=x0,
-                   atol=5e-15, rtol=1e-20, max_iter=100000)
-    _sync(mesh.device)
-    info = SolveInfo(
-        path="cg-hp", outer_iterations=0, iterations=res.iterations,
-        residual_norm=float(res.residual_norm),
-        rhs_norm=float(torch.linalg.norm(rhs.reshape(-1))), fallback=False,
-        seconds=time.perf_counter() - t0,
-    )
-    return info, res.x
+    out = solve()
+    _sync(device)
+    return out, time.perf_counter() - t0
 
 
-def _schwarz(mesh: MeshData, *, overlap, subdomain_iter, chunk, hp=False):
+def _recorded(device, rhs, solve, pc=None):
+    """Every linear epoch's `(SolveInfo, x)`: ‖b‖₂ of `rhs`, then in
+    `_clocked` `solve(‖b‖)` → (its last solver's result, its path's
+    fields) and the release of `pc`, whose set-up it records.  The
+    restart level passes no device: it solves nothing, in 0 s."""
+    bnorm = float(torch.linalg.vector_norm(rhs))
+
+    def run():
+        out = solve(bnorm)
+        if pc is not None and isinstance(pc.M, MGPreconditioner):
+            pc.M.release()  # the V-cycle's graph and buffers of the epoch
+        return out
+
+    (res, fields), seconds = (_clocked(device, run) if device is not None
+                              else (run(), 0.0))
+    return SolveInfo(iterations=res.iterations,
+                     residual_norm=float(res.residual_norm), rhs_norm=bnorm,
+                     seconds=seconds, setup=pc.setup if pc else {},
+                     **fields), res.x
+
+
+def _krylov(A, rhs, x0, *, solver, cap, M=None, **kw):
+    """An epoch's f64 Krylov solve to ksp_atol 5e-15 (rtol 1e-20: the
+    absolute test decides) in at most `cap` iterations."""
+    return solver(A, rhs, x0=x0, M=M, atol=5e-15, rtol=1e-20, max_iter=cap,
+                  **kw)
+
+
+def _operator(mesh: MeshData, hp):
+    """v ↦ A v on `mesh`: the hp operator on mixed-degree epochs."""
+    op = apply_sipg_hp if hp else apply_sipg
+    return lambda v: op(mesh, v)
+
+
+def _schwarz(mesh: MeshData, *, overlap, subdomain_iter, chunk, hp=False,
+             **_):
     """The overlapping Schwarz of one epoch: the K-slot variant when
     `[d4est_solver_schwarz] subdomain_chunk` > 0, else the materialized
     one (JAX `driver.py:731-750`, `:1405-1426`)."""
@@ -771,12 +816,6 @@ class _Precond(NamedTuple):
     solver: object
     path: str
     setup: dict
-
-    def release(self):
-        """Free what the apply holds for its epoch alone (the V-cycle's
-        CUDA graph and static buffers), once the epoch's solve is over."""
-        if isinstance(self.M, MGPreconditioner):
-            self.M.release()
 
 
 def _setup_steps(device):
@@ -807,7 +846,7 @@ def _build_pc(mesh: MeshData, rhs, *, hp, pc_type, mg_params, mesh_kwargs,
     apply) with f64 CG.  Traced as the span `d4est.pc` around its steps'
     spans."""
     op = apply_sipg_hp if hp else apply_sipg
-    A = lambda v: op(mesh, v)
+    A = _operator(mesh, hp)
     setup, step, sync = _setup_steps(mesh.device)
     with trace.span("d4est.pc", sync=sync):
         if pc_type == "multigrid":
@@ -833,22 +872,10 @@ def _build_pc(mesh: MeshData, rhs, *, hp, pc_type, mg_params, mesh_kwargs,
 def _solve_pc(mesh: MeshData, rhs, x0, *, hp, pc: _Precond):
     """A preconditioned epoch (JAX `_linear_solve_fcg_mg(_hp)`,
     `_linear_solve_fcg_schwarz(_hp)`, `_linear_solve_cg_cheby(_hp)`): `pc`'s
-    solver on the operator, the hp one on mixed-degree epochs; `pc`'s
-    epoch-long buffers are released when it returns."""
-    op = apply_sipg_hp if hp else apply_sipg
-    _sync(mesh.device)
-    t0 = time.perf_counter()
-    res = pc.solver(lambda v: op(mesh, v), rhs, x0=x0, M=pc.M, atol=5e-15,
-                    rtol=1e-20, max_iter=10000)
-    _sync(mesh.device)
-    pc.release()
-    info = SolveInfo(
-        path=pc.path + ("-hp" if hp else ""), outer_iterations=0,
-        iterations=res.iterations, residual_norm=res.residual_norm,
-        rhs_norm=float(torch.linalg.norm(rhs.reshape(-1))), fallback=False,
-        seconds=time.perf_counter() - t0, setup=pc.setup,
-    )
-    return info, res.x
+    solver on the operator, the hp one on mixed-degree epochs."""
+    return _recorded(mesh.device, rhs, lambda _: (
+        _krylov(_operator(mesh, hp), rhs, x0, solver=pc.solver, M=pc.M,
+                cap=10000), dict(path=pc.path + ("-hp" if hp else ""))), pc)
 
 
 def _solve_chunked(mesh: MeshData, rhs, x0, *, hp, ksp, pc, every_n, save):
@@ -860,36 +887,25 @@ def _solve_chunked(mesh: MeshData, rhs, x0, *, hp, ksp, pc, every_n, save):
     The f32 inner solves are not used on this path (as in JAX), so the
     result equals the same Krylov solve run in one piece, bit for bit.
     Path `<cg|fcg>[-<mg|schwarz|cheby>][-hp]-chunked`."""
-    op = apply_sipg_hp if hp else apply_sipg
     M = pc.M if pc is not None else None
     solver = fcg_solve if (ksp == "fcg" or M is not None) else cg_solve
     parts = ["fcg" if solver is fcg_solve else "cg"]
-    if pc is not None:
-        parts.append(pc.path.split("-")[1])
-    if hp:
-        parts.append("hp")
-    _sync(mesh.device)
-    t0 = time.perf_counter()
-    state, k_cap = None, every_n
-    while True:
-        res, state = solver(lambda v: op(mesh, v), rhs, x0=x0, M=M,
-                            atol=5e-15, rtol=1e-20, max_iter=k_cap,
-                            resume_state=state, return_state=True)
-        save(res.iterations, res.x)
-        if res.iterations < k_cap or res.residual_norm < 5e-15:
-            break
-        k_cap += every_n
-    _sync(mesh.device)
-    if pc is not None:
-        pc.release()
-    info = SolveInfo(
-        path="-".join(parts + ["chunked"]), outer_iterations=0,
-        iterations=res.iterations, residual_norm=res.residual_norm,
-        rhs_norm=float(torch.linalg.norm(rhs.reshape(-1))), fallback=False,
-        seconds=time.perf_counter() - t0,
-        setup=pc.setup if pc is not None else {},
-    )
-    return info, res.x
+    parts += [] if pc is None else [pc.path.split("-")[1]]
+    parts += ["hp"] if hp else []
+
+    def solve(_):
+        state, k_cap = None, every_n
+        while True:
+            res, state = _krylov(_operator(mesh, hp), rhs, x0, solver=solver,
+                                 M=M, cap=k_cap, resume_state=state,
+                                 return_state=True)
+            save(res.iterations, res.x)
+            if res.iterations < k_cap or res.residual_norm < 5e-15:
+                break
+            k_cap += every_n
+        return res, dict(path="-".join(parts + ["chunked"]))
+
+    return _recorded(mesh.device, rhs, solve, pc)
 
 
 def _restored(mesh: MeshData, rhs, u_max, u_own, *, hp):
@@ -903,34 +919,25 @@ def _restored(mesh: MeshData, rhs, u_max, u_own, *, hp):
     if hp:
         u = (u_own if u_own is not None
              else restrict_padded(u_max, mesh.deg_e, mesh.deg, mesh.dim))
-    op = apply_sipg_hp if hp else apply_sipg
-    info = SolveInfo(
-        path="restart", outer_iterations=0, iterations=0,
-        residual_norm=float(torch.linalg.norm((rhs - op(mesh, u))
-                                              .reshape(-1))),
-        rhs_norm=float(torch.linalg.norm(rhs.reshape(-1))), fallback=False,
-        seconds=0.0,
-    )
-    return info, u
+    r = float(torch.linalg.vector_norm(rhs - _operator(mesh, hp)(u)))
+    return _recorded(None, rhs, lambda _: (CGResult(u, 0, r),
+                                           dict(path="restart")))
 
 
-def _solve(mesh: MeshData, rhs, x0, *, use_mixed, structured_on, ksp,
+def _solve(mesh: MeshData, rhs, x0, *, hp, use_mixed, structured_on, ksp,
            mixed_opts):
-    """A uniform-degree epoch: the mixed-structured, mixed-curved, generic
-    mixed, f64 fallback or plain CG/FCG solve."""
+    """An unpreconditioned epoch: on mixed degrees plain f64 CG on the hp
+    operator (JAX `_linear_solve_cg_hp`, path `cg-hp`); else the
+    mixed-structured, mixed-curved, generic mixed, f64 fallback or plain
+    CG/FCG solve."""
+    A = _operator(mesh, hp)
+    solver, cap = ((fcg_solve, 10000) if ksp == "fcg" and not hp
+                   else (cg_solve, 100000))
+    plain = dict(path="cg-hp" if hp else ksp if ksp == "fcg" else "cg")
 
-    def plain_solve():
-        solver, cap = (fcg_solve, 10000) if ksp == "fcg" else (
-            cg_solve, 100000
-        )
-        return solver(lambda v: apply_sipg(mesh, v), rhs, x0=x0,
-                      atol=5e-15, rtol=1e-20, max_iter=cap)
-
-    _sync(mesh.device)
-    t0 = time.perf_counter()
-    fallback = False
-    bnorm = float(torch.linalg.norm(rhs.reshape(-1)))
-    if use_mixed:
+    def solve(bnorm):
+        if hp or not use_mixed:
+            return _krylov(A, rhs, x0, solver=solver, cap=cap), plain
         sb = structured.build_structured(mesh) if structured_on else None
         ts = (curved.build_tree_structured(mesh)
               if structured_on and sb is None else None)
@@ -938,13 +945,11 @@ def _solve(mesh: MeshData, rhs, x0, *, use_mixed, structured_on, ksp,
             # inner settings as the JAX driver has them on this path
             # (`driver.py:330-331`): the mixed_inner_* options are not
             # passed (ROADMAP C3)
-            path = "mixed-structured"
-            res = mixed_refine_solve(
-                lambda v: apply_sipg(mesh, v), rhs, x0=x0,
+            path, kw = "mixed-structured", dict(
                 inner_solve=structured.make_inner_solve(
                     sb, rtol=1e-3, max_iter=400
                 ),
-                atol=5e-15, rtol=1e-20, max_outer=mixed_opts["max_outer"],
+                max_outer=mixed_opts["max_outer"],
             )
         elif ts is not None:
             # the inner rtol and outer cap of the JAX driver's curved
@@ -958,42 +963,28 @@ def _solve(mesh: MeshData, rhs, x0, *, use_mixed, structured_on, ksp,
             # and stops after 3 outer steps (ROADMAP C1): the port runs
             # `mixed_refine_solve`, whose stall test compares with the
             # previous residual.
-            path = "mixed-curved"
-            res = mixed_refine_solve(
-                lambda v: apply_sipg(mesh, v), rhs, x0=x0,
+            path, kw = "mixed-curved", dict(
                 inner_solve=curved.make_inner_solve(
                     ts.astype(torch.float32),
                     curved.permute_mesh_lex(ts, mesh).astype(torch.float32),
                     rtol=1e-4, max_iter=mixed_opts["inner_max_iter"],
                 ),
-                atol=5e-15, rtol=1e-20, max_outer=30,
+                max_outer=30,
             )
         else:
-            path = "mixed"
-            mesh32 = mesh.astype(torch.float32)
-            res = mixed_refine_solve(
-                lambda v: apply_sipg(mesh, v), rhs, x0=x0,
-                A32=lambda v: apply_sipg(mesh32, v), atol=5e-15, rtol=1e-20,
-                **mixed_opts,
-            )
-        outer, iters = res.outer_iterations, res.inner_iterations
+            path, kw = "mixed", dict(
+                A32=_operator(mesh.astype(torch.float32), False),
+                **mixed_opts)
+        res = mixed_refine_solve(A, rhs, x0=x0, atol=5e-15, rtol=1e-20, **kw)
+        fields = dict(path=path, outer_iterations=res.outer_iterations)
         if res.residual_norm > 1e-10 * (1.0 + bnorm):
             # the f32 inner solve stagnated/diverged well above the
             # refinement floor — fall back to the plain f64 solver
-            fallback = True
-            res = plain_solve()
-            iters = res.iterations
-    else:
-        path = ksp if ksp == "fcg" else "cg"
-        res = plain_solve()
-        outer, iters = 0, res.iterations
-    _sync(mesh.device)
-    info = SolveInfo(
-        path=path, outer_iterations=outer, iterations=iters,
-        residual_norm=float(res.residual_norm), rhs_norm=bnorm,
-        fallback=fallback, seconds=time.perf_counter() - t0,
-    )
-    return info, res.x
+            return (_krylov(A, rhs, x0, solver=solver, cap=cap),
+                    dict(fields, fallback=True))
+        return CGResult(res.x, res.inner_iterations, res.residual_norm), fields
+
+    return _recorded(mesh.device, rhs, solve)
 
 
 # ---------------------------------------------------------------------------
@@ -1107,11 +1098,10 @@ class DistributedEpoch:
                                           device=v.device))
 
 
-def _parallel_refusals(opts: Options, nonlinear: bool):
+def _parallel_refusals(pc_type, mg_params, midsolve, nonlinear):
     """The option combinations that cannot run distributed: the JAX
     driver runs them on one device without a word (ROADMAP C6) or swaps
     the multigrid smoother (C2); the port refuses them."""
-    pc_type = opts.get("d4est_solver_krylov_petsc", "pc_type", "none")
     out = []
     if nonlinear and pc_type != "none":
         out.append(
@@ -1124,10 +1114,10 @@ def _parallel_refusals(opts: Options, nonlinear: bool):
             f"{pc_type} preconditioner (the JAX driver drops to one device, "
             "ROADMAP C6)")
     if not nonlinear and pc_type == "multigrid":
-        msg = smoother_refusal(mg_plugin_names(opts)[0])
+        msg = smoother_refusal(mg_params.smoother)
         if msg:
             out.append(msg)
-    if not nonlinear and _Checkpointer(opts).midsolve:
+    if not nonlinear and midsolve:
         out.append(
             "[parallelism] with checkpoint_every_n_krylov_its: no "
             "distributed mid-solve checkpoints of a linear solve (the JAX "
@@ -1154,48 +1144,34 @@ def _solve_dist(epoch: DistributedEpoch, rhs, x0, *, hp, use_mixed, ksp,
     path's floor 1e-10·(1 + ‖b‖); else f64 CG or FCG (`cg-halo`,
     `fcg-halo`).  Returns the info and the gathered global solution."""
     comm = epoch.comm
-    dot = comm.dot
-    _sync(comm.device)
-    t0 = time.perf_counter()
-    rhs_l, x0_l = epoch.to_dev(rhs), epoch.to_dev(x0)
     A = _halo_op(epoch, hp=hp)
-    bnorm = float(torch.sqrt(dot(rhs_l, rhs_l)))
 
-    def plain(flexible):
-        return (fcg_solve if flexible else cg_solve)(
-            A, rhs_l, x0=x0_l, atol=5e-15, rtol=1e-20, max_iter=100000,
-            dot=dot)
+    def solve(bnorm):
+        rhs_l, x0_l = epoch.to_dev(rhs), epoch.to_dev(x0)
+        plain = lambda solver: _krylov(A, rhs_l, x0_l, solver=solver,
+                                       cap=100000, dot=comm.dot)
+        if hp:
+            res, fields = plain(cg_solve), dict(path="cg-hp-halo")
+        elif use_mixed:
+            mesh32, halo32 = (epoch.mesh.astype(torch.float32),
+                              epoch.halo.astype(torch.float32))
+            res = mixed_refine_solve(
+                A, rhs_l, x0=x0_l,
+                A32=lambda v: apply_sipg_halo(mesh32, halo32, v, comm),
+                atol=5e-15, rtol=1e-20, dot=comm.dot, **mixed_opts)
+            fields = dict(path="mixed-halo",
+                          outer_iterations=res.outer_iterations)
+            if (res.outer_iterations >= mixed_opts["max_outer"]
+                    or res.residual_norm > 1e-10 * (1.0 + bnorm)):
+                res, fields["fallback"] = plain(cg_solve), True
+            else:
+                res = CGResult(res.x, res.inner_iterations, res.residual_norm)
+        else:
+            res = plain(fcg_solve if ksp == "fcg" else cg_solve)
+            fields = dict(path=f"{'fcg' if ksp == 'fcg' else 'cg'}-halo")
+        return res._replace(x=epoch.to_host(res.x)), fields
 
-    fallback, outer = False, 0
-    if hp:
-        path, res = "cg-hp-halo", plain(False)
-        iters = res.iterations
-    elif use_mixed:
-        path = "mixed-halo"
-        mesh32, halo32 = epoch.mesh.astype(torch.float32), epoch.halo.astype(
-            torch.float32)
-        res = mixed_refine_solve(
-            A, rhs_l, x0=x0_l,
-            A32=lambda v: apply_sipg_halo(mesh32, halo32, v, comm),
-            atol=5e-15, rtol=1e-20, dot=dot, **mixed_opts)
-        outer, iters = res.outer_iterations, res.inner_iterations
-        if (res.outer_iterations >= mixed_opts["max_outer"]
-                or res.residual_norm > 1e-10 * (1.0 + bnorm)):
-            fallback = True
-            res = plain(False)
-            iters = res.iterations
-    else:
-        path = f"{'fcg' if ksp == 'fcg' else 'cg'}-halo"
-        res = plain(ksp == "fcg")
-        iters = res.iterations
-    x = epoch.to_host(res.x)
-    _sync(comm.device)
-    info = SolveInfo(
-        path=path, outer_iterations=outer, iterations=iters,
-        residual_norm=float(res.residual_norm), rhs_norm=bnorm,
-        fallback=fallback, seconds=time.perf_counter() - t0,
-    )
-    return info, x
+    return _recorded(comm.device, rhs, solve)
 
 
 def _build_pc_dist(par: ParallelContext, mesh: MeshData, *, hp, pc_type,
@@ -1221,24 +1197,17 @@ def _solve_pc_dist(par: ParallelContext, pc: _Precond, rhs, x0):
     """A distributed multigrid epoch (JAX `_linear_solve_fcg_mg_sharded`):
     FCG on the level-0 halo operator, one V-cycle an apply."""
     sh, comm = pc.state, par.comm
-    _sync(par.device)
-    t0 = time.perf_counter()
     lay = sh.layouts[0]
-    rhs_l = shard_field(migrate_field(rhs, lay), comm.rank, comm.size,
-                        comm.device)
-    x0_l = shard_field(migrate_field(x0, lay), comm.rank, comm.size,
-                       comm.device)
-    res = pc.solver(level_operator(sh, 0), rhs_l, x0=x0_l, M=pc.M,
-                    atol=5e-15, rtol=1e-20, max_iter=10000, dot=comm.dot)
-    x = unmigrate_field(comm.all_gather_rows(res.x), lay, rhs.shape[0])
-    _sync(par.device)
-    info = SolveInfo(
-        path=pc.path, outer_iterations=0, iterations=res.iterations,
-        residual_norm=res.residual_norm,
-        rhs_norm=float(torch.sqrt(comm.dot(rhs_l, rhs_l))), fallback=False,
-        seconds=time.perf_counter() - t0, setup=pc.setup,
-    )
-    return info, x
+
+    def solve(_):
+        rhs_l, x0_l = (shard_field(migrate_field(v, lay), comm.rank,
+                                   comm.size, comm.device) for v in (rhs, x0))
+        res = _krylov(level_operator(sh, 0), rhs_l, x0_l, solver=pc.solver,
+                      M=pc.M, cap=10000, dot=comm.dot)
+        x = unmigrate_field(comm.all_gather_rows(res.x), lay, rhs.shape[0])
+        return res._replace(x=x), dict(path=pc.path)
+
+    return _recorded(par.device, rhs, solve, pc)
 
 
 def _newton_dist(epoch: DistributedEpoch, problem, mesh: MeshData, u, bc,
@@ -1454,26 +1423,9 @@ def run_nonlinear(opts: Options, problem, *, device) -> DriverResult:
     iterations and ‖F‖ of the restored iterate.  `[driver] print_timings`
     is accepted and prints nothing: the JAX nonlinear driver has no phase
     timer, and `DriverResult.timings` stays empty."""
-    device = resolve_device(device)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    _refuse_unported(opts)
-    par = ParallelContext.from_options(
-        opts, device, refuse=_parallel_refusals(opts, nonlinear=True))
-    if par is not None:
-        device = par.device
-    rank0 = par is None or par.rank == 0
-
-    geom = geometry_from_options(opts)
-    level = opts.get_int("initial_mesh", "min_level", required=True)
-    deg = opts.get_int("initial_mesh", "region0_deg", 1)
-    dq_inc = opts.get_int("initial_mesh", "region0_deg_quad_inc", 0)
-    quad_name = opts.get("quadrature", "name", "legendre")
-    quad = Quadrature("legendre" if quad_name == "legendre" else "lobatto")
-    penalty_fcn = opts.get("flux", "sipg_penalty_fcn", "maxp_sqr_over_minh")
-    prefactor = opts.get_float("flux", "sipg_penalty_prefactor", 2.0)
+    run = _RunSetup(opts, device, nonlinear=True)
+    par, ckpt, deg = run.par, run.ckpt, run.deg
     scheme = opts.get("amr", "scheme", "uniform_h")
-    n_amr = opts.get_int("amr", "num_of_amr_steps", 0)
     ksp = opts.get("d4est_solver_krylov_petsc", "ksp_type", "fcg")
     ksp_iters = opts.get_int("d4est_solver_krylov_petsc", "ksp_max_it", 10000)
     if scheme not in ("uniform_h", "smooth_pred", "none"):
@@ -1485,47 +1437,18 @@ def run_nonlinear(opts: Options, problem, *, device) -> DriverResult:
         monitor=opts.get("d4est_solver_newton", "snes_monitor", False,
                          cast=bool),
     )
-    sp_params = SmoothPredParams(
-        gamma_h=opts.get_float("amr", "gamma_h", 10.0),
-        gamma_p=opts.get_float("amr", "gamma_p", 0.1),
-        gamma_n=opts.get_float("amr", "gamma_n", 1.0),
-        percentile=opts.get_float("amr", "percentile", 25.0),
-        max_degree=deg,  # h-only marking in the nonlinear driver
-        initial_pred=opts.get_float("amr", "initial_pred", 0.0),
-    )
-    pc_type = opts.get("d4est_solver_krylov_petsc", "pc_type", "none")
-    mg_params = mg_params_from_options(opts)
-    face_h_type = face_h_from_options(opts)
+    pc_type = run.pc_opts["pc_type"]
     robin = problem.bc_type == "robin"
     precond = None
-    ckpt = _Checkpointer(opts)
-    vtk_base = opts.get("d4est_vtk", "filename", None)
 
-    forest = Forest.uniform(geom.conn, level)
-    norms = NormLog()
-    solves, eta2_hist, amr_history = [], [], []
-    u = None
-    sp_state = None
-    it0, resume_u = 0, None
-    rs = _restart_state(opts, geom, device)
-    if rs is not None:
-        forest, it0, fields, _, amr_history, extra = rs
-        if extra.get("predictor") is not None:
-            sp_state = SmoothPredState(np.asarray(extra["predictor"]))
-        resume_u = fields["u"]
-    for it in range(it0, n_amr + 1):
+    forest, it0, fields, _, amr_history, _ = run.start
+    resume_u, sp_state, u = fields["u"], run.sp_state, None
+    for it in range(it0, run.n_amr + 1):
         deg_e = np.full(forest.n_elements, deg, np.int32)
-        mesh = build_mesh(
-            geom, forest, deg=deg, quad=quad, deg_quad=deg + dq_inc,
-            penalty_prefactor=prefactor, penalty_fcn=penalty_fcn,
-            deg_e=deg_e, face_h_type=face_h_type, device=device,
-        )
-        if robin:
-            bc = problem.robin_coeff_values(mesh)
-            g_est = None
-        else:
-            bc = mesh.boundary_values(problem.boundary)
-            g_est = bc
+        mesh = run.mesh(forest, deg, deg_e)
+        bc = (problem.robin_coeff_values(mesh) if robin
+              else mesh.boundary_values(problem.boundary))
+        g_est = None if robin else bc
         restart = it == it0 and resume_u is not None
         if restart:  # the checkpoint's post-solve iterate (JAX :1551-1562)
             u = resume_u
@@ -1545,21 +1468,15 @@ def run_nonlinear(opts: Options, problem, *, device) -> DriverResult:
         if restart:
             pass  # no Newton step on the restart level
         elif pc_type == "multigrid":
-            hier = build_hierarchy(mesh, mg_params, mesh_kwargs=dict(
-                penalty_prefactor=prefactor, penalty_fcn=penalty_fcn,
-                face_h_type=face_h_type))
+            hier = build_hierarchy(mesh, run.pc_opts["mg_params"],
+                                   mesh_kwargs=run.penalty)
             linear = _level_operators(problem, hier, bc)
             precond = hier
         elif pc_type == "schwarz":
-            precond = schwarz_M = _schwarz(
-                mesh,
-                overlap=opts.get_int("d4est_solver_schwarz",
-                                     "num_nodes_overlap", 1),
-                subdomain_iter=opts.get_int("d4est_solver_schwarz",
-                                            "subdomain_iter", 15),
-                chunk=opts.get_int("d4est_solver_schwarz",
-                                   "subdomain_chunk", 0))
+            precond = schwarz_M = _schwarz(mesh, **run.pc_opts)
         elif pc_type == "cheby":
+            # 10 Lanczos steps and ratio 30, as the JAX driver has them
+            # (`driver.py:1437-1439`), whatever [mg_smoother_cheby] says
             _, lmax = cg_eigs(lambda w: linear(mesh, w), _sin3_seed(mesh),
                               10)
             precond = cheby_bounds = (lmax / 30.0, lmax)
@@ -1596,31 +1513,29 @@ def run_nonlinear(opts: Options, problem, *, device) -> DriverResult:
             return res.x
 
         def newton_cb(k, u_k, fnorm):
-            if k % ckpt.every_n == 0 and rank0:
+            if k % ckpt.every_n == 0 and run.rank0:
                 ckpt.save_midsolve(forest, it, k, u_k, deg)
 
-        _sync(device)
-        t0 = time.perf_counter()
-        if restart:
-            F = problem.residual(mesh, u, bc)
-            fnorm = float(torch.sqrt(torch.sum(F * F)))
-            res = NewtonResult(u=u, iterations=0, residual_norm=fnorm,
-                                history=[fnorm])
-        elif par is not None:
-            res = _newton_dist(par.distribute(mesh), problem, mesh, u, bc,
-                               newton_params, ksp=ksp, ksp_iters=ksp_iters,
-                               krylov_its=krylov_its,
-                               callback=newton_cb if ckpt.midsolve else None)
-        else:
-            res = newton_solve(lambda v: problem.residual(mesh, v, bc),
-                               jac_solve, u, newton_params,
-                               callback=newton_cb if ckpt.midsolve else None)
-        _sync(device)
+        def newton():
+            cb = newton_cb if ckpt.midsolve else None
+            if restart:
+                F = problem.residual(mesh, u, bc)
+                fnorm = float(torch.sqrt(torch.sum(F * F)))
+                return NewtonResult(u=u, iterations=0, residual_norm=fnorm,
+                                    history=[fnorm])
+            if par is not None:
+                return _newton_dist(par.distribute(mesh), problem, mesh, u,
+                                    bc, newton_params, ksp=ksp,
+                                    ksp_iters=ksp_iters,
+                                    krylov_its=krylov_its, callback=cb)
+            return newton_solve(lambda v: problem.residual(mesh, v, bc),
+                                jac_solve, u, newton_params, callback=cb)
+
+        res, seconds = _clocked(run.device, newton)
         u = res.u
-        solves.append(NewtonInfo(
+        run.solves.append(NewtonInfo(
             iterations=res.iterations, residual_norm=res.residual_norm,
-            history=list(res.history), krylov=krylov_its,
-            seconds=time.perf_counter() - t0,
+            history=list(res.history), krylov=krylov_its, seconds=seconds,
         ))
 
         row = {"newton_its": res.iterations, "F_norm": res.residual_norm}
@@ -1628,44 +1543,28 @@ def run_nonlinear(opts: Options, problem, *, device) -> DriverResult:
             u_a = mesh.init_field(problem.analytic)
             row["L_2"] = norm_L2(mesh, u - u_a)
             row["L_infty"] = norm_Linfty(u - u_a)
-        norms.add(mesh, **row)
+        run.norms.add(mesh, **row)
 
-        F = problem.residual(mesh, u, bc)
-        eta2 = estimate_bi(
-            mesh, u, F, g=g_est, penalty_prefactor=prefactor,
-            vol_h=vol_h_from_options(opts),
-        ).cpu().numpy()
-        if par is not None:  # rank 0's estimate decides the marks
-            eta2 = par.comm.broadcast(eta2)
-        eta2_hist.append(eta2)
-        norms.rows[-1]["eta2_sum"] = float(eta2.sum())
+        eta2 = run.estimate(mesh, u, problem.residual(mesh, u, bc), g_est)
+        run.norms.rows[-1]["eta2_sum"] = float(eta2.sum())
 
-        if vtk_base and rank0:
-            write_vtu(f"{vtk_base}_{it}.vtu", mesh, point_fields={"u": u},
-                      cell_fields={"eta2": eta2})
-        if ckpt.prefix and rank0:
-            ckpt.save_level(forest, it, {"u": u}, deg, amr_history,
-                            extra={"problem": problem.name, "level": it,
-                                   "predictor": _predictor_json(sp_state)})
+        if run.vtk_base and run.rank0:
+            write_vtu(f"{run.vtk_base}_{it}.vtu", mesh,
+                      point_fields={"u": u}, cell_fields={"eta2": eta2})
+        if ckpt.prefix and run.rank0:
+            ckpt.save_level(forest, it, {"u": u}, deg, amr_history, sp_state,
+                            problem=problem.name)
 
-        if it == n_amr or scheme == "none":
+        if it == run.n_amr or scheme == "none":
             break
-        if scheme == "uniform_h":
-            log = -deg_e.astype(np.int64)
-        else:
-            if sp_state is None or len(sp_state.predictor) != mesh.n_elements:
-                sp_state = SmoothPredState.fresh(mesh.n_elements, sp_params)
-            log, pred = smooth_pred_mark(eta2, deg_e, sp_state, sp_params,
-                                         dim=mesh.dim)
+        log, pred = _mark(scheme, deg_e, eta2, sp_state, run.sp_params,
+                          mesh.dim)
         amr_history.append(np.asarray(log))
         new_forest = refine_and_balance(forest, np.asarray(log) < 0)
         u = transfer_field(forest, new_forest, u, deg)
-        if scheme == "smooth_pred":
+        if pred is not None:
             sp_state = SmoothPredState(transfer_predictor(
-                forest, new_forest, pred, deg_e, sp_params, log))
+                forest, new_forest, pred, deg_e, run.sp_params, log))
         forest = new_forest
 
-    return DriverResult(mesh=mesh, u=u, norms=norms, solves=solves,
-                        eta2_history=eta2_hist, precond=precond,
-                        first_level=it0, rank=0 if par is None else par.rank,
-                        parallel="" if par is None else par.note)
+    return run.result(mesh, u, precond)

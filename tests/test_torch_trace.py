@@ -5,7 +5,12 @@
 - the Krylov counters of a run equal the driver's own iteration counts
   (`SolveInfo.iterations`, Σ `NewtonInfo.krylov`);
 - with no profiler recording and `print_timings` off, a run enters no
-  `record_function` and calls no synchronize beyond its solves' own;
+  `record_function` and calls no synchronize beyond its solves' own
+  (two a solve, on every solve path) and its preconditioners' set-up;
+- every one-card solve path records its solve alike: ‖b‖₂ of the
+  epoch's right-hand side, no outer steps off the mixed paths, the
+  preconditioner's set-up steps, a clocked solve (0 s on a restart
+  level) and the `solve level` line's format;
 - under a CPU `torch.profiler` the `d4est.*` ranges appear, nested as in
   the record;
 - toy trace-mode cells of the benchmark report the four metrics that
@@ -17,6 +22,7 @@
 
 import json
 import pathlib
+import re
 import subprocess
 import sys
 import types
@@ -25,6 +31,7 @@ import pytest
 import torch
 
 from disco4est_tpu_torch import driver
+from disco4est_tpu_torch.laplacian.hp import adjoint_to_own
 from disco4est_tpu_torch.problems.poisson import SinxProblem
 from disco4est_tpu_torch.solvers.cg import cg_solve
 from disco4est_tpu_torch.util import trace
@@ -41,7 +48,7 @@ name = sinx
 min_level = 1
 region0_deg = 2
 [amr]
-scheme = uniform_h
+scheme = {scheme}
 num_of_amr_steps = {steps}
 [d4est_solver_krylov_petsc]
 use_structured = 1
@@ -68,10 +75,10 @@ ksp_type = {ksp}
 """
 
 
-def _poisson(extra="", steps=1):
+def _poisson(extra="", steps=1, scheme="uniform_h"):
     return driver.run_poisson(
-        Options.load(LINEAR.format(extra=extra, steps=steps)), SinxProblem,
-        device="cpu")
+        Options.load(LINEAR.format(extra=extra, steps=steps, scheme=scheme)),
+        SinxProblem, device="cpu")
 
 
 def _names(record):
@@ -172,10 +179,28 @@ def test_krylov_counters_equal_the_drivers_counts():
         assert _names(res.trace).count("d4est.mesh.faces") == 2
 
 
-def test_untraced_tier_adds_no_sync_and_no_record_function(monkeypatch):
+# (options, steps, scheme) of a run on each solve path: mixed-structured,
+# f64 FCG, the three preconditioners and mixed degrees (cg-hp from the
+# third level)
+SYNC_RUNS = {
+    "mixed-structured": ("", 1, "uniform_h"),
+    "fcg": ("use_mixed_precision = 0\nksp_type = fcg", 1, "uniform_h"),
+    "fcg-mg": ("pc_type = multigrid", 1, "uniform_h"),
+    "cg-cheby": ("pc_type = cheby", 1, "uniform_h"),
+    "fcg-schwarz": ("pc_type = schwarz", 1, "uniform_h"),
+    "cg-hp": ("[mesh_parameters]\nmax_degree = 4", 2, "smooth_pred"),
+}
+
+
+@pytest.mark.parametrize("path", sorted(SYNC_RUNS))
+def test_untraced_tier_adds_no_sync_and_no_record_function(monkeypatch,
+                                                           path):
     """Off (no profiler, no print_timings) a run synchronizes only where
-    its solves did before the tracer (`_solve`: twice a level) and opens
-    no `record_function`; print_timings adds two a phase."""
+    its solves did before the tracer (twice a level, on every solve path)
+    and where a preconditioner's set-up spans do (at both ends of
+    `d4est.pc` and of each step), and opens no `record_function`;
+    print_timings adds two a phase."""
+    extra, steps, scheme = SYNC_RUNS[path]
     calls = dict(sync=0, cuda_sync=0, rf=0)
 
     def count(key, fn=None):
@@ -189,15 +214,22 @@ def test_untraced_tier_adds_no_sync_and_no_record_function(monkeypatch):
     monkeypatch.setattr(torch.cuda, "synchronize", count("cuda_sync"))
     monkeypatch.setattr(torch.autograd.profiler.record_function, "__init__",
                         count("rf", rf_init))
-    res = _poisson()
-    assert calls == dict(sync=2 * len(res.solves), cuda_sync=0, rf=0)
+    def syncs(solves):
+        return sum(2 + (2 * (1 + len(s.setup)) if s.setup else 0)
+                   for s in solves)
+
+    res = _poisson(extra, steps, scheme)
+    assert res.solves[-1].path == path
+    assert calls == dict(sync=syncs(res.solves), cuda_sync=0, rf=0)
     assert res.timings == []
 
     calls.update(sync=0)
-    res = _poisson("[driver]\nprint_timings = 1")
+    res = _poisson(extra + "\n[driver]\nprint_timings = 1", steps, scheme)
     phases = sum(len(row) - 1 for row in res.timings)
-    assert phases == 5  # mesh, solve, amr; mesh, solve
-    assert calls == dict(sync=2 * len(res.solves) + 2 * phases,
+    # mesh, solve, amr a level (with smooth_pred an estimate before the
+    # amr), and the last level's mesh, solve
+    assert phases == steps * (3 + (scheme == "smooth_pred")) + 2
+    assert calls == dict(sync=syncs(res.solves) + 2 * phases,
                          cuda_sync=0, rf=0)
     for row in res.timings:
         for name, seconds in row.items():
@@ -206,6 +238,83 @@ def test_untraced_tier_adds_no_sync_and_no_record_function(monkeypatch):
                          if s["name"] == f"d4est.{name}"]
                 assert seconds in [(s["end_ns"] - s["start_ns"]) * 1e-9
                                    for s in spans]
+
+
+# (options, steps, scheme, the paths of the run's solves) of a run on
+# each one-card solve path; "restart" restarts from the level-0
+# checkpoint of the same run
+PATH_RUNS = {
+    "mixed": ("", 1, "uniform_h", ["mixed"] * 2),
+    "mixed-structured": ("", 1, "uniform_h", ["mixed-structured"] * 2),
+    "cg": ("use_mixed_precision = 0", 1, "uniform_h", ["cg"] * 2),
+    "fcg": ("use_mixed_precision = 0\nksp_type = fcg", 1, "uniform_h",
+            ["fcg"] * 2),
+    "cg-hp": ("[mesh_parameters]\nmax_degree = 4", 2, "smooth_pred",
+              ["mixed-structured"] * 2 + ["cg-hp"]),
+    "fcg-mg": ("pc_type = multigrid", 1, "uniform_h", ["fcg-mg"] * 2),
+    "fcg-schwarz": ("pc_type = schwarz", 1, "uniform_h",
+                    ["fcg-schwarz"] * 2),
+    "cg-cheby": ("pc_type = cheby", 1, "uniform_h", ["cg-cheby"] * 2),
+    "chunked": ("pc_type = multigrid\n[checkpoint]\nprefix = {tmp}/ck\n"
+                "checkpoint_every_n_krylov_its = 3", 1, "uniform_h",
+                ["fcg-mg-chunked"] * 2),
+    "restart": ("[checkpoint]\nprefix = {tmp}/ck\n[initial_mesh]\n"
+                "load_from_checkpoint = 1\ncheckpoint_prefix = {tmp}/ck_level0",
+                1, "uniform_h", ["restart", "mixed-structured"]),
+}
+SETUP_STEPS = {"mg": {"hierarchy", "mg_setup"}, "schwarz": {"schwarz"},
+               "cheby": {"eigs"}}
+SOLVE_LINE = re.compile(
+    r"solve level \d+: path=[a-z-]+ outer=\d+ iterations=\d+ "
+    r"residual=\d\.\d{3}e[+-]\d\d rhs_norm=\d\.\d{3}e[+-]\d\d "
+    r"fallback=(yes|no) seconds=\d+\.\d{3}"
+    r"( setup=[a-z_]+:\d+\.\d{3}(,[a-z_]+:\d+\.\d{3})*)?")
+
+
+@pytest.mark.parametrize("path", sorted(PATH_RUNS))
+def test_every_solve_path_records_its_solve(monkeypatch, tmp_path, path):
+    """Each one-card path's `SolveInfo`: ‖b‖₂ of the epoch's right-hand
+    side (the own-degree one on mixed degrees), no outer steps off the
+    mixed paths, the steps of its preconditioner's set-up, a clocked
+    solve (exactly 0 s on the restart level, which solves nothing) and
+    the `solve level` line of the CLI."""
+    extra, steps, scheme, paths = PATH_RUNS[path]
+    extra = extra.format(tmp=tmp_path)
+    if path == "mixed":
+        extra = "use_structured = 0"
+    if path == "restart":  # the run whose level-0 checkpoint it resumes
+        _poisson(f"[checkpoint]\nprefix = {tmp_path}/ck", 0, scheme)
+    rhs = []
+    build = driver.build_rhs_with_strong_bc
+
+    def recording(mesh, f, g):
+        out = build(mesh, f, g)
+        mixed = bool((mesh.deg_e != mesh.deg).any())
+        rhs.append(adjoint_to_own(mesh, out) if mixed else out)
+        return out
+
+    monkeypatch.setattr(driver, "build_rhs_with_strong_bc", recording)
+    text = LINEAR.format(extra=extra, steps=steps, scheme=scheme)
+    if path == "mixed":
+        text = text.replace("use_structured = 1\n", "")
+    res = driver.run_poisson(Options.load(text), SinxProblem, device="cpu")
+    assert [s.path for s in res.solves] == paths
+    assert len(rhs) == len(res.solves)
+    for info, b in zip(res.solves, rhs):
+        assert info.rhs_norm == pytest.approx(
+            float(torch.linalg.norm(b.reshape(-1))), rel=1e-13)
+        if info.path.startswith("mixed"):
+            assert info.outer_iterations > 0
+        else:
+            assert info.outer_iterations == 0
+        assert info.fallback is False
+        pc = [k for k in SETUP_STEPS if f"-{k}" in info.path]
+        assert set(info.setup) == (SETUP_STEPS[pc[0]] if pc else set())
+        if info.path == "restart":
+            assert info.seconds == 0.0 and info.iterations == 0
+        else:
+            assert info.seconds > 0 and info.iterations > 0
+        assert SOLVE_LINE.fullmatch(info.line(res.first_level)), info.line(0)
 
 
 def test_profiler_tier_ranges_nest_as_in_the_record():
