@@ -19,6 +19,8 @@ from disco4est_tpu_torch.amr import amr as tamr
 from disco4est_tpu_torch.geometry.brick import BrickGeometry as TBrick
 from disco4est_tpu_torch.mesh.tree import ROOT, Forest as TForest
 
+from torch_threads import torch_worker_threads  # noqa: F401
+
 TOL = 1e-13
 # (trees per axis, dim, level, refined fraction, seed); at most 15 trees
 CASES = [

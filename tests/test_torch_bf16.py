@@ -55,6 +55,8 @@ from disco4est_tpu_torch.mesh.builder import build_mesh as tbuild
 from disco4est_tpu_torch.mesh.tree import Forest as TForest
 from disco4est_tpu_torch.util import gen_wgmma
 
+from torch_threads import torch_worker_threads  # noqa: F401
+
 POW2_BRICKS = [(1.0, 1.0, 1.0), (1.0, 2.0, 4.0)]
 OTHER_BRICKS = [(1.0, 1.0, 3.0), (1.5, 1.0, 0.7)]
 DEGREES = [1, 2, 3, 7]

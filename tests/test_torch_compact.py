@@ -25,6 +25,8 @@ from disco4est_tpu_torch.mesh import builder as TB
 from disco4est_tpu_torch.mesh.builder import build_mesh as tbuild
 from disco4est_tpu_torch.mesh.tree import Forest as TForest
 
+from torch_threads import torch_worker_threads  # noqa: F401
+
 TOL = 1e-14
 STAGE_TOL = 1e-13
 KEPT = ("j_c", "drdx_c", "wjgg_c", "face_sj_c", "face_n_c", "volume",

@@ -34,6 +34,8 @@ from disco4est_tpu_torch.laplacian.sipg import apply_sipg
 from disco4est_tpu_torch.mesh.builder import build_mesh as tbuild
 from disco4est_tpu_torch.mesh.tree import Forest as TForest
 
+from torch_threads import torch_worker_threads  # noqa: F401
+
 SPHERE7 = dict(kind="7tree", R0=1.0, R1=2.0)
 SPHERE13 = dict(kind="13tree", R0=10.0, R1=20.0, R2=1000.0,
                 compactify_outer_shell=True)

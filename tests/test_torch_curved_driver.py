@@ -29,6 +29,8 @@ from disco4est_tpu_torch.driver import run_poisson
 from disco4est_tpu_torch.problems.poisson import SinxProblem
 from disco4est_tpu_torch.util.config import Options
 
+from torch_threads import torch_worker_threads  # noqa: F401
+
 LORENTZIAN = """
 [initial_mesh]
 min_level = 1

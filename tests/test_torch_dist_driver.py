@@ -35,6 +35,8 @@ from disco4est_tpu_torch.util.config import Options
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "refcheck"))
 import dist_smoke_pins as P  # noqa: E402  (options text only, no JAX)
+from torch_threads import (  # noqa: E402, F401
+    rank_threads, torch_worker_threads)
 
 RANK_TIMEOUT_S = 120
 # the JAX distributed driver, 8 virtual CPU devices
@@ -58,9 +60,11 @@ def _free_port():
 
 
 def run_ranks(n, texts, tmp_path, problem="sinx"):
-    """Run n rank processes of the CLI (rank r reads `texts[r]`); returns
+    """Run n rank processes of the CLI (rank r reads `texts[r]`), each with
+    an equal share of this process's torch threads; returns
     [(returncode, stdout, stderr)] by rank."""
     port = _free_port()
+    threads = rank_threads(n)
     procs = []
     try:
         for r in range(n):
@@ -69,7 +73,7 @@ def run_ranks(n, texts, tmp_path, problem="sinx"):
             env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(n),
                        LOCAL_RANK=str(r), LOCAL_WORLD_SIZE=str(n),
                        MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
-                       OMP_NUM_THREADS="1", PYTHONPATH=str(ROOT))
+                       OMP_NUM_THREADS=str(threads), PYTHONPATH=str(ROOT))
             procs.append(subprocess.Popen(
                 [sys.executable, "-m", "disco4est_tpu_torch", str(path),
                  f"--problem={problem}", "--device=cpu"],

@@ -11,6 +11,7 @@ estimator to 1e-10 relative (ROADMAP A7, A9).
 
 import ast
 import contextlib
+import os
 import pathlib
 import subprocess
 import sys
@@ -23,6 +24,8 @@ from disco4est_tpu_torch import __main__ as cli
 from disco4est_tpu_torch.driver import run_poisson
 from disco4est_tpu_torch.problems.poisson import LorentzianProblem, SinxProblem
 from disco4est_tpu_torch.util.config import Options
+
+from torch_threads import torch_worker_threads  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 SINX_LINE = "64 512 512 0.02441355792354"
@@ -134,6 +137,7 @@ def test_cli_module_subprocess(tmp_path):
         [sys.executable, "-m", "disco4est_tpu_torch", str(path),
          "--problem=sinx", "--device=cpu"],
         cwd=ROOT, capture_output=True, text=True, timeout=120,
+        env=dict(os.environ, OMP_NUM_THREADS=str(torch.get_num_threads())),
     )
     assert proc.returncode == 0, proc.stderr
     lines = proc.stdout.splitlines()
@@ -295,6 +299,7 @@ def test_cli_amr_subprocess(tmp_path):
         [sys.executable, "-m", "disco4est_tpu_torch", str(path),
          "--problem=sinx", "--device=cpu"],
         cwd=ROOT, capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, OMP_NUM_THREADS=str(torch.get_num_threads())),
     )
     assert proc.returncode == 0, proc.stderr
     lines = proc.stdout.splitlines()

@@ -16,6 +16,8 @@ import torch
 
 from disco4est_tpu_torch.estimators import stats as tstats
 
+from torch_threads import torch_worker_threads  # noqa: F401
+
 
 @pytest.fixture(scope="module")
 def hanging_mixed():

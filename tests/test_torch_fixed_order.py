@@ -41,18 +41,9 @@ from disco4est_tpu_torch.mesh.tree import Forest as TForest
 from disco4est_tpu_torch.laplacian.sipg import apply_sipg
 from disco4est_tpu_torch.ops.rows import add_face_rows
 
+from torch_threads import torch_worker_threads  # noqa: F401
+
 SPHERE7 = dict(kind="7tree", R0=1.0, R1=2.0)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread for these small tensors: the tier-1 run shares
-    the host's cores among its workers, and spinning OpenMP threads then
-    take most of the time."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _rel(a, b):

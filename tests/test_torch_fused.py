@@ -30,6 +30,8 @@ from disco4est_tpu_torch.laplacian import fused
 from disco4est_tpu_torch.mesh.builder import build_mesh as tbuild
 from disco4est_tpu_torch.mesh.tree import Forest as TForest
 
+from torch_threads import torch_worker_threads  # noqa: F401
+
 F64_TOL = 1e-12
 F32_TOL = 5e-6
 # (deg, level, x1, trees per axis): `tests/test_pallas_sipg.py:23,41`,

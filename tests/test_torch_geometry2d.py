@@ -52,6 +52,7 @@ from disco4est_tpu_torch.mesh.tree import Forest as TForest
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]
                        / "refcheck"))
 import geometry_smoke_pins as pins  # noqa: E402  (the options' one source)
+from torch_threads import torch_worker_threads  # noqa: E402, F401
 
 # `python refcheck/geometry_smoke_pins.py t_disk ap t_hole conv` (JAX, CPU)
 CLI_PINS = {
@@ -69,14 +70,6 @@ CONVERGENCE = {
     ("trap", 2): 0.027688184719026284, ("trap", 4): 0.00025838514203374346,
     ("pizza", 2): 0.006636383432693189, ("pizza", 4): 0.0003699658282377164,
 }
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _rel(a, b):

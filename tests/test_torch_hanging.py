@@ -26,6 +26,8 @@ from disco4est_tpu_torch.laplacian.sipg import apply_sipg
 from disco4est_tpu_torch.mesh.builder import build_mesh as tbuild
 from disco4est_tpu_torch.mesh.tree import ROOT, Forest as TForest
 
+from torch_threads import torch_worker_threads  # noqa: F401
+
 DATA = pathlib.Path(__file__).resolve().parent / "data"
 P4EST_ROOT = 1 << 30
 SCALAR_VARIANTS = {

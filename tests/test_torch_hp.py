@@ -12,6 +12,8 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import torch_worker_threads  # noqa: F401
+
 TOL = 1e-12
 
 

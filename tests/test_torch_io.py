@@ -55,16 +55,10 @@ from disco4est_tpu_torch.mesh.builder import build_mesh as tbuild
 from disco4est_tpu_torch.mesh.tree import Forest as TForest
 from disco4est_tpu_torch.util import logging as tlog
 
+from torch_threads import torch_worker_threads  # noqa: F401
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 TOL = 1e-12
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @contextlib.contextmanager
@@ -401,7 +395,7 @@ def test_checkpoint_plotter_cli(tmp_path):
     opts_path = tmp_path / "opts.input"
     ck = tmp_path / "ck"
     opts_path.write_text(CLI_OPTIONS + f"[checkpoint]\nprefix = {ck}\n")
-    env = dict(os.environ, OMP_NUM_THREADS="1")
+    env = dict(os.environ, OMP_NUM_THREADS=str(torch.get_num_threads()))
     r = subprocess.run(
         [sys.executable, "-m", "disco4est_tpu_torch", str(opts_path),
          "--problem=sinx", "--device=cpu"],

@@ -71,6 +71,8 @@ from disco4est_tpu_torch.mesh.builder import build_mesh
 from disco4est_tpu_torch.mesh.tree import Forest
 from disco4est_tpu_torch.tools import exp_kernel_design as X
 
+from torch_threads import torch_worker_threads  # noqa: F401
+
 REL_TOL = 5e-6
 AXIS_TOL = 1e-5
 CASES = [(1, 2, (1.0, 1.0, 1.0)), (2, 1, (1.0, 1.0, 1.0)),

@@ -51,6 +51,7 @@ from disco4est_tpu_torch.solvers import schwarz_overlap as tso
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]
                        / "refcheck"))
 import precond_smoke_pins as pins  # noqa: E402  (the options' one source)
+from torch_threads import torch_worker_threads  # noqa: E402, F401
 
 # `python refcheck/precond_smoke_pins.py t_schwarz t_cds_schwarz` (JAX,
 # CPU, the materialized variant): (elements, DOF, L2, Krylov counts)
@@ -60,14 +61,6 @@ MATERIALIZED = {
 }
 TABLES = ("member", "valid", "codes", "mask_table", "weight_table",
           "nbr_slot", "bnd", "conf")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _rel(a, b):

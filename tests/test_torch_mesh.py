@@ -23,6 +23,8 @@ from disco4est_tpu_torch.mesh.builder import (
 )
 from disco4est_tpu_torch.mesh.tree import Forest as TForest
 
+from torch_threads import torch_worker_threads  # noqa: F401
+
 TOL = 1e-13
 FLOAT_FIELDS = (
     "xyz_lobatto", "xyz_quad", "j_quad", "wjgg", "face_xyz_lobatto",

@@ -42,6 +42,8 @@ from disco4est_tpu_torch.solvers.fcg import fcg_solve
 from disco4est_tpu_torch.util import trace
 from disco4est_tpu_torch.util.config import Options
 
+from torch_threads import torch_worker_threads  # noqa: F401
+
 OPTIONS = """
 [geometry]
 name = brick
@@ -57,14 +59,6 @@ num_of_amr_steps = {steps}
 ksp_type = fcg
 pc_type = multigrid
 """
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 4))
-    yield
-    torch.set_num_threads(n)
 
 
 class StandInGraph:

@@ -35,6 +35,7 @@ that the reference's own test stops within one step of it.
 
 import copy
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -53,6 +54,8 @@ from disco4est_tpu_torch.solvers import multigrid as MG
 from disco4est_tpu_torch.solvers.cg import cg_solve
 from disco4est_tpu_torch.util.config import Options
 
+from torch_threads import torch_worker_threads  # noqa: F401
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 CELLS = ("sinx_brick_l5_deg3_mg", "sinx_brick_l5to6_deg3_mg")
 TOL = 1e-11
@@ -60,14 +63,6 @@ TOL = 1e-11
 # 0-12 % short on the level-2 hierarchies (deg 2 and 3), and never above
 # it beyond rounding
 LMAX_SHORT = 0.15
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 4))
-    yield
-    torch.set_num_threads(n)
 
 
 def _options(level, deg, steps=0, pc_type="multigrid"):
@@ -285,7 +280,6 @@ def _toy_trace_lines():
         "import copy, json, sys, time\n"
         f"sys.path.insert(0, {str(ROOT)!r})\n"
         "import torch\n"
-        "torch.set_num_threads(4)\n"
         "from benchmark import harness\n"
         "from disco4est_tpu_torch.util import trace\n"
         "out = {}\n"
@@ -298,8 +292,9 @@ def _toy_trace_lines():
         "    spans = sorted({s['name'] for s in trace.runs()[-1]['spans']})\n"
         "    out[name] = dict(code=code, line=line, spans=spans)\n"
         "print(json.dumps(out))\n")
+    env = dict(os.environ, OMP_NUM_THREADS=str(torch.get_num_threads()))
     proc = subprocess.run([sys.executable, "-c", script], capture_output=True,
-                          text=True, timeout=300, cwd=ROOT)
+                          text=True, timeout=300, cwd=ROOT, env=env)
     assert proc.returncode == 0, proc.stderr[-3000:]
     return json.loads(proc.stdout.strip().splitlines()[-1])
 

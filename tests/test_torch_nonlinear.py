@@ -38,16 +38,7 @@ from disco4est_tpu_torch.geometry.cubed_sphere import (
 from disco4est_tpu_torch.mesh.builder import build_mesh as tbuild
 from disco4est_tpu_torch.mesh.tree import Forest as TForest
 
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread for these small tensors: the tier-1 run shares
-    the host's cores among its workers, and spinning OpenMP threads then
-    take most of the time."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import torch_worker_threads  # noqa: F401
 
 
 def _rel(a, b):

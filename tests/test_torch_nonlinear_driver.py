@@ -36,15 +36,7 @@ from disco4est_tpu_torch.solvers.cg import cg_solve
 from disco4est_tpu_torch.solvers.newton import NewtonParams, newton_solve
 from disco4est_tpu_torch.util.config import Options
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread for these small tensors: the tier-1 run shares
-    the host's cores among its workers, and spinning OpenMP threads then
-    take most of the time."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import torch_worker_threads  # noqa: F401
 
 
 CDS_OPTIONS = """

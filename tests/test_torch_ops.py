@@ -18,6 +18,8 @@ from disco4est_tpu_torch.ops import tensor as ttensor
 from disco4est_tpu_torch.ops.operators import DB as TDB
 from disco4est_tpu_torch.quadrature.quadrature import Quadrature as TQuadrature
 
+from torch_threads import torch_worker_threads  # noqa: F401
+
 TOL = 1e-15
 DEGS = list(range(1, 8))
 

@@ -21,25 +21,15 @@ import pathlib
 import sys
 
 import pytest
-import torch
 
 from disco4est_tpu_torch.tools import oracles
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]
                        / "refcheck"))
 import oracle_smoke_pins as P  # noqa: E402
+from torch_threads import torch_worker_threads  # noqa: E402, F401
 
 STAMM_CPU_ROWS = 6
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread: the tier-1 run shares the host's cores among
-    its workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def test_sinx_interp_abs_digit():

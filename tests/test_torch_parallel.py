@@ -30,15 +30,9 @@ from disco4est_tpu_torch.parallel import mg as PMG
 from disco4est_tpu_torch.parallel import repartition as R
 from disco4est_tpu_torch.parallel.sharding import shard_field, shard_mesh_data
 
+from torch_threads import run_thread_ranks, torch_worker_threads  # noqa: F401
+
 KINDS = ["brick", "hanging", "hp", "sphere", "sphere_hanging"]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _rel(a, b):
@@ -162,7 +156,7 @@ def test_comm_world_backend_and_collectives():
         return (recv, comm.dot(a, a), comm.all_gather_rows(a[None]),
                 comm.broadcast(np.array([comm.rank])))
 
-    out = C.ThreadGroup(3).run(rank)
+    out = run_thread_ranks(3, rank)
     for r, (recv, d, rows, b) in enumerate(out):
         assert recv[:, 0].tolist() == [10.0 * j + r for j in range(3)]
         assert float(d) == float(out[0][1]) == 5.0 + 14.0 + 29.0
@@ -437,7 +431,7 @@ def test_sharded_transfers_bounds_and_vcycle_match_global(kind):
                   for i, t in enumerate(sh.transfers)]
             return sh.layouts, bounds, x, rc, ef
 
-        out = C.ThreadGroup(n).run(rank)
+        out = run_thread_ranks(n, rank)
         lays, bounds = out[0][0], out[0][1]
         g = lambda k, lev, i=None: R.unmigrate_field(  # noqa: E731
             torch.cat([o[k] if i is None else o[k][i] for o in out]),
@@ -463,7 +457,7 @@ def test_sharded_vcycle_refuses_schwarz_smoothers():
         bad = dataclasses.replace(th.params, smoother=sm)
         h = type(th)(th.meshes, th.maps, bad, hp=th.hp)
         with pytest.raises(NotImplementedError, match="C2"):
-            C.ThreadGroup(1).run(lambda c: PMG.build_sharded_hierarchy(h, c))
+            run_thread_ranks(1, lambda c: PMG.build_sharded_hierarchy(h, c))
 
 
 # ---------------------------------------------------------------------------
@@ -571,7 +565,7 @@ def _amr_epoch(n):
         _, x2 = epoch(mesh2, shard_field(u2, comm.rank, comm.size))
         return log, x2
 
-    return C.ThreadGroup(n).run(rank)
+    return run_thread_ranks(n, rank)
 
 
 def test_amr_epoch_rank_count_invariance():
@@ -623,7 +617,7 @@ def test_c17_witness_general_form_cg_matches_the_distributed_cg():
         return driver._solve_dist(ep, rhs, x0, hp=False, use_mixed=False,
                                   ksp="cg", mixed_opts={})
 
-    (info, x), (_, x1) = C.ThreadGroup(2).run(rank)
+    (info, x), (_, x1) = run_thread_ranks(2, rank)
     assert info.path == "cg-halo" and torch.equal(x, x1)
     u_a = mesh.init_field(SinxProblem.analytic)
     l2 = {k: float(norm_L2(mesh, v - u_a))

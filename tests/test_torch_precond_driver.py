@@ -36,7 +36,6 @@ import sys
 import pathlib
 
 import pytest
-import torch
 
 from disco4est_tpu_torch import __main__ as cli
 from disco4est_tpu_torch import driver
@@ -46,6 +45,7 @@ from disco4est_tpu_torch.util.config import Options
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]
                        / "refcheck"))
 import precond_smoke_pins as pins  # noqa: E402  (the options' one source)
+from torch_threads import torch_worker_threads  # noqa: E402, F401
 
 REL = 1e-10  # linear: both solves reach the f64 residual floor
 CDS_L2_ABS = 2e-12  # Newton stops at ‖F‖ ≤ 1e-12, leaving ~1e-12 in u
@@ -79,14 +79,6 @@ PINS = {
 PATHS = {"t_mg": "fcg-mg", "t_cheby": "cg-cheby", "t_schwarz": "fcg-schwarz",
          "mg_so_reuse": "fcg-mg", "mg_none_cheby": "fcg-mg",
          "mg_cheby_cheby": "fcg-mg", "mg_block": "fcg-mg"}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _digest(forest):

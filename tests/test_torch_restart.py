@@ -36,6 +36,8 @@ from disco4est_tpu_torch.solvers.cg import cg_solve
 from disco4est_tpu_torch.solvers.fcg import fcg_solve
 from disco4est_tpu_torch.util.config import Options
 
+from torch_threads import torch_worker_threads  # noqa: F401
+
 # the options of `tests/test_restart.py` (`BASE_LINEAR`, `RESTART_EXTRA`,
 # `BASE_NONLINEAR`, `NONLINEAR_RESTART`), with the step count a parameter
 LINEAR = """
@@ -87,14 +89,6 @@ ksp_type = fcg
 pc_type = cheby
 {extra}
 """
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _linear(steps=2, restart="", extra=""):

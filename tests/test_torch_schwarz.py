@@ -27,13 +27,7 @@ import numpy as np
 import pytest
 import torch
 
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import torch_worker_threads  # noqa: F401
 
 
 def _rel(a, b):

@@ -35,6 +35,8 @@ from disco4est_tpu_torch.mesh.builder import build_mesh as tbuild
 from disco4est_tpu_torch.mesh.tree import Forest as TForest
 from disco4est_tpu_torch.util import gen_wgmma
 
+from torch_threads import torch_worker_threads  # noqa: F401
+
 REL_TOL = 5e-6
 PART_TOL = 2.0**-21
 # (deg, x1): degrees 1-7 on the unit cube (nblk 1) and an nblk-3 brick

@@ -31,6 +31,8 @@ from disco4est_tpu_torch.geometry.cubed_sphere import (
 from disco4est_tpu_torch.mesh.builder import MeshData, build_mesh as tbuild
 from disco4est_tpu_torch.mesh.tree import Forest as TForest
 
+from torch_threads import torch_worker_threads  # noqa: F401
+
 GEOMETRIES = {
     "7tree": ("7tree", dict(R0=1.0, R1=2.0)),
     "13tree_outer": ("13tree", dict(R0=10.0, R1=20.0, R2=1000.0,

@@ -26,6 +26,8 @@ from disco4est_tpu_torch.laplacian.fast import _apply_orth
 from disco4est_tpu_torch.mesh.builder import build_mesh as tbuild
 from disco4est_tpu_torch.mesh.tree import Forest as TForest
 
+from torch_threads import torch_worker_threads  # noqa: F401
+
 F64_TOL = 1e-13
 F32_TOL = 5e-6
 CASES = [(2, 1, (1.0, 1.0, 1.0)), (7, 1, (1.0, 1.0, 1.0)),

@@ -30,6 +30,8 @@ from disco4est_tpu_torch.tools import (
 )
 from disco4est_tpu_torch.tools import exp_kernel_design as X
 
+from torch_threads import torch_worker_threads  # noqa: F401
+
 AXIS_TOL = 1e-5
 F32_TOL = 5e-6
 

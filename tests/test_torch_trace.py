@@ -21,6 +21,7 @@
 """
 
 import json
+import os
 import pathlib
 import re
 import subprocess
@@ -36,6 +37,8 @@ from disco4est_tpu_torch.problems.poisson import SinxProblem
 from disco4est_tpu_torch.solvers.cg import cg_solve
 from disco4est_tpu_torch.util import trace
 from disco4est_tpu_torch.util.config import Options
+
+from torch_threads import torch_worker_threads  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
@@ -358,8 +361,9 @@ def _toy_lines():
         "        t_start=time.perf_counter(), device='cpu', cell=cell)\n"
         "    out[name] = dict(code=code, line=line)\n"
         "print(json.dumps(out))\n")
+    env = dict(os.environ, OMP_NUM_THREADS=str(torch.get_num_threads()))
     proc = subprocess.run([sys.executable, "-c", script], capture_output=True,
-                          text=True, timeout=300, cwd=ROOT)
+                          text=True, timeout=300, cwd=ROOT, env=env)
     assert proc.returncode == 0, proc.stderr[-3000:]
     return json.loads(proc.stdout.strip().splitlines()[-1])
 
