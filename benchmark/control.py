@@ -16,6 +16,11 @@ line per reading.  The limit of each
 number lies above the largest reading of the program and below the
 smallest of the control (PERF.md gives both).  The benchmark's own runs
 do not run this.
+
+A cell on N > 1 cards reads the program (and the early stop) as N ranks
+through the benchmark's launcher (`ranks.launch`), every rank running the
+same problems and rank 0 judging them; rank 0 then computes the control
+on its card alone.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import os
 import pathlib
 import sys
 import time
@@ -66,7 +72,10 @@ def stopped_early():
             mixed, fcg, newton)
 
 
-def readings(name, control, device, cell=None, out=print, early=0):
+def readings(name, control, device, cell=None, out=print, early=0,
+             lead=True):
+    """The readings' rows (each also passed to `out` as a JSON line);
+    with `lead` False (a rank other than 0) the program's runs alone."""
     import torch
 
     from benchmark import harness
@@ -83,6 +92,8 @@ def readings(name, control, device, cell=None, out=print, early=0):
         t0 = time.perf_counter()
         res = job(k + 1)
         wall = time.perf_counter() - t0
+        if not lead:
+            return
         s = harness.summary(res)
         last = res.solves[-1]
         # the program's own reading of its stopping test, and the one
@@ -109,7 +120,7 @@ def readings(name, control, device, cell=None, out=print, early=0):
     with stopped_early():
         for k in range(early):
             judge("early", k)
-    for k in range(control):
+    for k in range(control if lead else 0):
         ref = job.kind.reference(job.data(k + 1), job.sections)
         b32 = Brick.build(level, deg, dtype=torch.float32, device=device)
         u32, l2_32 = ref.solve(b32)
@@ -130,8 +141,32 @@ def main(argv=None) -> int:
     sys.path[:] = [p for p in sys.path
                    if pathlib.Path(p or ".").resolve() != ROOT / "benchmark"]
     sys.path.insert(0, str(ROOT))
+    from benchmark import harness, ranks
+
+    n = int(harness.load_cell(args.workload)[0].get("chips", 1))
+    if n > 1 and not ranks.is_rank():
+        return ranks.launch(
+            [sys.executable, str(pathlib.Path(__file__).resolve()),
+             "--workload", args.workload, "--control", str(args.control),
+             "--early", str(args.early), "--device", args.device], n,
+            t_start=time.perf_counter())
+    if n > 1:
+        as_rank(args.workload, args.control, args.device, early=args.early)
     readings(args.workload, args.control, args.device, early=args.early)
     return 0
+
+
+def as_rank(name, control, device, cell=None, early=0):
+    """`readings` as one rank of a launched world; ends the process (as
+    `ranks.run_rank` does)."""
+    from benchmark import ranks
+
+    rank, _, _ = ranks.enter(device)
+    readings(name, control, device, cell=cell, early=early, lead=rank == 0,
+             out=print if rank == 0 else (lambda s: None))
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
 
 
 if __name__ == "__main__":

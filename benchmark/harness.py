@@ -17,6 +17,15 @@ trace mode measures the per-layer metrics in three phases of one process:
 plain runs (their wall times and solver counts), runs with synchronized
 spans (layer times), and runs under `torch.profiler` (device busy,
 kernel time inside spans, idle gaps).
+
+A cell on N > 1 cards runs as N ranks (`ranks.py`), each this module in
+a process of its own, all with the same job sequence.  After every run
+the ranks agree (`ranks.Team`) on the seconds since their window began,
+the run's wall and whether it failed anywhere, and take the largest of
+each: they end the window together, a run's wall is the slowest rank's,
+and a run that failed on one rank is a failed run on every rank and ends
+the window.  Rank 0 alone runs the profiler and the check, and prints the
+result line; the peaks are gathered from every rank.
 """
 
 from __future__ import annotations
@@ -144,8 +153,9 @@ class Window:
     """Runs the job back to back and keeps a seeded sample of the results
     for the check (reservoir sampling over all runs of the process)."""
 
-    def __init__(self, job: Job):
-        self.job = job
+    def __init__(self, job: Job, team=None):
+        self.job, self.team = job, team
+        self.ended = False  # a failed run ended an agreed window
         self.index = 1
         self.rng = np.random.default_rng([job.seed % 2**64, 1])
         self.sample = []  # (index, u, l2, n_elements, deg)
@@ -179,6 +189,8 @@ class Window:
     def loop(self, seconds: float, wrap=None, min_runs=1, max_runs=None):
         """Runs until `seconds` have passed (and at least `min_runs`);
         (their records, the window's wall seconds)."""
+        if self.team is not None:
+            return self._agreed_loop(seconds, wrap, min_runs, max_runs)
         runs = []
         t0 = time.perf_counter()
         while True:
@@ -192,6 +204,34 @@ class Window:
                     and time.perf_counter() - t0 >= seconds):
                 break
         return runs, time.perf_counter() - t0
+
+    def _agreed_loop(self, seconds, wrap, min_runs, max_runs):
+        """`loop` over the ranks: after each run, the largest of every
+        rank's seconds since the window began, wall and failed flag decide
+        for all; the window's wall is the slowest rank's, to the end of
+        its last run."""
+        runs, elapsed = [], 0.0
+        if self.ended:
+            return runs, elapsed
+        t0 = time.perf_counter()
+        while True:
+            out = self.run_one(wrap)
+            elapsed, wall, failed = self.team.max(
+                [time.perf_counter() - t0,
+                 0.0 if out is None else out["wall_s"], out is None])
+            if failed:
+                if out is not None:
+                    self.failed += 1
+                    self.errors.append(f"run {self.index - 1} failed on "
+                                       "another rank")
+                self.ended = True
+                break
+            runs.append(dict(out, wall_s=wall))
+            if max_runs is not None and len(runs) >= max_runs:
+                break
+            if len(runs) >= min_runs and elapsed >= seconds:
+                break
+        return runs, elapsed
 
 
 def check(job: Job, window: Window, device: str) -> tuple[bool, dict]:
@@ -237,7 +277,8 @@ def gpu_state() -> dict:
 def traced(window: Window, seconds: float, on_card: bool) -> dict:
     """The trace mode's three phases: plain runs for half the window, runs
     with synchronized spans for a quarter, then at most two runs under
-    `torch.profiler` (on the card)."""
+    `torch.profiler` (on the card; on rank 0 alone, the other ranks making
+    the same runs unprofiled)."""
     plain, _ = window.loop(seconds / 2, min_runs=3)
     recorder = trace.Recorder()
     span_runs = []
@@ -251,7 +292,9 @@ def traced(window: Window, seconds: float, on_card: bool) -> dict:
     window.loop(seconds / 4, wrap=synced, min_runs=2)
     prof_rec = trace.Recorder()
     prof_out = {}
-    if on_card:
+    if on_card and window.team is not None and not window.team.lead:
+        window.loop(seconds / 4, min_runs=1, max_runs=2)
+    elif on_card:
         from torch.profiler import ProfilerActivity, profile, record_function
 
         def profiled(call):
@@ -268,6 +311,21 @@ def traced(window: Window, seconds: float, on_card: bool) -> dict:
                         calls=prof_rec.take()["calls"])
     return dict(runs=plain, span_runs=span_runs, profile=prof_out,
                 shapes=dict(recorder.shapes, **prof_rec.shapes))
+
+
+def forbidden_loaded() -> list:
+    """The modules of `FORBIDDEN` that this process has loaded (named on
+    standard error), compared by whole top-level names."""
+    found = sorted({m.split(".")[0] for m in sys.modules} & set(FORBIDDEN))
+    if found:
+        print(f"forbidden modules loaded: {', '.join(found)}",
+              file=sys.stderr)
+    return found
+
+
+def memory_peak(on_card: bool) -> int:
+    """This process's peak of allocated device memory, in bytes."""
+    return torch.cuda.max_memory_allocated() if on_card else 0
 
 
 def read_metrics(names, rec: dict) -> dict:
@@ -291,12 +349,21 @@ def run_cell(name: str, seed: int, seconds: float, trace_on: bool, *,
              t_start: float, device: str = "cuda",
              cell: dict | None = None) -> tuple[int, dict | None]:
     """One process's run of cell `name`; (exit code, result line).
-    `cell` replaces the cell's file (tests run a cell at a toy size)."""
+    `cell` replaces the cell's file (tests run a cell at a toy size).  A
+    cell on N > 1 cards runs in each of N ranks (`ranks.run_rank`); rank
+    0 returns the line, the others None."""
     spec = load_json(ROOT / "BENCHMARK.json")
     file_cell, config = load_cell(name)
     cell = cell or file_cell
     job = Job(cell, config, seed, device)
-    window = Window(job)
+    chips = int(cell.get("chips", 1))
+    team = None
+    if chips > 1:
+        from benchmark.ranks import Team
+
+        team = Team.join(job.sections, device, chips)
+    lead = team is None or team.lead
+    window = Window(job, team)
     on_card = device == "cuda"
     if on_card:
         torch.empty(1, device="cuda")  # the CUDA context
@@ -309,10 +376,12 @@ def run_cell(name: str, seed: int, seconds: float, trace_on: bool, *,
     print(f"setup: {t_warm - t_start:.3f} s imports and device, "
           f"{setup_s - (t_warm - t_start):.3f} s warm-up run",
           file=sys.stderr)
-    setup_peak = torch.cuda.max_memory_allocated() if on_card else 0
+    if team is not None:
+        setup_s = team.max([setup_s])[0]  # to the slowest rank's warm-up
+    setup_peak = memory_peak(on_card)
     if on_card:
         torch.cuda.reset_peak_memory_stats()
-    state = [gpu_state()] if on_card else []
+    state = [gpu_state()] if on_card and lead else []
 
     rec = dict(cell=name, setup_s=setup_s, seconds=seconds,
                options=job.sections)
@@ -325,28 +394,40 @@ def run_cell(name: str, seed: int, seconds: float, trace_on: bool, *,
                                        for r in rec["runs"]), file=sys.stderr)
     print("run CPU (s): " + " ".join(f"{r['cpu_s']:.4f}"
                                      for r in rec["runs"]), file=sys.stderr)
-    window_peak = torch.cuda.max_memory_allocated() if on_card else 0
+    window_peak = memory_peak(on_card)
+    peaks = [(setup_peak, window_peak)]
+    if team is not None:
+        peaks = team.gather([setup_peak, window_peak])
+        print(f"rank {team.rank} of {team.size}: attempted "
+              f"{window.attempted}, failed {window.failed}; peak bytes "
+              f"set-up {setup_peak}, window {window_peak}", file=sys.stderr)
+        window_peak = max(w for _, w in peaks)  # the fullest card's
     rec["window_peak_bytes"] = window_peak
-    if on_card:
+    if state:
         state.append(gpu_state())
         print(f"card before / after the window: {state}", file=sys.stderr)
     rec["power_limit_w"] = state[-1].get("power.limit") if state else None
-    metrics = read_metrics(metric_names(spec, name, trace_on), rec)
-
-    ok, numbers = check(job, window, device)
-    found = sorted({m.split(".")[0] for m in sys.modules} & set(FORBIDDEN))
+    if lead:
+        metrics = read_metrics(metric_names(spec, name, trace_on), rec)
+        ok, numbers = check(job, window, device)
+    found = bool(forbidden_loaded())
+    if team is not None:  # on any rank
+        found = bool(team.max([found])[0])
     if found:
-        print(f"forbidden modules loaded: {', '.join(found)}",
-              file=sys.stderr)
         return 4, None
     for err in window.errors[-1:]:
         print(err, file=sys.stderr)
+    if not lead:
+        return 0, None
     device_info = dict(
         platform="gpu" if on_card else "cpu",
-        kind=torch.cuda.get_device_name(0) if on_card else "cpu",
-        count=int(cell.get("chips", 1)),
-        memory_peak_bytes=int(max(setup_peak, window_peak)),
+        kind=torch.cuda.get_device_name() if on_card else "cpu",
+        count=chips,
+        memory_peak_bytes=int(max(max(p) for p in peaks)),
     )
+    if team is not None:
+        device_info["memory_peak_bytes_by_rank"] = [int(max(p))
+                                                    for p in peaks]
     line = dict(correct=ok, attempted=window.attempted,
                 failed=window.failed, metrics=metrics, device=device_info)
     prof = rec.get("profile")

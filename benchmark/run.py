@@ -1,4 +1,4 @@
-"""The benchmark of disco4est_tpu_torch: one cell, one process.
+"""The benchmark of disco4est_tpu_torch: one cell, one process a card.
 
 From the root of a checkout, on a machine with the card(s) the cell asks
 for:
@@ -14,6 +14,10 @@ limits (also the last lines of standard error).  It exits non-zero with
 no result line when there is no card, fewer cards than the cell asks
 for, no program beside the benchmark, or when JAX or the JAX package is
 loaded after the window.
+
+A cell whose `chips` is N > 1 runs as N ranks of the port's distributed
+path, one process a card: this process starts N copies of itself with
+torchrun's variables (`ranks.launch`), and prints rank 0's result line.
 """
 
 from __future__ import annotations
@@ -71,6 +75,17 @@ def main(argv=None) -> int:
     except ImportError as exc:
         print(f"the program under test is missing: {exc}", file=sys.stderr)
         return 3
+    if need > 1:
+        from benchmark import ranks
+
+        if ranks.is_rank():  # never returns
+            ranks.run_rank(args.workload, args.seed, args.seconds,
+                           bool(args.trace), "cuda", t_start=T_START)
+        return ranks.launch(
+            [sys.executable, str(pathlib.Path(__file__).resolve()),
+             "--workload", args.workload, "--seed", str(args.seed),
+             "--seconds", repr(args.seconds), "--trace", str(args.trace)],
+            need, t_start=T_START)
     torch.cuda.set_device(0)
     code, line = harness.run_cell(args.workload, args.seed, args.seconds,
                                   bool(args.trace), t_start=T_START)

@@ -1,9 +1,13 @@
-"""The benchmark's CPU tests: the checkout's root on the import path, and
-small cells (a toy level of each cell, `toy_cell`)."""
+"""The benchmark's CPU tests: the checkout's root on the import path,
+small cells (a toy level of each cell, `toy_cell`), and a cell run as N
+ranks through the launcher (`launch_cell`)."""
 
 import copy
+import json
 import pathlib
+import subprocess
 import sys
+import time
 
 import pytest
 
@@ -38,3 +42,39 @@ def toy_cell(name):
 @pytest.fixture
 def toy():
     return toy_cell
+
+
+def launch_cell(name, cell, n, *, seed=0, seconds=0.0, trace=0,
+                device="cpu", prelude="", call=None, timeout=900):
+    """Cell `name` (its file replaced by `cell`) as `n` ranks through
+    `ranks.launch`, in a launcher process of its own, each rank running
+    `prelude` (source; `RANK` is its rank) before `ranks.run_rank` (or the
+    source `call`, with the cell as `CELL`); the launcher's
+    `CompletedProcess` and its seconds."""
+    call = call or (
+        f"ranks.run_rank({name!r}, {seed!r}, {seconds!r}, {bool(trace)!r}, "
+        f"{device!r}, t_start=0.0, cell=CELL)")
+    rank = (
+        "import json, os, sys\n"
+        f"sys.path.insert(0, {str(ROOT)!r})\n"
+        "RANK = int(os.environ['RANK'])\n"
+        f"{prelude}\n"
+        "from benchmark import ranks\n"
+        f"CELL = json.loads({json.dumps(cell)!r})\n"
+        f"{call}\n")
+    launcher = (
+        "import sys, time\n"
+        "t0 = time.perf_counter()\n"
+        f"sys.path.insert(0, {str(ROOT)!r})\n"
+        "from benchmark import ranks\n"
+        f"raise SystemExit(ranks.launch([sys.executable, '-c', {rank!r}], "
+        f"{n}, t_start=t0))\n")
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-c", launcher], cwd=ROOT,
+                         capture_output=True, text=True, timeout=timeout)
+    return out, time.perf_counter() - t0
+
+
+@pytest.fixture
+def launch():
+    return launch_cell

@@ -27,3 +27,28 @@ def test_control_fails_and_program_passes(name, toy):
         assert any(r[k] > v for k, v in limits.items()), r
     assert harness.final_shape(harness.merge(
         harness.load_cell(name)[1]["options"], cell["options"]))
+
+
+def test_control_over_ranks(launch):
+    """A cell on two cards: the program's readings as two gloo ranks, every
+    problem of the set judged once by rank 0, then the early stop and the
+    control (on rank 0 alone)."""
+    import json
+
+    cell, _ = harness.load_cell("sinx_brick_l5_deg3")
+    cell = dict(cell, chips=2, options=harness.merge(cell.get("options", {}), {
+        "initial_mesh": {"min_level": 2, "region0_deg": 2},
+        "parallelism": {"enable": 1, "backend": "gloo"}}))
+    out, _ = launch("sinx_brick_l5_deg3", cell, 2, call=(
+        "from benchmark import control\n"
+        "control.as_rank('sinx_brick_l5_deg3', 1, 'cpu', cell=CELL, "
+        "early=1)"))
+    assert out.returncode == 0, out.stderr[-3000:]
+    rows = [json.loads(t) for t in out.stdout.strip().splitlines()]
+    sides = [r["side"] for r in rows]
+    assert sides == ["program"] * int(cell["data"]["set"]) + [
+        "early", "control"], sides
+    limits = cell["check"]["limits"]
+    for r in rows:
+        inside = all(r[k] <= v for k, v in limits.items())
+        assert inside == (r["side"] == "program"), r
